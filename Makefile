@@ -12,9 +12,9 @@ test:
 	$(PY) -m pytest tests/ -q
 
 lint:
-	$(PY) -m compileall -q stwo_brainfuck_tpu tests bench.py __graft_entry__.py
+	$(PY) -m compileall -q stwo_brainfuck_tpu stwo_brainfuck_tpu_torch tests bench.py __graft_entry__.py chip_smoke.py
 	@if $(PY) -c "import ruff" 2>/dev/null || command -v ruff >/dev/null 2>&1; then \
-		ruff check stwo_brainfuck_tpu tests bench.py __graft_entry__.py; \
+		ruff check stwo_brainfuck_tpu stwo_brainfuck_tpu_torch tests bench.py __graft_entry__.py chip_smoke.py; \
 	else \
 		echo "ruff not installed - skipped (config in pyproject.toml)"; \
 	fi
