@@ -1,22 +1,35 @@
-"""Smoke run of the torch port's main path on one CUDA GPU.
+"""Smoke run of the torch port on one CUDA GPU.
 
     python3 chip_smoke.py
 
 Phases (any failure raises and the script exits non-zero):
-  1. device report: the card's name and power limit, CUDA version, kernel
-     build time (the circle FFT kernel is built with nvcc from
-     stwo_brainfuck_tpu_torch/csrc/ into stwo_brainfuck_tpu_torch/build/);
-  2. the kernel against its plain torch version on the card, bit for bit,
-     for evaluate / interpolate / extend, and both versions' times;
-  3. the small program through the CLI entry point: prove, verify, proof
-     sha256 against the JAX package's, a tampered copy rejected;
-  4. a fib19-class program (programs/fib19_io.bf, input 19: 223,689 steps):
-     prove (once cold, twice warm) and verify, proof sha256 against the JAX
-     package's, per-phase split and peak device memory;
-  5. programs/big22.bf (1.32 M steps, 2^22-row tables): the same figures.
-After each prove the FFT kernel's launch count must have risen and the
-plain FFT must not have run on a CUDA tensor. The last line of stdout is
-the JSON result; the line before it lists the kernels. Needs no jax.
+  1. device report: the card's name, power limit and clocks, CUDA version,
+     kernel build time (both kernel libraries are built with nvcc from
+     stwo_brainfuck_tpu_torch/csrc/ into stwo_brainfuck_tpu_torch/build/,
+     one nvcc per source, started together), and the SASS instruction
+     count of one M31 product (cuobjdump), which sets the instruction-dispatch bounds;
+  2. the circle FFT kernel against its plain torch version on the card, bit
+     for bit, for evaluate / interpolate / extend, and both versions' times;
+  3. the three M31 kernels against their plain versions on the card, bit
+     for bit, at 1 .. 2^24 elements with edge values and a broadcast case,
+     mul_chain at chain 1, 8 and 13, and times at 2^24 beside the bounds;
+  4. the M31 path, counts set to 0 first: the module's mul, mul_add and
+     mul_chain at 2^24, then throughput_benchmark(24) (kernel and plain
+     Gmul/s beside the bound). Each kernel's count must show its launches
+     and the plain guard only the benchmark's own plain calls;
+  5. the device table build against the host builders on the card, bit for
+     bit, for the small program, fib19_io and big22;
+  6. the prover's main path, counts set to 0 first: the small program
+     through the CLI entry point (prove, verify, proof sha256 against the
+     JAX package's, a tampered copy rejected), then fib19_io
+     (programs/fib19_io.bf, input 19: 223,689 steps; prove once cold, twice
+     warm, verify, sha256) and programs/big22.bf (1.32 M steps, 2^22-row
+     tables), each with its per-phase split and peak device memory. After
+     each prove the FFT kernel's launch count must have risen, the plain
+     FFT must not have run on a CUDA tensor and no M31 kernel or plain M31
+     op may have run.
+The last line of stdout is the JSON result; the line before it lists the
+kernels, the one before that names the card. Needs no jax.
 """
 
 from __future__ import annotations
@@ -28,6 +41,8 @@ import io
 import json
 import logging
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -37,8 +52,10 @@ import numpy as np
 import torch
 
 from stwo_brainfuck_tpu_torch import air, cli
+from stwo_brainfuck_tpu_torch.components import device_build, tables
+from stwo_brainfuck_tpu_torch.components.defs import COMPONENT_CLASSES
 from stwo_brainfuck_tpu_torch.core import fft
-from stwo_brainfuck_tpu_torch.ops import circle_fft
+from stwo_brainfuck_tpu_torch.ops import circle_fft, m31_kernels, nvcc
 from stwo_brainfuck_tpu_torch.vm.compiler import compile_program
 from stwo_brainfuck_tpu_torch.vm.machine import create_test_machine
 
@@ -55,6 +72,10 @@ SMALL_INPUT = "\x01"
 FIB_INPUT = bytes([19])
 
 FFT_SIZES = (4, 11, 16, 17, 20, 24)
+M31_SIZES = (1, 127, 128, 4097, 1 << 20, 1 << 24)
+M31_EDGES = (0, 1, 2**16 - 1, 2**16, 2**31 - 2)
+P = 2**31 - 1
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 
 
 def proof_sha256(proof: dict) -> str:
@@ -76,6 +97,60 @@ def _time_ms(fn, reps: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _smi(query: str) -> str:
+    res = subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+                         capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {res.stderr.strip()}")
+    return res.stdout.strip().splitlines()[0]
+
+
+def sass_per_mul() -> dict:
+    """SASS instructions of one M31 product: the chain-of-8 kernel and the
+    mul kernel differ only in 7 more products per element, in the 4-wide
+    vector body and in the scalar tail (35 in all). The min-instruction
+    counts (one per product) show that structure."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", str(m31_kernels.KERNELS.lib.path())],
+                         capture_output=True, text=True, check=True).stdout
+    funcs: dict = {}
+    name = None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if m and name is not None and m.group(1) != "NOP":
+            funcs[name].append(m.group(1))
+
+    def ops(tag):
+        hits = [f for f in funcs if tag in f]
+        if len(hits) != 1:
+            raise AssertionError(f"SASS: {tag} matches {hits} of {sorted(funcs)}")
+        return funcs[hits[0]]
+
+    mul, chain8 = ops("5MulOpE"), ops("ChainOpILi8E")
+    per_mul = (len(chain8) - len(mul)) / 35
+    if per_mul <= 0:
+        raise AssertionError(f"SASS: {len(chain8)} chain-8 vs {len(mul)} mul instructions")
+    return {"per_mul": per_mul, "mul_instructions": len(mul),
+            "chain8_instructions": len(chain8),
+            "mul_min_ops": sum("MNMX" in o for o in mul),
+            "chain8_min_ops": sum("MNMX" in o for o in chain8)}
+
+
+def bound(nbytes: float, instructions: float, dispatch_per_s: float) -> dict:
+    """The least time for the work: bytes over the device-memory rate, or
+    integer instructions over the card's dispatch rate, whichever is larger."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    dispatch_ms = instructions / dispatch_per_s * 1e3
+    return {"bound_ms": max(bytes_ms, dispatch_ms),
+            "bound_by": "bytes" if bytes_ms >= dispatch_ms else "operations",
+            "bytes_bound_ms": bytes_ms, "dispatch_bound_ms": dispatch_ms}
 
 
 def phase_kernel() -> dict:
@@ -139,6 +214,8 @@ def _check_launches(before: int, what: str) -> int:
         raise AssertionError(f"{what}: the circle FFT kernel was not launched")
     if fft.PLAIN_CUDA_CALLS:
         raise AssertionError(f"{what}: the plain FFT ran on a CUDA tensor")
+    if any(m31_kernels.KERNELS.launches.values()) or m31_kernels.PLAIN_CUDA_CALLS:
+        raise AssertionError(f"{what}: an M31 kernel or plain M31 op ran on the prover path")
     return launched
 
 
@@ -216,42 +293,215 @@ def phase_program(name, path, inp, runs: int, expect_sha: str | None) -> int:
     return launched
 
 
+def _m31_values(rng, n: int, spread: str) -> torch.Tensor:
+    """n random canonical values on the card, the first 25 every pair of
+    edge values (a takes them repeated, b and c tiled)."""
+    x = rng.integers(0, P, n).astype(np.int32)
+    e = np.array(M31_EDGES, np.int32)
+    k = min(n, e.size ** 2)
+    x[:k] = (np.repeat(e, e.size) if spread == "repeat" else np.tile(e, e.size))[:k]
+    return torch.as_tensor(x, device="cuda")
+
+
+def phase_m31(per_mul: float, dispatch_per_s: float) -> dict:
+    """The three M31 kernels vs their plain versions on the same CUDA
+    tensors, bit for bit, then both versions' times at 2^24."""
+    K = m31_kernels
+    rng = np.random.default_rng(1)
+    launches0, guard0 = dict(K.KERNELS.launches), K.PLAIN_CUDA_CALLS
+    max_err = dict.fromkeys(K.KINDS, 0)
+    checks = 0
+    wants = {}
+
+    def check(kind, got, want, what):
+        nonlocal checks
+        checks += 1
+        if got.shape != want.shape:
+            raise AssertionError(f"M31 {kind}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        max_err[kind] = max(max_err[kind], err)
+        if err:
+            raise AssertionError(f"M31 {kind} kernel != plain at {what}")
+
+    cases = [(n, _m31_values(rng, n, "repeat"), _m31_values(rng, n, "tile"),
+              _m31_values(rng, n, "tile")) for n in M31_SIZES]
+    cases.append(("broadcast (4097, 1) x (1, 128) + (128,)",
+                  _m31_values(rng, 4097, "repeat").reshape(-1, 1),
+                  _m31_values(rng, 128, "tile")[None, :], _m31_values(rng, 128, "tile")))
+    for what, a, b, c in cases:
+        check("mul", K.mul(a, b), K.mul_plain(a, b), what)
+        check("mul_add", K.mul_add(a, b, c), K.mul_add_plain(a, b, c), what)
+        for chain in (1, 8, 13):
+            check("mul_chain", K.mul_chain(a, b, chain), K.mul_chain_plain(a, b, chain),
+                  f"{what}, chain {chain}")
+        if what == 1 << 24:
+            big = (a, b, c)
+            wants = {"mul": K.mul_plain(a, b), "mul_add": K.mul_add_plain(a, b, c),
+                     "mul_chain": K.mul_chain_plain(a, b, 8)}
+    torch.cuda.synchronize()
+    launched = {k: K.KERNELS.launches[k] - launches0[k] for k in K.KINDS}
+    expect = {"mul": len(cases), "mul_add": len(cases), "mul_chain": 3 * len(cases)}
+    if launched != expect:
+        raise AssertionError(f"M31 comparison launched {launched}, expected {expect}")
+    if K.PLAIN_CUDA_CALLS - guard0 != checks + len(wants):
+        raise AssertionError("a plain M31 op ran on a CUDA tensor outside the named calls")
+    _line("m31_check", {"sizes": M31_SIZES, "broadcast": True, "chains": [1, 8, 13],
+                        "edge_values": M31_EDGES, "comparisons": checks,
+                        "tolerance": 0, "max_abs_err": max_err})
+
+    a, b, c = big
+    n = a.numel()
+    work = {  # kind: (kernel, plain, bytes moved, integer instructions)
+        "mul": (lambda: K.mul(a, b), lambda: K.mul_plain(a, b), 12 * n, n * per_mul),
+        "mul_add": (lambda: K.mul_add(a, b, c), lambda: K.mul_add_plain(a, b, c),
+                    16 * n, n * (per_mul + 2)),
+        "mul_chain": (lambda: K.mul_chain(a, b, 8), lambda: K.mul_chain_plain(a, b, 8),
+                      12 * n, 8 * n * per_mul),
+    }
+    times = {}
+    for kind, (kern, plain, nbytes, instr) in work.items():
+        times[kind] = {"kernel_ms": _time_ms(kern, reps=20), "plain_ms": _time_ms(plain, reps=5),
+                       **bound(nbytes, instr, dispatch_per_s)}
+    _line("m31_times", {"n": n, "chain": 8, **times})
+    return {"max_abs_err": max_err, "times": times, "big": big, "wants": wants}
+
+
+def phase_tables(programs) -> dict:
+    """Device tables vs the host builders on the card, bit for bit."""
+    out = {}
+    for name, code, inp in programs:
+        m = create_test_machine(compile_program(code), inp)
+        m.execute()
+        trace, program = m.trace(), m.program()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        meta = device_build.build_meta(trace, program)
+        t1 = time.perf_counter()
+        mats = device_build.build_device_tables(trace, meta, "cuda")
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        host = tables.all_tables(trace, program)
+        t3 = time.perf_counter()
+        elements = 0
+        for cls in COMPONENT_CLASSES:
+            comp = cls(meta.claim[cls.name])
+            want = np.stack([host[comp.name][col] for col in comp.columns]).view(np.int32)
+            got = mats[comp.name].cpu().numpy()
+            if got.shape != want.shape or not np.array_equal(got, want):
+                raise AssertionError(f"{name}: device table {comp.name} != host builder")
+            elements += got.size
+        out[name] = {"steps": len(trace), "max_log": max(meta.claim.values()),
+                     "meta_s": t1 - t0, "device_build_s": t2 - t1, "host_build_s": t3 - t2,
+                     "elements": elements, "bit_identical": True}
+        del mats, host
+        torch.cuda.empty_cache()
+    _line("tables", out)
+    return out
+
+
+def phase_m31_path(m31: dict, per_mul: float, dispatch_per_s: float) -> dict:
+    """The M31 path with its counts set to 0: the module's functions at
+    2^24, then throughput_benchmark(24)."""
+    K = m31_kernels
+    K.KERNELS.launches = dict.fromkeys(K.KINDS, 0)
+    K.PLAIN_CUDA_CALLS = 0
+    a, b, c = m31["big"]
+    for kind, got in (("mul", K.mul(a, b)), ("mul_add", K.mul_add(a, b, c)),
+                      ("mul_chain", K.mul_chain(a, b, 8))):
+        if not torch.equal(got, m31["wants"][kind]):
+            raise AssertionError(f"M31 path: {kind} != its plain version")
+    tb = K.throughput_benchmark(24)
+    launches = dict(K.KERNELS.launches)
+    expect = {"mul": 1, "mul_add": 1, "mul_chain": 1 + tb["kernel_launches"]}
+    if launches != expect:
+        raise AssertionError(f"M31 path launched {launches}, expected {expect}")
+    if K.PLAIN_CUDA_CALLS != tb["plain_calls"]:
+        raise AssertionError("M31 path: plain M31 ops ran beyond the benchmark's own")
+    byte_rate = K.CHAIN * HBM_BYTES_PER_S / 12   # 8 products per 12 bytes moved
+    dispatch_rate = dispatch_per_s / per_mul
+    _line("m31_throughput", {
+        "log_n": 24, "chain": K.CHAIN, "kernel_gmul_s": tb["kernel"] / 1e9,
+        "plain_gmul_s": tb["plain"] / 1e9, "bound_gmul_s": min(byte_rate, dispatch_rate) / 1e9,
+        "bound_by": "bytes" if byte_rate <= dispatch_rate else "operations",
+        "bytes_bound_gmul_s": byte_rate / 1e9, "dispatch_bound_gmul_s": dispatch_rate / 1e9,
+        "launches": launches, "plain_calls": K.PLAIN_CUDA_CALLS})
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True)
-    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed"
-    circle_fft.KERNEL.library()
+    card = _smi("name,power.limit")
+    max_mhz, sm_mhz = (float(v.split()[0]) for v in _smi("clocks.max.sm,clocks.sm").split(","))
+    nvcc.build_all([circle_fft.KERNEL.lib, m31_kernels.KERNELS.lib])
+    for lib in (circle_fft.KERNEL.lib, m31_kernels.KERNELS.lib):
+        if lib.build_log.strip():
+            print(lib.build_log.strip(), file=sys.stderr)
+    sass = sass_per_mul()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    dispatch_per_s = sms * 4 * 32 * max_mhz * 1e6  # SMs x schedulers x lanes x max SM clock
     _line("device", {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-                     "kernel_build_s": circle_fft.KERNEL.build_seconds})
-    if circle_fft.KERNEL.build_log.strip():
-        print(circle_fft.KERNEL.build_log.strip(), file=sys.stderr)
+                     "sms": sms, "max_sm_mhz": max_mhz, "sm_mhz": sm_mhz,
+                     "kernel_build_s": max(circle_fft.KERNEL.lib.build_seconds,
+                                           m31_kernels.KERNELS.lib.build_seconds),
+                     "sass": sass})
 
     kern = phase_kernel()
+    m31 = phase_m31(sass["per_mul"], dispatch_per_s)
+    # the M31 path: counts start at 0 inside
+    m31_launches = phase_m31_path(m31, sass["per_mul"], dispatch_per_s)
+    del m31["big"], m31["wants"]  # free the 2^24 operands before the prover runs
+    torch.cuda.empty_cache()
+    with open(os.path.join(ROOT, "programs", "fib19_io.bf")) as f:
+        fib_code = f.read()
+    with open(os.path.join(ROOT, "programs", "big22.bf")) as f:
+        big_code = f.read()
+    phase_tables([("small", SMALL_CODE, SMALL_INPUT.encode()),
+                  ("fib19_io", fib_code, FIB_INPUT), ("big22", big_code, b"")])
 
-    # the main path's run: counts start at 0 here
+    # the prover's main path: counts start at 0 here
     circle_fft.KERNEL.launches = 0
     fft.PLAIN_CUDA_CALLS = 0
+    m31_kernels.KERNELS.launches = dict.fromkeys(m31_kernels.KINDS, 0)
+    m31_kernels.PLAIN_CUDA_CALLS = 0
     phase_small()
     phase_program("fib19_io", os.path.join(ROOT, "programs", "fib19_io.bf"), FIB_INPUT,
                   runs=3, expect_sha=REFERENCE_SHA256["fib19_io"])
     phase_program("big22", os.path.join(ROOT, "programs", "big22.bf"), b"",
                   runs=2, expect_sha=None)
-    launches = circle_fft.KERNEL.launches
-    if launches <= 0 or fft.PLAIN_CUDA_CALLS:
+    fft_launches = circle_fft.KERNEL.launches
+    if fft_launches <= 0 or fft.PLAIN_CUDA_CALLS:
         raise AssertionError("main path did not run on the circle FFT kernel")
 
+    n24 = 1 << 24
     headline = kern["times"]["evaluate (4, 2^24)"]
-    print(card)
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "circle_fft", "route": "cuda",
         "source": "stwo_brainfuck_tpu_torch/csrc/circle_fft.cu",
         "replaces": "stwo_brainfuck_tpu/ops/fft_pallas.py:364",
-        "launches": launches, "max_abs_err": kern["max_abs_err"],
+        "launches": fft_launches, "max_abs_err": kern["max_abs_err"],
         "ms": headline["kernel_ms"], "plain_ms": headline["plain_ms"],
-    }]}))
+        # one read and one write of (4, 2^24) int32; 4 x 24 x 2^23 butterflies of
+        # one product, one add and one subtract (2 instructions each, csrc/m31.cuh)
+        **{k: v for k, v in bound(2 * 4 * n24 * 4, 4 * 24 * (n24 // 2) * (sass["per_mul"] + 4),
+                                  dispatch_per_s).items() if k in ("bound_ms", "bound_by")},
+        "library_ms": None,
+    }]
+    for kind, line in (("mul", 48), ("mul_add", 52), ("mul_chain", 111)):
+        t = m31["times"][kind]
+        kernels.append({
+            "name": f"m31_{kind}", "route": "cuda",
+            "source": "stwo_brainfuck_tpu_torch/csrc/m31_kernels.cu",
+            "replaces": f"stwo_brainfuck_tpu/ops/m31_pallas.py:{line}",
+            "launches": m31_launches[kind], "max_abs_err": m31["max_abs_err"][kind],
+            "ms": t["kernel_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None,
+        })
+    if not all(k["launches"] > 0 for k in kernels):
+        raise AssertionError(f"a kernel was not launched on its path: {kernels}")
+    print(card)
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

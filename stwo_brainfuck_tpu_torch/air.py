@@ -4,8 +4,10 @@ Counterpart of ``stwo_brainfuck_tpu/air.py`` on its host-channel path (the
 path its mesh prover takes; proof bytes are the same as its single-chip
 path): the 4-phase pipeline (preprocessed / main / interaction commitments,
 then composition, OODS sampling, quotients, FRI, PoW, query decommitment)
-and its mirror verifier. Tables are built on the host and uploaded once;
-the transcript runs on the host; every bulk array lives on `device`.
+and its mirror verifier. As on the JAX package's single-device path, the
+tables are built on `device` from the uploaded trace
+(``components/device_build.py``); the transcript runs on the host; every
+bulk array lives on `device`.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .components import tables as tables_mod
+from .components import device_build
 from .components.defs import COMPONENT_CLASSES, ELEMENT_SIZES
 from .components.tables import MIN_LOG_SIZE
 from .core import fft, fri, m31, merkle, poly, qm31, quotients
@@ -189,17 +191,21 @@ def prove_brainfuck(machine, config: Optional[PcsConfig] = None, device="cuda",
     JSON-able dict (docs/PROOF_FORMAT.md), byte-identical to the JAX
     package's proof of the same execution and config."""
     mark = timer.mark if timer is not None else (lambda name: None)
+    device = torch.device(device)
     trace = machine.trace()
     mark("trace")
-    tabs = tables_mod.all_tables(trace, machine.program())
+    meta = device_build.build_meta(trace, machine.program())
+    assert tuple(meta.claim) == CLAIM_ORDER, list(meta.claim)
+    mats = device_build.build_device_tables(trace, meta, device)
     mark("tables")
-    return _prove_tables(tabs, config, torch.device(device), mark)
+    return _prove_tables(mats, meta.claim, config, device, mark)
 
 
-def _prove_tables(tabs, config: Optional[PcsConfig], device: torch.device, mark) -> dict:
+def _prove_tables(mats: Dict[str, torch.Tensor], claim: Dict[str, int],
+                  config: Optional[PcsConfig], device: torch.device, mark) -> dict:
+    """The prove pipeline from the component matrices (name -> (n_cols, N)
+    int32 on `device`, rows in the component's column order)."""
     config = config or PcsConfig(log_max_rows=0)  # 0 = auto ladder top
-    claim = {name: int(np.log2(len(next(iter(tabs[name].values())))))
-             for name in CLAIM_ORDER}
     layout = build_layout(claim, config)
     comps = layout.components
     blow = config.log_blowup
@@ -215,12 +221,10 @@ def _prove_tables(tabs, config: Optional[PcsConfig], device: torch.device, mark)
 
     log.info("Phase 1: main trace")
     mix_claim(channel, claim)
-    # one upload per component: its (n_cols, N) matrix
     dev_tabs: Dict[str, Dict[str, torch.Tensor]] = {}
     main_cols: List[Tuple[int, torch.Tensor]] = []
     for comp in comps:
-        mat = np.stack([tabs[comp.name][c] for c in comp.columns]).astype(np.int32)
-        mat = torch.as_tensor(mat, device=device)
+        mat = mats[comp.name]
         dev_tabs[comp.name] = {c: mat[i] for i, c in enumerate(comp.columns)}
         main_cols += [(comp.log_size, mat[i]) for i in range(len(comp.columns))]
     tree1 = TreeProver(main_cols, config, channel)
@@ -239,6 +243,7 @@ def _prove_tables(tabs, config: Optional[PcsConfig], device: torch.device, mark)
     mix_interaction_claim(channel, iclaim)
     mark("interaction")
     tree2 = TreeProver(inter_cols, config, channel)
+    mats.clear()  # the caller's dict too: the matrices are freed from here on
     del dev_tabs, main_cols, inter_cols
     mark("tree2")
 
@@ -384,15 +389,19 @@ MIN_SECURITY_CONFIG = PcsConfig(log_blowup=1, n_queries=8, pow_bits=4, log_max_r
 
 
 def verify_brainfuck(proof: dict, min_config: Optional[PcsConfig] = None,
-                     device="cpu") -> None:
+                     device="cuda") -> None:
     """Full verification; raises VerificationError on any failure.
 
     min_config pins the minimum acceptable security parameters; the proof's
     embedded config must meet or exceed them. `device` is where the
     preprocessed ladder root is recomputed; every other check runs on the
-    host."""
+    host. The default device is the card: without one this raises
+    RuntimeError (pass device="cpu" to verify on the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"verify on {device}: no CUDA device is available")
     try:
-        _verify_brainfuck_inner(proof, min_config, str(torch.device(device)))
+        _verify_brainfuck_inner(proof, min_config, str(device))
     except VerificationError:
         raise
     except Exception as exc:  # malformed proofs must never crash the verifier

@@ -25,9 +25,10 @@
 // What bounds it on the card: device-memory bandwidth. Each pass reads
 // and writes every element once (8 bytes per element per pass) and does
 // ~S M31 multiplies per element; a 2^24 transform takes 3 passes with
-// 4096-element tiles (ops/circle_fft.py::pass_plan). The M31 product is one
-// 64-bit multiply (mul.wide.u32) and a Mersenne fold, where the TPU version
-// split 16-bit limbs for want of a 64-bit integer path.
+// 4096-element tiles (ops/circle_fft.py::pass_plan). The field arithmetic
+// is csrc/m31.cuh: the product is one 64-bit multiply (mul.wide.u32) and a
+// Mersenne fold, where the TPU version split 16-bit limbs for want of a
+// 64-bit integer path.
 //
 // Inputs must be canonical (< p); outputs are canonical. src may equal dst:
 // a block reads and writes only its own tile.
@@ -35,25 +36,13 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "m31.cuh"
+
 namespace {
 
-constexpr uint32_t kP = 0x7fffffffu;
-
-__device__ __forceinline__ uint32_t add_m31(uint32_t a, uint32_t b) {
-  const uint32_t s = a + b;  // < 2^32 for canonical inputs
-  return s >= kP ? s - kP : s;
-}
-
-__device__ __forceinline__ uint32_t sub_m31(uint32_t a, uint32_t b) {
-  return a >= b ? a - b : a + (kP - b);
-}
-
-__device__ __forceinline__ uint32_t mul_m31(uint32_t a, uint32_t b) {
-  const uint64_t x = static_cast<uint64_t>(a) * b;  // < 2^62
-  uint32_t r = static_cast<uint32_t>(x & kP) + static_cast<uint32_t>(x >> 31);
-  r = (r & kP) + (r >> 31);  // <= p
-  return r >= kP ? r - kP : r;
-}
+using m31::add;
+using m31::mul;
+using m31::sub;
 
 template <bool kInverse>
 __global__ void stages_kernel(const uint32_t* src,
@@ -98,12 +87,12 @@ __global__ void stages_kernel(const uint32_t* src,
       const uint32_t u = tile[e0];
       const uint32_t v = tile[e1];
       if (kInverse) {
-        tile[e0] = add_m31(u, v);
-        tile[e1] = mul_m31(sub_m31(u, v), t);
+        tile[e0] = add(u, v);
+        tile[e1] = mul(sub(u, v), t);
       } else {
-        const uint32_t tv = mul_m31(v, t);
-        tile[e0] = add_m31(u, tv);
-        tile[e1] = sub_m31(u, tv);
+        const uint32_t tv = mul(v, t);
+        tile[e0] = add(u, tv);
+        tile[e1] = sub(u, tv);
       }
     }
     __syncthreads();
@@ -112,7 +101,7 @@ __global__ void stages_kernel(const uint32_t* src,
   for (int e = threadIdx.x; e < elems; e += blockDim.x) {
     const uint64_t mid = static_cast<uint64_t>(e >> w_log);
     uint32_t v = tile[e];
-    if (scale != 1u) v = mul_m31(v, scale);
+    if (scale != 1u) v = mul(v, scale);
     dst[base + (mid << l0) + (e & w_mask)] = v;
   }
 }

@@ -14,35 +14,22 @@ Dispatch: a CPU tensor goes to the plain staged version
 launches the kernel or raises. ``emulate`` replays the kernel's schedule
 and index arithmetic with torch ops, so the CPU tests check the schedule.
 
-The shared library is built with nvcc at first use into the package's
-``build/`` directory (git-ignored), named by the source's content hash, and
-bound with ctypes (plain C interface, no PyTorch headers).
+The library is built with nvcc at first use (``ops/nvcc.py``).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 from functools import lru_cache
-from pathlib import Path
 
 import torch
 
 from ..core import fft, m31
+from . import nvcc
 
 TILE_LOG = 12      # shared-memory tile: 2^12 uint32 = 16 KB
 GLOBAL_W_LOG = 5   # global passes load 32 consecutive elements per mid
 MAX_LOG = 30
-
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "circle_fft.cu"
-BUILD_DIR = _PKG / "build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 def pass_plan(n: int, inverse: bool) -> list:
@@ -74,45 +61,21 @@ def _check(x: torch.Tensor, n: int) -> None:
         raise ValueError(f"circle FFT takes (N,) or (C, N), got {tuple(x.shape)}")
 
 
+def _bind(lib: ctypes.CDLL) -> None:
+    lib.circle_fft_pass.restype = ctypes.c_int
+    lib.circle_fft_pass.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ]
+
+
 class CircleFFTKernel:
     """The built kernel library and its launch count."""
 
     def __init__(self):
+        self.lib = nvcc.CudaLibrary("circle_fft", _bind)
         self.launches = 0
-        self.build_seconds = None
-        self.build_log = ""
-        self._lib = None
-
-    def library(self) -> ctypes.CDLL:
-        """Build (once per source hash) and load the shared library."""
-        if self._lib is not None:
-            return self._lib
-        t0 = time.perf_counter()
-        digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-        lib_path = BUILD_DIR / f"libcircle_fft-{digest}.so"
-        if not lib_path.exists():
-            nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-            if not os.path.exists(nvcc):
-                raise RuntimeError("nvcc not found: the circle FFT kernel "
-                                   "cannot be built")
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-            proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                                  capture_output=True, text=True)
-            self.build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{self.build_log}")
-            os.replace(tmp, lib_path)
-        lib = ctypes.CDLL(str(lib_path))
-        lib.circle_fft_pass.restype = ctypes.c_int
-        lib.circle_fft_pass.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ]
-        self._lib = lib
-        self.build_seconds = time.perf_counter() - t0
-        return lib
 
     def run(self, x: torch.Tensor, n: int, inverse: bool) -> torch.Tensor:
         """One transform of every row of x (CUDA, int32, contiguous)."""
@@ -121,7 +84,7 @@ class CircleFFTKernel:
             raise ValueError(f"the circle FFT kernel takes CUDA tensors, got {x.device}")
         if not x.is_contiguous():
             raise ValueError("the circle FFT kernel takes contiguous tensors")
-        lib = self.library()
+        lib = self.lib.load()
         cols = 1 if x.dim() == 1 else x.shape[0]
         out = torch.empty_like(x)
         if x.numel() == 0:

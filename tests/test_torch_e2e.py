@@ -63,7 +63,7 @@ def test_port_proof_is_byte_identical_to_jax(proofs, i):
 @pytest.mark.parametrize("i", range(len(PROGRAMS)))
 def test_each_package_verifies_the_others_proof(proofs, i):
     jp, tp = proofs[i]
-    tair.verify_brainfuck(jp)
+    tair.verify_brainfuck(jp, device="cpu")
     jair.verify_brainfuck(json.loads(json.dumps(tp)))
 
 
@@ -130,19 +130,19 @@ def test_port_verifier_rejects_tampering(proofs, kind):
     p = copy.deepcopy(proofs[0][1])
     TAMPERS[kind](p)
     with pytest.raises(tair.VerificationError):
-        tair.verify_brainfuck(p)
+        tair.verify_brainfuck(p, device="cpu")
 
 
 def test_port_verifier_recomputes_preprocessed_root(proofs):
     p = copy.deepcopy(proofs[0][1])
     _flip_root(0, byte=5, mask=0xFF)(p)
     with pytest.raises(tair.VerificationError, match="preprocessed"):
-        tair.verify_brainfuck(p)
+        tair.verify_brainfuck(p, device="cpu")
 
 
 def test_fixed_ladder_top_with_unused_sizes():
     cfg = PcsConfig(log_max_rows=12, n_queries=8, pow_bits=4)
-    tair.verify_brainfuck(_port_proof(*PROGRAMS[0], config=cfg))
+    tair.verify_brainfuck(_port_proof(*PROGRAMS[0], config=cfg), device="cpu")
 
 
 def test_capacity_refusal():
@@ -168,10 +168,19 @@ def test_cli_cuda_default_raises_without_gpu(tmp_path):
         tcli.main(["prove", "--code", "+.", "--output", str(tmp_path / "p.json")])
 
 
+def test_verify_defaults_to_the_card(proofs):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tair.verify_brainfuck(proofs[0][1])
+
+
 def test_port_imports_without_jax():
     code = ("import sys; sys.modules['jax'] = None; "
             "import stwo_brainfuck_tpu_torch, stwo_brainfuck_tpu_torch.air, "
             "stwo_brainfuck_tpu_torch.cli, stwo_brainfuck_tpu_torch.ops.circle_fft, "
+            "stwo_brainfuck_tpu_torch.ops.m31_kernels, stwo_brainfuck_tpu_torch.vm.cli, "
+            "stwo_brainfuck_tpu_torch.components.device_build, "
             "stwo_brainfuck_tpu_torch.convert; import chip_smoke; "
             "assert 'stwo_brainfuck_tpu' not in sys.modules; print('ok')")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,

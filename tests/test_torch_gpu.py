@@ -10,8 +10,10 @@ import torch
 
 import chip_smoke
 from stwo_brainfuck_tpu_torch import air
+from stwo_brainfuck_tpu_torch.components import device_build, tables
+from stwo_brainfuck_tpu_torch.components.defs import COMPONENT_CLASSES
 from stwo_brainfuck_tpu_torch.core import fft
-from stwo_brainfuck_tpu_torch.ops import circle_fft
+from stwo_brainfuck_tpu_torch.ops import circle_fft, m31_kernels
 from stwo_brainfuck_tpu_torch.vm.compiler import compile_program
 from stwo_brainfuck_tpu_torch.vm.machine import create_test_machine
 
@@ -22,7 +24,7 @@ P = 2**31 - 1
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU: the circle FFT kernel has no CPU mode")
+        pytest.skip("needs a CUDA GPU: the CUDA kernels have no CPU mode")
     return torch.device("cuda")
 
 
@@ -54,3 +56,61 @@ def test_small_proof_on_the_card_matches_jax_reference(cuda):
     assert fft.PLAIN_CUDA_CALLS == 0
     assert chip_smoke.proof_sha256(proof) == chip_smoke.REFERENCE_SHA256["small"]
     air.verify_brainfuck(proof, device=cuda)
+
+
+EDGES = [0, 1, 2**16 - 1, 2**16, P - 1]
+
+
+def _m31(rng, shape, cuda):
+    x = rng.integers(0, P, shape).astype(np.int32).reshape(-1)
+    k = min(x.size, len(EDGES) ** 2)
+    x[:k] = np.repeat(EDGES, len(EDGES))[:k] if rng.integers(2) else np.tile(EDGES, len(EDGES))[:k]
+    return torch.as_tensor(x.reshape(shape), device=cuda)
+
+
+@pytest.mark.parametrize("n", [1, 3, 127, 128, 4097, 1 << 20])
+def test_m31_kernels_match_plain_on_the_card(cuda, n):
+    rng = np.random.default_rng(n)
+    a, b, c = (_m31(rng, (n,), cuda) for _ in range(3))
+    launches = dict(m31_kernels.KERNELS.launches)
+    assert torch.equal(m31_kernels.mul(a, b), m31_kernels.mul_plain(a, b))
+    assert torch.equal(m31_kernels.mul_add(a, b, c), m31_kernels.mul_add_plain(a, b, c))
+    for chain in (1, 8, 13):
+        assert torch.equal(m31_kernels.mul_chain(a, b, chain),
+                           m31_kernels.mul_chain_plain(a, b, chain))
+    # a view at an odd offset (not 16-byte aligned) and a broadcast operand
+    if n > 4:
+        assert torch.equal(m31_kernels.mul(a[1:], b[:-1]), m31_kernels.mul_plain(a[1:], b[:-1]))
+    col = a[: min(n, 16)].reshape(-1, 1)
+    assert torch.equal(m31_kernels.mul_add(col, b[None, :], c),
+                       m31_kernels.mul_add_plain(col, b[None, :], c))
+    got = {k: m31_kernels.KERNELS.launches[k] - launches[k] for k in m31_kernels.KINDS}
+    assert got == {"mul": 1 + (n > 4), "mul_add": 2, "mul_chain": 3}
+
+
+def test_m31_edge_values_on_the_card(cuda):
+    e = torch.tensor(EDGES, dtype=torch.int32, device=cuda)
+    a, b = e.repeat_interleave(len(EDGES)), e.repeat(len(EDGES))
+    assert torch.equal(m31_kernels.mul(a, b), m31_kernels.mul_plain(a, b))
+    one = torch.ones_like(a)
+    s = m31_kernels.mul_add(a, b, one)
+    assert torch.equal(s, m31_kernels.mul_add_plain(a, b, one))
+    assert int(s.max()) < P
+    pm1 = torch.full((5,), P - 1, dtype=torch.int32, device=cuda)
+    assert m31_kernels.mul(pm1, pm1).tolist() == [1] * 5
+    assert m31_kernels.mul_add(pm1, torch.ones_like(pm1), torch.ones_like(pm1)).tolist() == [0] * 5
+
+
+def test_device_tables_match_host_on_the_card(cuda):
+    m = create_test_machine(compile_program(chip_smoke.SMALL_CODE),
+                            chip_smoke.SMALL_INPUT.encode())
+    m.execute()
+    trace, program = m.trace(), m.program()
+    meta = device_build.build_meta(trace, program)
+    mats = device_build.build_device_tables(trace, meta, cuda)
+    host = tables.all_tables(trace, program)
+    for cls in COMPONENT_CLASSES:
+        comp = cls(meta.claim[cls.name])
+        want = np.stack([host[comp.name][col] for col in comp.columns]).astype(np.int32)
+        assert mats[comp.name].is_cuda
+        np.testing.assert_array_equal(mats[comp.name].cpu().numpy(), want, err_msg=comp.name)
