@@ -9,10 +9,16 @@ Phases (any failure raises and the script exits non-zero):
      one nvcc per source, started together), and the SASS instruction
      count of one M31 product (cuobjdump), which sets the instruction-dispatch bounds;
   2. the circle FFT kernel against its plain torch version on the card, bit
-     for bit, for evaluate / interpolate / extend, and both versions' times;
+     for bit, for evaluate and interpolate (FFT_SIZES, 1 and 8 columns) and
+     the fused extend at blowups 1-4 through core.fft.extend_with_coeffs
+     (launches exactly its plan, no plain FFT, nothing allocated beyond
+     its two outputs); then both versions' times at the main path's shapes
+     beside each shape's byte and dispatch bounds;
   3. the three M31 kernels against their plain versions on the card, bit
      for bit, at 1 .. 2^24 elements with edge values and a broadcast case,
      mul_chain at chain 1, 8 and 13, and times at 2^24 beside the bounds;
+     then one compute-bound reading, mul_chain of 256 products at 2^24,
+     against the dispatch bound's product rate;
   4. the M31 path, counts set to 0 first: the module's mul, mul_add and
      mul_chain at 2^24, then throughput_benchmark(24) (kernel and plain
      Gmul/s beside the bound). Each kernel's count must show its launches
@@ -153,57 +159,114 @@ def bound(nbytes: float, instructions: float, dispatch_per_s: float) -> dict:
             "bytes_bound_ms": bytes_ms, "dispatch_bound_ms": dispatch_ms}
 
 
-def phase_kernel() -> dict:
-    """The kernel vs its plain version on the same CUDA tensors."""
+def _plain_extend(x: torch.Tensor, n: int, blowup: int):
+    """interpolate -> zero-pad -> evaluate with the plain versions."""
+    cp = fft.interpolate_plain(x, n)
+    pad = torch.zeros((x.shape[0], 1 << (n + blowup)), dtype=torch.int32, device=x.device)
+    pad[:, : 1 << n] = cp
+    return cp, fft.evaluate_plain(pad, n + blowup)
+
+
+def fft_bound(op: str, cols: int, n: int, blowup: int, per_mul: float,
+              dispatch_per_s: float) -> dict:
+    """The FFT shape's bounds: bytes = each input read once and each output
+    written once (an extend reads the values and writes the coefficients
+    and the extension); instructions = butterflies of one product, one add
+    and one subtract (2 instructions each), plus one product an element for
+    the interpolate's scale. An extend counts no butterflies in the top
+    `blowup` forward stages: their second input is exactly zero."""
+    size = cols << n
+    butterfly = per_mul + 4
+    if op == "evaluate":
+        return bound(8 * size, n * (size // 2) * butterfly, dispatch_per_s)
+    inverse = n * (size // 2) * butterfly + size * per_mul
+    if op == "interpolate":
+        return bound(8 * size, inverse, dispatch_per_s)
+    return bound(4 * (2 * size + (size << blowup)),
+                 inverse + (n * (size // 2) << blowup) * butterfly, dispatch_per_s)
+
+
+def phase_kernel(per_mul: float, dispatch_per_s: float) -> dict:
+    """The kernel vs its plain version on the same CUDA tensors, then both
+    versions' times beside the bounds."""
     rng = np.random.default_rng(0)
     p = 2**31 - 1
     max_err = 0
     checked = 0
+    guard = fft.PLAIN_CUDA_CALLS
+
+    def same(got, want, what):
+        nonlocal max_err, checked
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        max_err = max(max_err, err)
+        if err:
+            raise AssertionError(f"circle FFT kernel != plain: {what}")
+        checked += 1
+
+    plain_calls = 0
     for n in FFT_SIZES:
         for cols in (1, 8):
             x = torch.as_tensor(rng.integers(0, p, (cols, 1 << n)).astype(np.int32),
                                 device="cuda")
-            pairs = [
-                (circle_fft.evaluate(x, n), fft.evaluate_plain(x, n)),
-                (circle_fft.interpolate(x, n), fft.interpolate_plain(x, n)),
-            ]
-            if n < 24:
-                c, e = fft.extend_with_coeffs(x, n, 1)
-                cp = fft.interpolate_plain(x, n)
-                pad = torch.zeros((cols, 1 << (n + 1)), dtype=torch.int32, device="cuda")
-                pad[:, : 1 << n] = cp
-                pairs += [(c, cp), (e, fft.evaluate_plain(pad, n + 1))]
-            torch.cuda.synchronize()
-            for got, want in pairs:
-                err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-                max_err = max(max_err, err)
-                if err:
-                    raise AssertionError(f"circle FFT kernel != plain at n={n} C={cols}")
-                checked += 1
-    _line("kernel_check", {"sizes": FFT_SIZES, "cols": [1, 8], "comparisons": checked,
-                           "tolerance": 0, "max_abs_err": max_err})
+            same(circle_fft.evaluate(x, n), fft.evaluate_plain(x, n), f"evaluate n={n} C={cols}")
+            same(circle_fft.interpolate(x, n), fft.interpolate_plain(x, n),
+                 f"interpolate n={n} C={cols}")
+            plain_calls += 2
+            for blowup in (1, 2, 3, 4):
+                if n + blowup > 24:
+                    continue
+                # the prover's entry point: the fused kernel launches only
+                # its own plan and allocates the two outputs, no padding
+                circle_fft.twiddle_table(n, True, str(x.device))
+                circle_fft.twiddle_table(n + blowup, False, str(x.device))
+                torch.cuda.synchronize()
+                launches = circle_fft.KERNEL.launches
+                calls = fft.PLAIN_CUDA_CALLS
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                c, e = fft.extend_with_coeffs(x, n, blowup)
+                torch.cuda.synchronize()
+                grown = torch.cuda.max_memory_allocated() - base
+                if circle_fft.KERNEL.launches - launches != len(
+                        circle_fft.launch_plan("extend", n, cols, blowup)):
+                    raise AssertionError(f"extend n={n}: launches differ from its plan")
+                if fft.PLAIN_CUDA_CALLS != calls:
+                    raise AssertionError(f"extend n={n}: the plain FFT ran on a CUDA tensor")
+                outputs = sum(-(-t.untyped_storage().nbytes() // 512) * 512 for t in (c, e))
+                if grown > outputs:
+                    raise AssertionError(f"extend n={n}: {grown} B allocated beyond its outputs")
+                cp, ep = _plain_extend(x, n, blowup)
+                plain_calls += 2
+                same(c, cp, f"extend coeffs n={n} C={cols} blowup={blowup}")
+                same(e, ep, f"extend n={n} C={cols} blowup={blowup}")
+            del x
+    torch.cuda.synchronize()
+    if fft.PLAIN_CUDA_CALLS - guard != plain_calls:
+        raise AssertionError("the plain FFT ran on a CUDA tensor outside the named calls")
+    _line("kernel_check", {"sizes": FFT_SIZES, "cols": [1, 8], "extend_blowups": [1, 2, 3, 4],
+                           "comparisons": checked, "tolerance": 0, "max_abs_err": max_err})
 
     times = {}
-    shapes = [("evaluate", 4, 24), ("interpolate", 4, 23), ("extend", 8, 19),
-              ("extend", 40, 22)]
-    for op, cols, n in shapes:
+    shapes = [("evaluate", 4, 24, 0), ("interpolate", 4, 23, 0), ("extend", 8, 19, 1),
+              ("extend", 8, 19, 4), ("extend", 40, 22, 1)]
+    for op, cols, n, blowup in shapes:
         x = torch.as_tensor(rng.integers(0, p, (cols, 1 << n)).astype(np.int32), device="cuda")
         if op == "evaluate":
             k, pl = (lambda: circle_fft.evaluate(x, n)), (lambda: fft.evaluate_plain(x, n))
         elif op == "interpolate":
             k, pl = (lambda: circle_fft.interpolate(x, n)), (lambda: fft.interpolate_plain(x, n))
         else:
-            def pl():
-                cp = fft.interpolate_plain(x, n)
-                pad = torch.zeros((cols, 1 << (n + 1)), dtype=torch.int32, device="cuda")
-                pad[:, : 1 << n] = cp
-                return fft.evaluate_plain(pad, n + 1)
-
-            k = lambda: fft.extend_with_coeffs(x, n, 1)  # noqa: E731
-        key = f"{op} ({cols}, 2^{n})"
-        times[key] = {"kernel_ms": _time_ms(k), "plain_ms": _time_ms(pl, reps=2)}
+            k = lambda: fft.extend_with_coeffs(x, n, blowup)  # noqa: E731
+            pl = lambda: _plain_extend(x, n, blowup)  # noqa: E731
+        key = f"{op} ({cols}, 2^{n})" + (f" blowup {blowup}" if blowup else "")
+        launches = len(circle_fft.launch_plan(op, n, cols, blowup))
+        times[key] = {"kernel_ms": _time_ms(k, reps=10), "plain_ms": _time_ms(pl, reps=2),
+                      "launches": launches,
+                      **fft_bound(op, cols, n, blowup, per_mul, dispatch_per_s)}
         del x
         torch.cuda.empty_cache()
+    fft.get_twiddles.cache_clear()  # the plain versions' int64 stages
+    torch.cuda.empty_cache()
     _line("kernel_times", times)
     return {"max_abs_err": max_err, "times": times}
 
@@ -363,6 +426,18 @@ def phase_m31(per_mul: float, dispatch_per_s: float) -> dict:
         times[kind] = {"kernel_ms": _time_ms(kern, reps=20), "plain_ms": _time_ms(plain, reps=5),
                        **bound(nbytes, instr, dispatch_per_s)}
     _line("m31_times", {"n": n, "chain": 8, **times})
+
+    # one compute-bound reading: a chain of 256 products an element moves
+    # 12 bytes for 256 products, so the integer issue rate, not memory,
+    # sets its time. The dispatch bounds assume one warp instruction per
+    # scheduler and clock for every instruction.
+    chain = 256
+    chain_ms = _time_ms(lambda: K.mul_chain(a, b, chain), reps=5)
+    rate = chain * n / (chain_ms / 1e3)
+    _line("m31_issue_rate", {"n": n, "chain": chain, "kernel_ms": chain_ms,
+                             "gmul_s": rate / 1e9,
+                             "dispatch_bound_gmul_s": dispatch_per_s / per_mul / 1e9,
+                             "share_of_dispatch_bound": rate / (dispatch_per_s / per_mul)})
     return {"max_abs_err": max_err, "times": times, "big": big, "wants": wants}
 
 
@@ -447,7 +522,7 @@ def main() -> int:
                                            m31_kernels.KERNELS.lib.build_seconds),
                      "sass": sass})
 
-    kern = phase_kernel()
+    kern = phase_kernel(sass["per_mul"], dispatch_per_s)
     m31 = phase_m31(sass["per_mul"], dispatch_per_s)
     # the M31 path: counts start at 0 inside
     m31_launches = phase_m31_path(m31, sass["per_mul"], dispatch_per_s)
@@ -474,18 +549,15 @@ def main() -> int:
     if fft_launches <= 0 or fft.PLAIN_CUDA_CALLS:
         raise AssertionError("main path did not run on the circle FFT kernel")
 
-    n24 = 1 << 24
     headline = kern["times"]["evaluate (4, 2^24)"]
     kernels = [{
         "name": "circle_fft", "route": "cuda",
         "source": "stwo_brainfuck_tpu_torch/csrc/circle_fft.cu",
-        "replaces": "stwo_brainfuck_tpu/ops/fft_pallas.py:364",
+        "replaces": "stwo_brainfuck_tpu/ops/fft_pallas.py:364 (_make_pass1); "
+                    "stwo_brainfuck_tpu/ops/fft_pallas.py:402 (_make_pass2)",
         "launches": fft_launches, "max_abs_err": kern["max_abs_err"],
         "ms": headline["kernel_ms"], "plain_ms": headline["plain_ms"],
-        # one read and one write of (4, 2^24) int32; 4 x 24 x 2^23 butterflies of
-        # one product, one add and one subtract (2 instructions each, csrc/m31.cuh)
-        **{k: v for k, v in bound(2 * 4 * n24 * 4, 4 * 24 * (n24 // 2) * (sass["per_mul"] + 4),
-                                  dispatch_per_s).items() if k in ("bound_ms", "bound_by")},
+        "bound_ms": headline["bound_ms"], "bound_by": headline["bound_by"],
         "library_ms": None,
     }]
     for kind, line in (("mul", 48), ("mul_add", 52), ("mul_chain", 111)):

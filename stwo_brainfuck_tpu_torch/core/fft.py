@@ -65,14 +65,14 @@ def coset_points(initial_index: int, log_size: int, device):
     return xs, ys
 
 
-@lru_cache(maxsize=64)
-def get_twiddles(log_size: int, inverse: bool, device: str) -> tuple:
+def twiddle_stages(log_size: int, inverse: bool, device: str) -> list:
     """Per-stage twiddles of the canonic domain of size 2^log_size, int64
     on `device`, in bit-reversed block order (the JAX package's
     get_twiddles(log_size).fwd, or .inv when `inverse`): stage L has
     2^(log_size-1-L) entries, y of the half coset for L = 0 and
     pi^(L-1)(x) for L >= 1, pi(x) = 2x^2 - 1. Built on the device by coset
-    doubling: a host stack costs seconds at 2^24."""
+    doubling: a host stack costs seconds at 2^24. Not cached: the kernel
+    keeps only its int32 table (ops/circle_fft.twiddle_table)."""
     half = CanonicCoset(log_size).circle_domain().half_coset
     hx, hy = coset_points(half.initial_index, half.log_size, device)
     stages = [hy[bit_reverse_indices(log_size - 1, device)]]
@@ -84,7 +84,13 @@ def get_twiddles(log_size: int, inverse: bool, device: str) -> tuple:
         x = (2 * (x * x % P_INT) + P_INT - 1) % P_INT
     if inverse:
         stages = [m31.inv(t) for t in stages]
-    return tuple(stages)
+    return stages
+
+
+@lru_cache(maxsize=64)
+def get_twiddles(log_size: int, inverse: bool, device: str) -> tuple:
+    """twiddle_stages, cached: the plain transforms' twiddles."""
+    return tuple(twiddle_stages(log_size, inverse, device))
 
 
 def inv_pow2(n: int) -> int:
@@ -156,13 +162,12 @@ def evaluate(coeffs: torch.Tensor, log_size: int | None = None) -> torch.Tensor:
 
 def extend_with_coeffs(values: torch.Tensor, log_size: int, log_blowup: int):
     """(coefficients, blown-up evaluation) of a (C, 2^log_size) batch of
-    columns: interpolate, zero-pad into a fresh (C, 2^(log_size+blowup))
-    buffer, evaluate."""
-    coeffs = interpolate(values, log_size)
-    padded = torch.zeros(coeffs.shape[:-1] + (1 << (log_size + log_blowup),),
-                         dtype=torch.int32, device=coeffs.device)
-    padded[..., : 1 << log_size] = coeffs
-    return coeffs, evaluate(padded, log_size + log_blowup)
+    columns. A CPU tensor is interpolated, zero-padded into a fresh
+    (C, 2^(log_size+blowup)) buffer and evaluated; a CUDA tensor takes the
+    fused kernel, which writes no padding (ops/circle_fft.extend)."""
+    from ..ops import circle_fft
+
+    return circle_fft.extend(values, log_size, log_blowup)
 
 
 # ---------------------------------------------------------------------------

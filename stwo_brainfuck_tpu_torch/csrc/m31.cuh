@@ -43,4 +43,17 @@ __device__ __forceinline__ uint32_t mul(uint32_t a, uint32_t b) {
   return reduce_once((lo & kP) + __funnelshift_r(lo, hi, 31));
 }
 
+// Product with a doubled operand t2 = 2b (b < p, so t2 < 2^32), as the
+// circle FFT keeps its twiddles: a * t2 = 2x with x = a * b, so the high
+// word is x >> 31 and the low word is (x & p) << 1, and the fold
+// (x >> 31) + (x & p) is one LEA.HI of the two words. Three instructions
+// (IMAD.WIDE.U32, LEA.HI, VIADDMNMX) where mul takes four; the same bounds
+// (the sum is below 2p for a, b < p).
+__device__ __forceinline__ uint32_t mul_doubled(uint32_t a, uint32_t t2) {
+  const uint64_t x = static_cast<uint64_t>(a) * t2;
+  const uint32_t lo = static_cast<uint32_t>(x);
+  const uint32_t hi = static_cast<uint32_t>(x >> 32);
+  return reduce_once(hi + (lo >> 1));
+}
+
 }  // namespace m31

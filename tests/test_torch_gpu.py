@@ -28,7 +28,7 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("n", [1, 4, 11, 12, 13, 19, 20])
+@pytest.mark.parametrize("n", [1, 4, 12, 13, 14, 19, 20, 21])
 def test_kernel_matches_plain_on_the_card(cuda, n):
     x = torch.as_tensor(np.random.default_rng(n).integers(0, P, (3, 1 << n)).astype(np.int32),
                         device=cuda)
@@ -36,7 +36,23 @@ def test_kernel_matches_plain_on_the_card(cuda, n):
     assert torch.equal(circle_fft.evaluate(x, n), fft.evaluate_plain(x, n))
     assert torch.equal(circle_fft.interpolate(x, n), fft.interpolate_plain(x, n))
     assert torch.equal(circle_fft.evaluate(x[0], n), fft.evaluate_plain(x[0], n))
-    assert circle_fft.KERNEL.launches - before == 3 * len(circle_fft.pass_plan(n, False))
+    expect = (2 * len(circle_fft.launch_plan("evaluate", n, 3))
+              + len(circle_fft.launch_plan("interpolate", n, 3)))
+    assert circle_fft.KERNEL.launches - before == expect
+
+
+@pytest.mark.parametrize("blowup", [1, 4])
+@pytest.mark.parametrize("n", [1, 4, 12, 13, 14, 19, 20, 21])
+def test_fused_extend_matches_plain_on_the_card(cuda, n, blowup):
+    x = torch.as_tensor(np.random.default_rng(n + blowup).integers(0, P, (3, 1 << n))
+                        .astype(np.int32), device=cuda)
+    before, plain = circle_fft.KERNEL.launches, fft.PLAIN_CUDA_CALLS
+    c, e = fft.extend_with_coeffs(x, n, blowup)
+    assert circle_fft.KERNEL.launches - before == len(circle_fft.launch_plan("extend", n, 3, blowup))
+    assert fft.PLAIN_CUDA_CALLS == plain
+    cp, ep = chip_smoke._plain_extend(x, n, blowup)
+    assert torch.equal(c, cp)
+    assert torch.equal(e, ep)
 
 
 def test_kernel_wrapper_refuses_what_it_cannot_take(cuda):
