@@ -7,18 +7,21 @@ Phases (any failure raises and the script exits non-zero):
      kernel build time (both kernel libraries are built with nvcc from
      stwo_brainfuck_tpu_torch/csrc/ into stwo_brainfuck_tpu_torch/build/,
      one nvcc per source, started together), and the SASS instruction
-     count of one M31 product (cuobjdump), which sets the instruction-dispatch bounds;
+     counts of one M31 product, m31::mul and the FFT's m31::mul_doubled
+     (cuobjdump), which set the instruction-dispatch bounds;
   2. the circle FFT kernel against its plain torch version on the card, bit
      for bit, for evaluate and interpolate (FFT_SIZES, 1 and 8 columns) and
-     the fused extend at blowups 1-4 through core.fft.extend_with_coeffs
-     (launches exactly its plan, no plain FFT, nothing allocated beyond
-     its two outputs); then both versions' times at the main path's shapes
-     beside each shape's byte and dispatch bounds;
+     the fused extend at blowups 1-4 up to a 2^25 extension through
+     core.fft.extend_with_coeffs (launches exactly its plan, no plain FFT,
+     nothing allocated beyond its two outputs); then both versions at the
+     main path's shapes (FFT_SHAPES), compared and timed, beside each
+     shape's byte and dispatch bounds;
   3. the three M31 kernels against their plain versions on the card, bit
      for bit, at 1 .. 2^24 elements with edge values and a broadcast case,
      mul_chain at chain 1, 8 and 13, and times at 2^24 beside the bounds;
      then one compute-bound reading, mul_chain of 256 products at 2^24,
-     against the dispatch bound's product rate;
+     against the dispatch bound's product rate (the FFT shapes' times are
+     printed after it, with their dispatch bound at that rate beside);
   4. the M31 path, counts set to 0 first: the module's mul, mul_add and
      mul_chain at 2^24, then throughput_benchmark(24) (kernel and plain
      Gmul/s beside the bound). Each kernel's count must show its launches
@@ -77,7 +80,13 @@ SMALL_CODE = "+++>,<[>+.<-]"
 SMALL_INPUT = "\x01"
 FIB_INPUT = bytes([19])
 
-FFT_SIZES = (4, 11, 16, 17, 20, 24)
+FFT_SIZES = (4, 11, 16, 17, 20, 22, 23, 24)
+# extends are checked up to a 2^25 extension: only n = 24 runs the fused
+# pass on 2^14-element tiles (radix 5)
+EXTEND_MAX_LOG = 25
+# the main path's shapes, timed: (op, columns, n, log_blowup)
+FFT_SHAPES = (("evaluate", 4, 24, 0), ("interpolate", 4, 23, 0), ("extend", 8, 19, 1),
+              ("extend", 8, 19, 4), ("extend", 40, 22, 1))
 M31_SIZES = (1, 127, 128, 4097, 1 << 20, 1 << 24)
 M31_EDGES = (0, 1, 2**16 - 1, 2**16, 2**31 - 2)
 P = 2**31 - 1
@@ -113,13 +122,10 @@ def _smi(query: str) -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def sass_per_mul() -> dict:
-    """SASS instructions of one M31 product: the chain-of-8 kernel and the
-    mul kernel differ only in 7 more products per element, in the 4-wide
-    vector body and in the scalar tail (35 in all). The min-instruction
-    counts (one per product) show that structure."""
+def _sass_functions(lib: nvcc.CudaLibrary) -> dict:
+    """Function name -> its SASS opcodes (NOPs left out), from cuobjdump."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    out = subprocess.run([tool, "-sass", str(m31_kernels.KERNELS.lib.path())],
+    out = subprocess.run([tool, "-sass", str(lib.path())],
                          capture_output=True, text=True, check=True).stdout
     funcs: dict = {}
     name = None
@@ -132,21 +138,40 @@ def sass_per_mul() -> dict:
         m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)", line)
         if m and name is not None and m.group(1) != "NOP":
             funcs[name].append(m.group(1))
+    return funcs
 
-    def ops(tag):
-        hits = [f for f in funcs if tag in f]
-        if len(hits) != 1:
-            raise AssertionError(f"SASS: {tag} matches {hits} of {sorted(funcs)}")
-        return funcs[hits[0]]
 
-    mul, chain8 = ops("5MulOpE"), ops("ChainOpILi8E")
+def _sass_ops(funcs: dict, tag: str) -> list:
+    hits = [f for f in funcs if tag in f]
+    if len(hits) != 1:
+        raise AssertionError(f"SASS: {tag} matches {hits} of {sorted(funcs)}")
+    return funcs[hits[0]]
+
+
+def sass_per_mul() -> dict:
+    """SASS instructions of one M31 product of each kind.
+    per_mul, m31::mul (the M31 kernels, the interpolate's scale): the
+    chain-of-8 kernel and the mul kernel differ only in 7 more products per
+    element, in the 4-wide vector body and in the scalar tail (35 in all);
+    the min-instruction counts (one per product) show that structure.
+    fft_per_mul, m31::mul_doubled (the FFT's butterflies): the circle FFT
+    library's two mul_doubled_probe instantiations differ only in 8 more
+    products."""
+    funcs = _sass_functions(m31_kernels.KERNELS.lib)
+    mul, chain8 = _sass_ops(funcs, "5MulOpE"), _sass_ops(funcs, "ChainOpILi8E")
     per_mul = (len(chain8) - len(mul)) / 35
-    if per_mul <= 0:
-        raise AssertionError(f"SASS: {len(chain8)} chain-8 vs {len(mul)} mul instructions")
+    funcs = _sass_functions(circle_fft.KERNEL.lib)
+    one, nine = (_sass_ops(funcs, f"mul_doubled_probeILi{k}E") for k in (1, 9))
+    fft_per_mul = (len(nine) - len(one)) / 8
+    if per_mul <= 0 or fft_per_mul <= 0:
+        raise AssertionError(f"SASS: {len(chain8)} chain-8 vs {len(mul)} mul instructions, "
+                             f"{len(nine)} vs {len(one)} in the mul_doubled probes")
     return {"per_mul": per_mul, "mul_instructions": len(mul),
             "chain8_instructions": len(chain8),
             "mul_min_ops": sum("MNMX" in o for o in mul),
-            "chain8_min_ops": sum("MNMX" in o for o in chain8)}
+            "chain8_min_ops": sum("MNMX" in o for o in chain8),
+            "fft_per_mul": fft_per_mul, "probe1_instructions": len(one),
+            "probe9_instructions": len(nine)}
 
 
 def bound(nbytes: float, instructions: float, dispatch_per_s: float) -> dict:
@@ -159,36 +184,30 @@ def bound(nbytes: float, instructions: float, dispatch_per_s: float) -> dict:
             "bytes_bound_ms": bytes_ms, "dispatch_bound_ms": dispatch_ms}
 
 
-def _plain_extend(x: torch.Tensor, n: int, blowup: int):
-    """interpolate -> zero-pad -> evaluate with the plain versions."""
-    cp = fft.interpolate_plain(x, n)
-    pad = torch.zeros((x.shape[0], 1 << (n + blowup)), dtype=torch.int32, device=x.device)
-    pad[:, : 1 << n] = cp
-    return cp, fft.evaluate_plain(pad, n + blowup)
-
-
-def fft_bound(op: str, cols: int, n: int, blowup: int, per_mul: float,
+def fft_bound(op: str, cols: int, n: int, blowup: int, sass: dict,
               dispatch_per_s: float) -> dict:
     """The FFT shape's bounds: bytes = each input read once and each output
     written once (an extend reads the values and writes the coefficients
-    and the extension); instructions = butterflies of one product, one add
-    and one subtract (2 instructions each), plus one product an element for
-    the interpolate's scale. An extend counts no butterflies in the top
-    `blowup` forward stages: their second input is exactly zero."""
+    and the extension); instructions = butterflies of one m31::mul_doubled
+    product (fft_per_mul), one add and one subtract (2 instructions each),
+    plus one m31::mul (per_mul) an element for the interpolate's scale. An
+    extend counts no butterflies in the top `blowup` forward stages: their
+    second input is exactly zero."""
     size = cols << n
-    butterfly = per_mul + 4
+    butterfly = sass["fft_per_mul"] + 4
     if op == "evaluate":
         return bound(8 * size, n * (size // 2) * butterfly, dispatch_per_s)
-    inverse = n * (size // 2) * butterfly + size * per_mul
+    inverse = n * (size // 2) * butterfly + size * sass["per_mul"]
     if op == "interpolate":
         return bound(8 * size, inverse, dispatch_per_s)
     return bound(4 * (2 * size + (size << blowup)),
                  inverse + (n * (size // 2) << blowup) * butterfly, dispatch_per_s)
 
 
-def phase_kernel(per_mul: float, dispatch_per_s: float) -> dict:
-    """The kernel vs its plain version on the same CUDA tensors, then both
-    versions' times beside the bounds."""
+def phase_kernel(sass: dict, dispatch_per_s: float) -> dict:
+    """The kernel vs its plain version on the same CUDA tensors, bit for
+    bit, then both versions' times at the main path's shapes (each also
+    compared) beside the bounds."""
     rng = np.random.default_rng(0)
     p = 2**31 - 1
     max_err = 0
@@ -213,7 +232,7 @@ def phase_kernel(per_mul: float, dispatch_per_s: float) -> dict:
                  f"interpolate n={n} C={cols}")
             plain_calls += 2
             for blowup in (1, 2, 3, 4):
-                if n + blowup > 24:
+                if n + blowup > EXTEND_MAX_LOG:
                     continue
                 # the prover's entry point: the fused kernel launches only
                 # its own plan and allocates the two outputs, no padding
@@ -235,21 +254,18 @@ def phase_kernel(per_mul: float, dispatch_per_s: float) -> dict:
                 outputs = sum(-(-t.untyped_storage().nbytes() // 512) * 512 for t in (c, e))
                 if grown > outputs:
                     raise AssertionError(f"extend n={n}: {grown} B allocated beyond its outputs")
-                cp, ep = _plain_extend(x, n, blowup)
+                cp, ep = fft.extend_plain(x, n, blowup)
                 plain_calls += 2
                 same(c, cp, f"extend coeffs n={n} C={cols} blowup={blowup}")
                 same(e, ep, f"extend n={n} C={cols} blowup={blowup}")
+                del c, e, cp, ep
             del x
     torch.cuda.synchronize()
     if fft.PLAIN_CUDA_CALLS - guard != plain_calls:
         raise AssertionError("the plain FFT ran on a CUDA tensor outside the named calls")
-    _line("kernel_check", {"sizes": FFT_SIZES, "cols": [1, 8], "extend_blowups": [1, 2, 3, 4],
-                           "comparisons": checked, "tolerance": 0, "max_abs_err": max_err})
 
     times = {}
-    shapes = [("evaluate", 4, 24, 0), ("interpolate", 4, 23, 0), ("extend", 8, 19, 1),
-              ("extend", 8, 19, 4), ("extend", 40, 22, 1)]
-    for op, cols, n, blowup in shapes:
+    for op, cols, n, blowup in FFT_SHAPES:
         x = torch.as_tensor(rng.integers(0, p, (cols, 1 << n)).astype(np.int32), device="cuda")
         if op == "evaluate":
             k, pl = (lambda: circle_fft.evaluate(x, n)), (lambda: fft.evaluate_plain(x, n))
@@ -257,17 +273,28 @@ def phase_kernel(per_mul: float, dispatch_per_s: float) -> dict:
             k, pl = (lambda: circle_fft.interpolate(x, n)), (lambda: fft.interpolate_plain(x, n))
         else:
             k = lambda: fft.extend_with_coeffs(x, n, blowup)  # noqa: E731
-            pl = lambda: _plain_extend(x, n, blowup)  # noqa: E731
+            pl = lambda: fft.extend_plain(x, n, blowup)  # noqa: E731
         key = f"{op} ({cols}, 2^{n})" + (f" blowup {blowup}" if blowup else "")
+        got, want = k(), pl()
+        if op != "extend":
+            got, want = (got,), (want,)
+        for i, (g, w) in enumerate(zip(got, want)):
+            same(g, w, f"{key}, output {i}")
+        del got, want, g, w
         launches = len(circle_fft.launch_plan(op, n, cols, blowup))
         times[key] = {"kernel_ms": _time_ms(k, reps=10), "plain_ms": _time_ms(pl, reps=2),
                       "launches": launches,
-                      **fft_bound(op, cols, n, blowup, per_mul, dispatch_per_s)}
+                      **fft_bound(op, cols, n, blowup, sass, dispatch_per_s)}
         del x
         torch.cuda.empty_cache()
-    fft.get_twiddles.cache_clear()  # the plain versions' int64 stages
+    # the plain versions' int64 stages and the kernel's tables of every
+    # size above: the prover builds its own
+    fft.get_twiddles.cache_clear()
+    circle_fft.twiddle_table.cache_clear()
     torch.cuda.empty_cache()
-    _line("kernel_times", times)
+    _line("kernel_check", {"sizes": FFT_SIZES, "cols": [1, 8], "extend_blowups": [1, 2, 3, 4],
+                           "extend_max_log": EXTEND_MAX_LOG, "timed_shapes": len(FFT_SHAPES),
+                           "comparisons": checked, "tolerance": 0, "max_abs_err": max_err})
     return {"max_abs_err": max_err, "times": times}
 
 
@@ -434,11 +461,13 @@ def phase_m31(per_mul: float, dispatch_per_s: float) -> dict:
     chain = 256
     chain_ms = _time_ms(lambda: K.mul_chain(a, b, chain), reps=5)
     rate = chain * n / (chain_ms / 1e3)
+    share = rate / (dispatch_per_s / per_mul)
     _line("m31_issue_rate", {"n": n, "chain": chain, "kernel_ms": chain_ms,
                              "gmul_s": rate / 1e9,
                              "dispatch_bound_gmul_s": dispatch_per_s / per_mul / 1e9,
-                             "share_of_dispatch_bound": rate / (dispatch_per_s / per_mul)})
-    return {"max_abs_err": max_err, "times": times, "big": big, "wants": wants}
+                             "share_of_dispatch_bound": share})
+    return {"max_abs_err": max_err, "times": times, "big": big, "wants": wants,
+            "issue_share": share}
 
 
 def phase_tables(programs) -> dict:
@@ -522,8 +551,13 @@ def main() -> int:
                                            m31_kernels.KERNELS.lib.build_seconds),
                      "sass": sass})
 
-    kern = phase_kernel(sass["per_mul"], dispatch_per_s)
+    kern = phase_kernel(sass, dispatch_per_s)
     m31 = phase_m31(sass["per_mul"], dispatch_per_s)
+    # the dispatch bound counts 32 lanes a scheduler; beside it, the same
+    # instructions at the integer issue rate that phase 3 reads
+    for t in kern["times"].values():
+        t["dispatch_at_issue_rate_ms"] = t["dispatch_bound_ms"] / m31["issue_share"]
+    _line("kernel_times", kern["times"])
     # the M31 path: counts start at 0 inside
     m31_launches = phase_m31_path(m31, sass["per_mul"], dispatch_per_s)
     del m31["big"], m31["wants"]  # free the 2^24 operands before the prover runs

@@ -140,6 +140,17 @@ def evaluate_plain(coeffs: torch.Tensor, n: int) -> torch.Tensor:
     return v.to(torch.int32)
 
 
+def extend_plain(values: torch.Tensor, n: int, log_blowup: int):
+    """interpolate_plain, zero-pad to 2^(n+log_blowup), evaluate_plain:
+    (coefficients, blown-up evaluation), int32. The fused kernel's
+    reference."""
+    coeffs = interpolate_plain(values, n)
+    padded = torch.zeros(coeffs.shape[:-1] + (1 << (n + log_blowup),),
+                         dtype=torch.int32, device=coeffs.device)
+    padded[..., : 1 << n] = coeffs
+    return coeffs, evaluate_plain(padded, n + log_blowup)
+
+
 def _log_of(x: torch.Tensor, log_size) -> int:
     return int(x.shape[-1]).bit_length() - 1 if log_size is None else log_size
 
@@ -162,9 +173,9 @@ def evaluate(coeffs: torch.Tensor, log_size: int | None = None) -> torch.Tensor:
 
 def extend_with_coeffs(values: torch.Tensor, log_size: int, log_blowup: int):
     """(coefficients, blown-up evaluation) of a (C, 2^log_size) batch of
-    columns. A CPU tensor is interpolated, zero-padded into a fresh
-    (C, 2^(log_size+blowup)) buffer and evaluated; a CUDA tensor takes the
-    fused kernel, which writes no padding (ops/circle_fft.extend)."""
+    columns. A CPU tensor takes extend_plain (interpolate, zero-pad,
+    evaluate); a CUDA tensor takes the fused kernel, which writes no
+    padding (ops/circle_fft.extend)."""
     from ..ops import circle_fft
 
     return circle_fft.extend(values, log_size, log_blowup)

@@ -406,3 +406,17 @@ extern "C" int circle_fft_pass(const void* src, void* dst, void* ext, const void
     default: return launch_mode<5>(mode, a, grid, threads, smem, st);
   }
 }
+
+// Never launched: two instantiations that differ only in 8 more products,
+// so the difference of their SASS instruction counts over 8 is the cost of
+// one m31::mul_doubled, the butterfly's product (chip_smoke.py reads it
+// with cuobjdump for the dispatch bounds).
+template <int K>
+__global__ void mul_doubled_probe(uint32_t* x, uint32_t t2) {
+  uint32_t v = x[threadIdx.x];
+#pragma unroll
+  for (int k = 0; k < K; ++k) v = m31::mul_doubled(v, t2);
+  x[threadIdx.x] = v;
+}
+template __global__ void mul_doubled_probe<1>(uint32_t*, uint32_t);
+template __global__ void mul_doubled_probe<9>(uint32_t*, uint32_t);

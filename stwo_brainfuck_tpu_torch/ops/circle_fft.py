@@ -277,15 +277,12 @@ def interpolate(values: torch.Tensor, n: int) -> torch.Tensor:
 def extend(values: torch.Tensor, n: int, log_blowup: int):
     """(coefficients, evaluation on the 2^log_blowup times larger domain)
     of each row. A CPU tensor takes the plain interpolate -> zero-pad ->
-    evaluate; a CUDA tensor the fused kernel, which writes no padding."""
+    evaluate (fft.extend_plain); a CUDA tensor the fused kernel, which
+    writes no padding."""
     if _device_of(values) == "cpu":
         _check(values, n)
         _check_blowup(n, log_blowup)
-        coeffs = fft.interpolate_plain(values, n)
-        padded = torch.zeros(coeffs.shape[:-1] + (1 << (n + log_blowup),),
-                             dtype=torch.int32, device=coeffs.device)
-        padded[..., : 1 << n] = coeffs
-        return coeffs, fft.evaluate_plain(padded, n + log_blowup)
+        return fft.extend_plain(values, n, log_blowup)
     return KERNEL.run("extend", values, n, log_blowup)
 
 

@@ -41,8 +41,9 @@ def test_kernel_matches_plain_on_the_card(cuda, n):
     assert circle_fft.KERNEL.launches - before == expect
 
 
-@pytest.mark.parametrize("blowup", [1, 4])
-@pytest.mark.parametrize("n", [1, 4, 12, 13, 14, 19, 20, 21])
+# (24, 1): the only extend whose fused pass runs on 2^14-element tiles (radix 5)
+@pytest.mark.parametrize("n, blowup", [(n, b) for n in (1, 4, 12, 13, 14, 19, 20, 21)
+                                       for b in (1, 4)] + [(24, 1)])
 def test_fused_extend_matches_plain_on_the_card(cuda, n, blowup):
     x = torch.as_tensor(np.random.default_rng(n + blowup).integers(0, P, (3, 1 << n))
                         .astype(np.int32), device=cuda)
@@ -50,7 +51,7 @@ def test_fused_extend_matches_plain_on_the_card(cuda, n, blowup):
     c, e = fft.extend_with_coeffs(x, n, blowup)
     assert circle_fft.KERNEL.launches - before == len(circle_fft.launch_plan("extend", n, 3, blowup))
     assert fft.PLAIN_CUDA_CALLS == plain
-    cp, ep = chip_smoke._plain_extend(x, n, blowup)
+    cp, ep = fft.extend_plain(x, n, blowup)
     assert torch.equal(c, cp)
     assert torch.equal(e, ep)
 
