@@ -28,7 +28,16 @@ Phases (any failure raises and the script exits non-zero):
      and the plain guard only the benchmark's own plain calls;
   5. the device table build against the host builders on the card, bit for
      bit, for the small program, fib19_io and big22;
-  6. the prover's main path, counts set to 0 first: the small program
+  6. the mesh prover (stwo_brainfuck_tpu_torch/parallel/, D shards sharing
+     the one card): the sharded evaluate, interpolate and extend (D 2, 4, 8;
+     n 16, 20, 24; 1 and 8 columns) against the one-device kernel and the
+     plain version, bit for bit, and one sharded evaluate (4, 2^24) at D = 4
+     timed beside the one-device kernel's; then, counts set to 0 first, the
+     small program through the CLI with --devices 8 (sha256, tamper) and
+     fib19_io at D = 2 and 4 (sha256, verify), each with its per-phase
+     split, peak device memory and FFT launches, no plain FFT on a CUDA
+     tensor and no M31 kernel;
+  7. the prover's main path, counts set to 0 first: the small program
      through the CLI entry point (prove, verify, proof sha256 against the
      JAX package's, a tampered copy rejected), then fib19_io
      (programs/fib19_io.bf, input 19: 223,689 steps; prove once cold, twice
@@ -64,7 +73,11 @@ from stwo_brainfuck_tpu_torch import air, cli
 from stwo_brainfuck_tpu_torch.components import device_build, tables
 from stwo_brainfuck_tpu_torch.components.defs import COMPONENT_CLASSES
 from stwo_brainfuck_tpu_torch.core import fft
+from stwo_brainfuck_tpu_torch.core import fri, quotients
 from stwo_brainfuck_tpu_torch.ops import circle_fft, m31_kernels, nvcc
+from stwo_brainfuck_tpu_torch.parallel import fft_sharded
+from stwo_brainfuck_tpu_torch.parallel import prove as sharded_prove
+from stwo_brainfuck_tpu_torch.parallel.mesh import make_mesh
 from stwo_brainfuck_tpu_torch.vm.compiler import compile_program
 from stwo_brainfuck_tpu_torch.vm.machine import create_test_machine
 
@@ -87,6 +100,9 @@ EXTEND_MAX_LOG = 25
 # the main path's shapes, timed: (op, columns, n, log_blowup)
 FFT_SHAPES = (("evaluate", 4, 24, 0), ("interpolate", 4, 23, 0), ("extend", 8, 19, 1),
               ("extend", 8, 19, 4), ("extend", 40, 22, 1))
+# the mesh prover's checks: shard counts and sizes of the sharded transforms
+SHARDED_MESHES = (2, 4, 8)
+SHARDED_SIZES = (16, 20, 24)
 M31_SIZES = (1, 127, 128, 4097, 1 << 20, 1 << 24)
 M31_EDGES = (0, 1, 2**16 - 1, 2**16, 2**31 - 2)
 P = 2**31 - 1
@@ -298,6 +314,94 @@ def phase_kernel(sass: dict, dispatch_per_s: float) -> dict:
     return {"max_abs_err": max_err, "times": times}
 
 
+def phase_sharded_fft() -> dict:
+    """The sharded transforms with D shards on the card against the
+    one-device kernel and the plain version on the same CUDA tensors, bit
+    for bit (each reference computed once per shape), then one sharded
+    evaluate (4, 2^24) at D = 4 timed beside the one-device kernel's."""
+    rng = np.random.default_rng(2)
+    p = 2**31 - 1
+    max_err = 0
+    checked = 0
+    guard = fft.PLAIN_CUDA_CALLS
+    plain_calls = 0
+    meshes = {d: make_mesh(d, "cuda") for d in SHARDED_MESHES}
+
+    def same(got, want, what):
+        nonlocal max_err, checked
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        max_err = max(max_err, err)
+        if err:
+            raise AssertionError(f"sharded circle FFT != reference: {what}")
+        checked += 1
+
+    for n in SHARDED_SIZES:
+        for shape in ((1 << n,), (8, 1 << n)):
+            x = torch.as_tensor(rng.integers(0, p, shape).astype(np.int32), device="cuda")
+            refs = {"evaluate": (circle_fft.evaluate(x, n), fft.evaluate_plain(x, n)),
+                    "interpolate": (circle_fft.interpolate(x, n), fft.interpolate_plain(x, n))}
+            coeffs, ext = fft.extend_with_coeffs(x, n, 1)
+            coeffs_p, ext_p = fft.extend_plain(x, n, 1)
+            refs["extend coeffs"], refs["extend"] = (coeffs, coeffs_p), (ext, ext_p)
+            plain_calls += 4
+            del coeffs, ext, coeffs_p, ext_p
+            for d, mesh in meshes.items():
+                before = circle_fft.KERNEL.launches
+                got = {"evaluate": fft_sharded.make_sharded_evaluate(mesh, n)(x),
+                       "interpolate": fft_sharded.make_sharded_interpolate(mesh, n)(x)}
+                got["extend coeffs"], got["extend"] = fft_sharded.sharded_extend(mesh, x, n, 1)
+                local = n - mesh.split_log
+                plan = sum(len(circle_fft.launch_plan(op, m, 1)) for op, m in (
+                    ("evaluate", local), ("interpolate", local), ("interpolate", local),
+                    ("evaluate", local + 1)))
+                if circle_fft.KERNEL.launches - before != d * plan:
+                    raise AssertionError(f"sharded FFT D={d} n={n}: launches differ from the "
+                                         f"shards' plans")
+                for op, arr in got.items():
+                    for ref, kind in zip(refs[op], ("kernel", "plain")):
+                        same(arr.full(), ref, f"{op} D={d} n={n} shape={shape} vs {kind}")
+                del got
+            del x, refs
+            torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    if fft.PLAIN_CUDA_CALLS - guard != plain_calls:
+        raise AssertionError("the plain FFT ran on a CUDA tensor outside the named calls")
+
+    mesh = meshes[4]
+    x = torch.as_tensor(rng.integers(0, p, (4, 1 << 24)).astype(np.int32), device="cuda")
+    xs = mesh.shard(x)
+    sharded_eval = fft_sharded.make_sharded_evaluate(mesh, 24)
+    same(sharded_eval(xs).full(), circle_fft.evaluate(x, 24), "timed shape")
+    times = {"shape": "evaluate (4, 2^24)", "shards": 4,
+             "sharded_ms": _time_ms(lambda: sharded_eval(xs), reps=10),
+             "one_device_ms": _time_ms(lambda: circle_fft.evaluate(x, 24), reps=10)}
+    del x, xs
+    torch.cuda.empty_cache()
+    _line("sharded_fft_check", {
+        "shards": SHARDED_MESHES, "sizes": SHARDED_SIZES, "cols": [1, 8], "extend_blowup": 1,
+        "comparisons": checked, "tolerance": 0, "max_abs_err": max_err, "times": times})
+    return {"max_abs_err": max_err, "times": times}
+
+
+def _clear_prover_caches() -> None:
+    """Drop every cached device tensor the provers keep (twiddle tables,
+    domain points, fold twiddles, the ladder tree, the mesh's gathers), so
+    that a cold prove builds its own and its peak counts only them."""
+    for cached in (fft.get_twiddles, circle_fft.twiddle_table, circle_fft.shard_twiddle_table,
+                   sharded_prove._permutation, air._preprocessed_tree, fri._fold_itw,
+                   quotients.domain_points_storage):
+        cached.cache_clear()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def _reset_counts() -> None:
+    circle_fft.KERNEL.launches = 0
+    fft.PLAIN_CUDA_CALLS = 0
+    m31_kernels.KERNELS.launches = dict.fromkeys(m31_kernels.KINDS, 0)
+    m31_kernels.PLAIN_CUDA_CALLS = 0
+
+
 def _check_launches(before: int, what: str) -> int:
     launched = circle_fft.KERNEL.launches - before
     if launched <= 0:
@@ -309,18 +413,19 @@ def _check_launches(before: int, what: str) -> int:
     return launched
 
 
-def phase_small() -> int:
-    """The small program through the CLI entry point."""
+def phase_small(tag: str = "small", flags: tuple = ()) -> int:
+    """The small program through the CLI entry point (`flags`: more prove
+    arguments, such as --devices)."""
     before = circle_fft.KERNEL.launches
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "proof.json")
         out = io.TextIOWrapper(io.BytesIO())  # the program's '.' output
         with contextlib.redirect_stdout(out):
             rc = cli.main(["prove", "--code", SMALL_CODE, "--input", SMALL_INPUT,
-                           "--output", path, "--device", "cuda", "--log", "warning"])
+                           "--output", path, "--device", "cuda", "--log", "warning", *flags])
         if rc != 0:
             raise AssertionError(f"CLI prove exited {rc}")
-        launched = _check_launches(before, "small prove")
+        launched = _check_launches(before, f"{tag} prove")
         with open(path) as f:
             proof = json.load(f)
         sha = proof_sha256(proof)
@@ -339,15 +444,19 @@ def phase_small() -> int:
             logging.disable(logging.NOTSET)
         if not rejected:
             raise AssertionError("CLI verify accepted a tampered proof")
-    _line("small", {"sha256": sha, "matches_jax": True, "tamper_rejected": True,
-                    "fft_launches": launched})
+    _line(tag, {"flags": list(flags), "sha256": sha, "matches_jax": True,
+                "tamper_rejected": True, "fft_launches": launched})
     return launched
 
 
-def phase_program(name, path, inp, runs: int, expect_sha: str | None) -> int:
-    """Prove (`runs` times, the first cold) and verify one program."""
+def phase_program(name, path, inp, runs: int, expect_sha: str | None,
+                  n_shards: int = 0) -> int:
+    """Prove (`runs` times, the first cold) and verify one program; on a
+    mesh of `n_shards` shards over the visible cards if n_shards > 0."""
     with open(path) as f:
         code = compile_program(f.read())
+    mesh = make_mesh(n_shards, "cuda") if n_shards else None
+    tag = {"shards": n_shards, "devices": sorted({str(d) for d in mesh.devices})} if mesh else {}
     launched = 0
     for run in range(runs):
         machine = create_test_machine(code, inp)
@@ -358,7 +467,7 @@ def phase_program(name, path, inp, runs: int, expect_sha: str | None) -> int:
         before = circle_fft.KERNEL.launches
         timer = air.PhaseTimer("cuda")
         t1 = time.perf_counter()
-        proof = air.prove_brainfuck(machine, device="cuda", timer=timer)
+        proof = air.prove_brainfuck(machine, device="cuda", timer=timer, mesh=mesh)
         torch.cuda.synchronize()
         prove_s = time.perf_counter() - t1
         launched = _check_launches(before, f"{name} prove")
@@ -369,7 +478,8 @@ def phase_program(name, path, inp, runs: int, expect_sha: str | None) -> int:
         sha = proof_sha256(proof)
         if expect_sha is not None and sha != expect_sha:
             raise AssertionError(f"{name} proof sha256 {sha} != JAX reference")
-        _line(name, {
+        _line("sharded" if mesh else name, {
+            **({"program": name, **tag} if mesh else {}),
             "run": "cold" if run == 0 else "warm", "vm": machine.vm, "steps": steps,
             "vm_s": t1 - t0, "prove_s": prove_s, "verify_s": verify_s,
             "khz": steps / prove_s / 1e3, "proof_bytes": len(json.dumps(proof)),
@@ -569,11 +679,22 @@ def main() -> int:
     phase_tables([("small", SMALL_CODE, SMALL_INPUT.encode()),
                   ("fib19_io", fib_code, FIB_INPUT), ("big22", big_code, b"")])
 
+    # the mesh prover: its transforms checked, then its path with the
+    # counts at 0
+    sharded_fft = phase_sharded_fft()
+    _clear_prover_caches()
+    _reset_counts()
+    phase_small("sharded_small", ("--devices", "8"))
+    for shards in (2, 4):
+        phase_program("fib19_io", os.path.join(ROOT, "programs", "fib19_io.bf"), FIB_INPUT,
+                      runs=2, expect_sha=REFERENCE_SHA256["fib19_io"], n_shards=shards)
+    sharded_launches = circle_fft.KERNEL.launches
+    if sharded_launches <= 0 or fft.PLAIN_CUDA_CALLS:
+        raise AssertionError("the mesh prover did not run on the circle FFT kernel")
+    _clear_prover_caches()
+
     # the prover's main path: counts start at 0 here
-    circle_fft.KERNEL.launches = 0
-    fft.PLAIN_CUDA_CALLS = 0
-    m31_kernels.KERNELS.launches = dict.fromkeys(m31_kernels.KINDS, 0)
-    m31_kernels.PLAIN_CUDA_CALLS = 0
+    _reset_counts()
     phase_small()
     phase_program("fib19_io", os.path.join(ROOT, "programs", "fib19_io.bf"), FIB_INPUT,
                   runs=3, expect_sha=REFERENCE_SHA256["fib19_io"])
@@ -589,7 +710,9 @@ def main() -> int:
         "source": "stwo_brainfuck_tpu_torch/csrc/circle_fft.cu",
         "replaces": "stwo_brainfuck_tpu/ops/fft_pallas.py:364 (_make_pass1); "
                     "stwo_brainfuck_tpu/ops/fft_pallas.py:402 (_make_pass2)",
-        "launches": fft_launches, "max_abs_err": kern["max_abs_err"],
+        "launches": fft_launches,
+        "launches_by_path": {"prover": fft_launches, "sharded_prover": sharded_launches},
+        "max_abs_err": max(kern["max_abs_err"], sharded_fft["max_abs_err"]),
         "ms": headline["kernel_ms"], "plain_ms": headline["plain_ms"],
         "bound_ms": headline["bound_ms"], "bound_by": headline["bound_by"],
         "library_ms": None,

@@ -28,7 +28,14 @@ from .core import fft, fri, m31, merkle, poly, qm31, quotients
 from .core.channel import Blake2sChannel
 from .core.circle import point_from_t
 from .core.m31 import P_INT
-from .core.pcs import ColumnRecord, PcsConfig, TreeProver, query_positions_by_level, shifted_point
+from .core.pcs import (
+    ColumnRecord,
+    PcsConfig,
+    TreeProver,
+    query_positions_by_level,
+    row,
+    shifted_point,
+)
 from .framework.component import (
     LookupElements,
     build_interaction_trace,
@@ -186,26 +193,38 @@ def lookup_sum_valid(iclaim: Dict[str, tuple]) -> bool:
 # ---------------------------------------------------------------------------
 
 def prove_brainfuck(machine, config: Optional[PcsConfig] = None, device="cuda",
-                    timer: Optional[PhaseTimer] = None) -> dict:
+                    timer: Optional[PhaseTimer] = None, mesh=None) -> dict:
     """Generate a proof for an executed Machine on `device`. Returns a
     JSON-able dict (docs/PROOF_FORMAT.md), byte-identical to the JAX
-    package's proof of the same execution and config."""
+    package's proof of the same execution and config.
+
+    mesh: a parallel.mesh.Mesh to prove on instead (the tables are built
+    on its first device): every heavy phase runs sharded through
+    parallel/prove.ShardedOps, and the proof bytes are the same for any
+    number of shards."""
     mark = timer.mark if timer is not None else (lambda name: None)
-    device = torch.device(device)
+    device = torch.device(device) if mesh is None else mesh.devices[0]
     trace = machine.trace()
     mark("trace")
     meta = device_build.build_meta(trace, machine.program())
     assert tuple(meta.claim) == CLAIM_ORDER, list(meta.claim)
     mats = device_build.build_device_tables(trace, meta, device)
     mark("tables")
-    return _prove_tables(mats, meta.claim, config, device, mark)
+    return _prove_tables(mats, meta.claim, config, device, mark, mesh)
 
 
 def _prove_tables(mats: Dict[str, torch.Tensor], claim: Dict[str, int],
-                  config: Optional[PcsConfig], device: torch.device, mark) -> dict:
+                  config: Optional[PcsConfig], device: torch.device, mark,
+                  mesh=None) -> dict:
     """The prove pipeline from the component matrices (name -> (n_cols, N)
-    int32 on `device`, rows in the component's column order)."""
+    int32 on `device`, rows in the component's column order), on `mesh`
+    (whose first device is `device`) if one is given."""
     config = config or PcsConfig(log_max_rows=0)  # 0 = auto ladder top
+    ops = None
+    if mesh is not None:
+        from .parallel.prove import ShardedOps
+
+        ops = ShardedOps(mesh)
     layout = build_layout(claim, config)
     comps = layout.components
     blow = config.log_blowup
@@ -227,22 +246,23 @@ def _prove_tables(mats: Dict[str, torch.Tensor], claim: Dict[str, int],
         mat = mats[comp.name]
         dev_tabs[comp.name] = {c: mat[i] for i, c in enumerate(comp.columns)}
         main_cols += [(comp.log_size, mat[i]) for i in range(len(comp.columns))]
-    tree1 = TreeProver(main_cols, config, channel)
+    tree1 = TreeProver(main_cols, config, channel, ops=ops)
     mark("tree1")
 
     log.info("Phase 2: interaction trace")
     elements = draw_elements(channel)
     inter_cols: List[Tuple[int, torch.Tensor]] = []
     iclaim: Dict[str, tuple] = {}
+    interaction = build_interaction_trace if ops is None else ops.interaction
     for comp in comps:
-        cols, iclaim[comp.name] = build_interaction_trace(comp, dev_tabs[comp.name], elements)
+        cols, iclaim[comp.name] = interaction(comp, dev_tabs[comp.name], elements)
         for q in cols:
-            inter_cols += [(comp.log_size, q[c]) for c in range(4)]
+            inter_cols += [(comp.log_size, row(q, c)) for c in range(4)]
     if not lookup_sum_valid(iclaim):
         raise ProvingError("LogUp sum does not cancel — invalid trace")
     mix_interaction_claim(channel, iclaim)
     mark("interaction")
-    tree2 = TreeProver(inter_cols, config, channel)
+    tree2 = TreeProver(inter_cols, config, channel, ops=ops)
     mats.clear()  # the caller's dict too: the matrices are freed from here on
     del dev_tabs, main_cols, inter_cols
     mark("tree2")
@@ -261,38 +281,51 @@ def _prove_tables(mats: Dict[str, torch.Tensor], claim: Dict[str, int],
             ext_main[col] = tree1.records[t1].extended
             t1 += 1
         n_inter = comp.relation_count() + 1
-        ext_inter = [torch.stack([tree2.records[t2 + 4 * k + c].extended for c in range(4)])
-                     for k in range(n_inter)]
+        coords = [[tree2.records[t2 + 4 * k + c].extended for c in range(4)]
+                  for k in range(n_inter)]
         t2 += 4 * n_inter
-        s_prev = ext_inter[-1][:, fft.rotation_permutation(n, blow, 1, device)]
         isf_ext = tree0.records[tree0_index[n]].extended
         v_inv = m31.inv(poly.vanishing_on_domain(n, n + blow, device))
-        contrib, alpha_idx = composition_contribution(
-            comp, ext_main, ext_inter, s_prev, isf_ext, iclaim[comp.name],
-            elements, alpha_comp, alpha_idx, v_inv)
         lg = n + blow
-        acc[lg] = contrib if lg not in acc else (acc[lg] + contrib) % P_INT
-        del ext_inter, s_prev, v_inv
+        if ops is None:
+            ext_inter = [torch.stack(cs) for cs in coords]
+            s_prev = ext_inter[-1][:, fft.rotation_permutation(n, blow, 1, device)]
+            contrib, alpha_idx = composition_contribution(
+                comp, ext_main, ext_inter, s_prev, isf_ext, iclaim[comp.name],
+                elements, alpha_comp, alpha_idx, v_inv)
+            acc[lg] = contrib if lg not in acc else (acc[lg] + contrib) % P_INT
+        else:
+            ext_inter = [mesh.stack(cs) for cs in coords]
+            s_prev = ops.rotate(ext_inter[-1], n, blow)
+            contrib, alpha_idx = ops.composition_contribution(
+                comp, ext_main, ext_inter, s_prev, isf_ext, iclaim[comp.name],
+                elements, alpha_comp, alpha_idx, v_inv)
+            acc.setdefault(lg, []).append(contrib)
+        del ext_inter, s_prev, v_inv, contrib
 
     comp_log = layout.composition_log
     # per-size interpolate, zero-pad + modular add, one evaluate on the
     # composition domain (the circle-FFT basis is nested across sizes)
-    total = torch.zeros((4, 1 << comp_log), dtype=torch.int64, device=device)
-    for lg, arr in sorted(acc.items()):
-        coeffs = fft.interpolate(arr.to(torch.int32), lg)
-        total[:, : 1 << lg] = (total[:, : 1 << lg] + coeffs) % P_INT
+    if ops is None:
+        total = torch.zeros((4, 1 << comp_log), dtype=torch.int64, device=device)
+        for lg, arr in sorted(acc.items()):
+            coeffs = fft.interpolate(arr.to(torch.int32), lg)
+            total[:, : 1 << lg] = (total[:, : 1 << lg] + coeffs) % P_INT
+        comp_evals = fft.evaluate(total.to(torch.int32), comp_log)
+        del total
+    else:
+        comp_evals = ops.combine_eval(acc, comp_log)
     del acc
-    comp_evals = fft.evaluate(total.to(torch.int32), comp_log)
-    del total
     mark("composition")
-    tree3 = TreeProver([(comp_log, comp_evals[c]) for c in range(4)], config, channel)
+    tree3 = TreeProver([(comp_log, row(comp_evals, c)) for c in range(4)], config, channel,
+                       ops=ops)
     del comp_evals
     mark("tree3")
     trees = [tree0, tree1, tree2, tree3]
 
     log.info("OODS sampling")
     z = point_from_t(channel.draw_felt())
-    sampled = _sample_all_trees(trees, layout, z)
+    sampled = _sample_all_trees(trees, layout, z, ops)
     for tvals in sampled:
         for cvals in tvals:
             channel.mix_felts([tuple(v) for v in cvals])
@@ -317,12 +350,12 @@ def _prove_tables(mats: Dict[str, torch.Tensor], claim: Dict[str, int],
     for size, pairs in claims_by_size.items():
         log.info("  quotients size 2^%d (%d columns)", size, len(pairs))
         fri_inputs[size] = quotients.accumulate_quotients(
-            size, [p[0] for p in pairs], [p[1] for p in pairs], alpha_q)
+            size, [p[0] for p in pairs], [p[1] for p in pairs], alpha_q, ops=ops)
     mark("quotients")
 
     log.info("FRI")
     s_max = max(fri_inputs)
-    fri_prover = fri.fri_commit(fri_inputs, channel)
+    fri_prover = fri.fri_commit(fri_inputs, channel, ops=ops)
     del fri_inputs
     mark("fri")
 
@@ -364,18 +397,20 @@ def sampling_plan(layout: SystemLayout) -> Dict[tuple, list]:
     return groups
 
 
-def _sample_all_trees(trees, layout: SystemLayout, z) -> List[List[List[tuple]]]:
+def _sample_all_trees(trees, layout: SystemLayout, z, ops=None) -> List[List[List[tuple]]]:
     """OODS-sample every committed column of every tree at its mask points:
     columns are grouped by (trace log, shift) across trees; each group is
-    one tensor-product contraction (poly.sample_tensor) with the point's
-    half-bases built on the host."""
+    one tensor-product contraction (poly.sample_tensor; with the mesh
+    backend `ops`, per-shard partial contractions summed mod p) with the
+    point's half-bases built on the host."""
     sampled: List[List[List[Optional[tuple]]]] = [
         [[None] * len(meta.shifts) for meta in metas] for metas in layout.trees
     ]
+    sample = poly.sample_tensor if ops is None else ops.sample_tensor
     for (log_size, s), members in sampling_plan(layout).items():
         rows = [trees[ti].records[ci].coeffs for ti, ci, _ in members]
         b_lo, b_hi = poly.half_bases_at_point(log_size, shifted_point(z, log_size, s))
-        arr = poly.sample_tensor(rows, b_lo, b_hi).cpu().numpy()
+        arr = sample(rows, b_lo, b_hi).cpu().numpy()
         for c, (ti, ci, pi) in enumerate(members):
             sampled[ti][ci][pi] = tuple(int(arr[k, c]) for k in range(4))
     return sampled  # type: ignore[return-value]

@@ -7,6 +7,9 @@ Counterpart of ``stwo_brainfuck_tpu/cli.py`` (single device):
 
 ``--device`` defaults to ``cuda`` for both; on a machine without a GPU that
 raises rather than carrying on on the CPU (pass ``--device cpu`` there).
+``prove --devices N`` proves on a mesh of N shards over the visible devices
+of ``--device``'s type (``parallel/mesh.make_mesh``; on one card all N
+shards share it); the proof is the same bytes for any N.
 """
 
 from __future__ import annotations
@@ -52,6 +55,9 @@ def _add_prove_args(p):
     p.add_argument("--n-queries", type=int, default=20)
     p.add_argument("--pow-bits", type=int, default=10)
     p.add_argument("--device", default="cuda", help="torch device to prove on")
+    p.add_argument("--devices", type=int, default=0,
+                   help="prove on a mesh of N shards (a power of two) over the visible "
+                        "devices of --device's type; 0 = one device")
 
 
 def cmd_prove(args) -> int:
@@ -87,10 +93,18 @@ def cmd_prove(args) -> int:
 
     config = PcsConfig(log_max_rows=args.log_max_rows, n_queries=args.n_queries,
                        pow_bits=args.pow_bits)
+    mesh = None
+    if args.devices:
+        from .parallel.mesh import make_mesh
+
+        mesh = make_mesh(args.devices, device)
+        log.info("Mesh: %d shards on %s", mesh.size,
+                 ", ".join(sorted({str(d) for d in mesh.devices})))
     t0 = time.time()
-    proof = air.prove_brainfuck(machine, config, device=device)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    proof = air.prove_brainfuck(machine, config, device=device, mesh=mesh)
+    for dev in {device} if mesh is None else set(mesh.devices):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
     proof_time = time.time() - t0
     log.info("Proof generation speed: %.2f kHz", steps / max(proof_time, 1e-9) / 1e3)
     log.info("Execution trace time: %.1f ms; proof time: %.2f s; total: %.2f s",

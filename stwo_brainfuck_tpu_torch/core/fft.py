@@ -104,11 +104,40 @@ def _note_plain_call(x: torch.Tensor) -> None:
         PLAIN_CUDA_CALLS += 1
 
 
-def interpolate_plain(values: torch.Tensor, n: int) -> torch.Tensor:
+def shard_stages(n: int, n_shards: int, i: int, inverse: bool, device: str) -> list:
+    """The twiddles of shard i's local stages when a 2^n transform is split
+    into n_shards contiguous chunks of 2^local (local = n - log2 n_shards):
+    stage L < local is the slice [i·2^(local-1-L), (i+1)·2^(local-1-L)) of
+    the global stage L (storage is bit-reversed, so a contiguous chunk's
+    butterfly blocks are a contiguous run of twiddles)."""
+    local = n - (n_shards.bit_length() - 1)
+    tws = get_twiddles(n, inverse, device)
+    return [tws[L][i << (local - 1 - L):(i + 1) << (local - 1 - L)] for L in range(local)]
+
+
+def twiddle_at(n: int, L: int, t: int) -> int:
+    """Entry t of the forward stage-L twiddles of the size-2^n domain
+    (get_twiddles(n, False, ...)[L][t]), computed on the host from one
+    circle point: y of the half coset's point bitrev(t) for L = 0, else
+    pi^(L-1) of its x."""
+    half = CanonicCoset(n).circle_domain().half_coset
+    x, y = half.at(bitrev_int(t, n - 1 - L))
+    if L == 0:
+        return y
+    for _ in range(L - 1):
+        x = (2 * x * x + P_INT - 1) % P_INT
+    return x
+
+
+def interpolate_plain(values: torch.Tensor, n: int, stages=None, scale=None) -> torch.Tensor:
     """Staged inverse CFFT over the last axis: stages L = 0 .. n-1, pair
-    stride 2^L, (a, b) -> (a + b, (a - b) / t), then · 2^-n. int32 out."""
+    stride 2^L, (a, b) -> (a + b, (a - b) / t), then · `scale` (default
+    2^-n). int32 out. `stages` (default: those of the size-2^n domain)
+    gives each stage's inverse twiddles, as shard_stages does for one
+    shard of a larger transform."""
     _note_plain_call(values)
-    tws = get_twiddles(n, True, str(values.device))
+    tws = get_twiddles(n, True, str(values.device)) if stages is None else stages
+    scale = inv_pow2(n) if scale is None else scale
     lead = tuple(values.shape[:-1])
     v = m31.wide(values)
     for L in range(n):
@@ -119,14 +148,15 @@ def interpolate_plain(values: torch.Tensor, n: int) -> torch.Tensor:
         t = tws[L].reshape(blocks, 1)
         v = torch.stack([(a + b) % P_INT, ((a - b) % P_INT) * t % P_INT], dim=-2)
         v = v.reshape(lead + (1 << n,))
-    return (v * inv_pow2(n) % P_INT).to(torch.int32)
+    return (v * scale % P_INT).to(torch.int32)
 
 
-def evaluate_plain(coeffs: torch.Tensor, n: int) -> torch.Tensor:
+def evaluate_plain(coeffs: torch.Tensor, n: int, stages=None) -> torch.Tensor:
     """Staged forward CFFT over the last axis: stages L = n-1 .. 0,
-    (a, b) -> (a + t·b, a - t·b). int32 out."""
+    (a, b) -> (a + t·b, a - t·b). int32 out. `stages` as in
+    interpolate_plain (forward twiddles)."""
     _note_plain_call(coeffs)
-    tws = get_twiddles(n, False, str(coeffs.device))
+    tws = get_twiddles(n, False, str(coeffs.device)) if stages is None else stages
     lead = tuple(coeffs.shape[:-1])
     v = m31.wide(coeffs)
     for L in reversed(range(n)):

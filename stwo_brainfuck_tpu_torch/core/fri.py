@@ -101,20 +101,24 @@ class FriProver:
     max_log: int
 
 
-def fri_commit(inputs: Dict[int, torch.Tensor], channel) -> FriProver:
+def fri_commit(inputs: Dict[int, torch.Tensor], channel, ops=None) -> FriProver:
     """inputs: circle-domain size log -> combined quotient (4, 2^log).
     Performs all folds, committing each intermediate line layer and mixing
     roots/last value into the channel. Radix-4: each committed layer folds
     twice (beta, then beta^2); a circle-folded input is injected (added)
-    when the running line evaluation reaches its size."""
+    when the running line evaluation reaches its size. With `ops` (the mesh
+    backend, parallel/prove.ShardedOps) the folds and layer commits run
+    sharded, both folds of a layer in one step where no input is injected
+    between them."""
     logs = sorted(inputs, reverse=True)
     if not logs:
         raise ValueError("no FRI inputs")
     max_log = logs[0]
-    dev = inputs[max_log].device
+    dev = inputs[max_log].device if ops is None else ops.mesh.devices[0]
+    fold = _fold if ops is None else ops.fold
 
     beta0 = channel.draw_felt()  # circle fold coefficient for all injections
-    cur = _fold(inputs[max_log], _fold_itw("c", max_log, dev), beta0)
+    cur = fold(inputs[max_log], _fold_itw("c", max_log, dev), beta0)
     m = max_log - 1
     layers: List[merkle.MerkleTree] = []
     layer_evals: List[torch.Tensor] = []
@@ -123,13 +127,17 @@ def fri_commit(inputs: Dict[int, torch.Tensor], channel) -> FriProver:
 
     def inject(cur, m):
         if m + 1 in inputs and m + 1 != max_log:
-            folded = _fold(inputs[m + 1], _fold_itw("c", m + 1, dev), beta0)
-            return (cur + folded) % P_INT
+            itw = _fold_itw("c", m + 1, dev)
+            if ops is not None:
+                return ops.fold_add(inputs[m + 1], itw, beta0, cur)
+            return (cur + _fold(inputs[m + 1], itw, beta0)) % P_INT
         return cur
 
     while m > LOG_LAST_LAYER:
-        cur = inject(cur, m).to(torch.int32)
-        tree = merkle.commit({m: cur})
+        cur = inject(cur, m)
+        if ops is None:
+            cur = cur.to(torch.int32)
+        tree = merkle.commit({m: cur}) if ops is None else ops.commit({m: cur})
         layers.append(tree)
         layer_evals.append(cur)
         layer_levels.append(m)
@@ -137,14 +145,20 @@ def fri_commit(inputs: Dict[int, torch.Tensor], channel) -> FriProver:
         channel.mix_root(tree.root)
         beta = channel.draw_felt()
         beta2 = qm31.h_mul(beta, beta)
-        cur = _fold(cur, _fold_itw("l", m, dev), beta)
+        if ops is not None and m - 1 > LOG_LAST_LAYER and m not in inputs:
+            cur = ops.fold2(cur, _fold_itw("l", m, dev), _fold_itw("l", m - 1, dev), beta, beta2)
+            m -= 2
+            continue
+        cur = fold(cur, _fold_itw("l", m, dev), beta)
         m -= 1
         if m > LOG_LAST_LAYER:
             cur = inject(cur, m)
-            cur = _fold(cur, _fold_itw("l", m, dev), beta2)
+            cur = fold(cur, _fold_itw("l", m, dev), beta2)
             m -= 1
 
     cur = inject(cur, m)
+    if ops is not None:
+        cur = ops.mesh.full(cur)
     last = tuple(int(x) for x in cur[:, 0].cpu())
     channel.mix_felts([last])
 
@@ -164,8 +178,7 @@ def fri_decommit(prover: FriProver, queries: Sequence[int]) -> None:
                             for q in queries for j in range(4)})
         prover.proof.layer_decommitments.append(
             merkle.decommit(tree, positions, include_values=False))
-        idx = torch.as_tensor(positions, dtype=torch.int64, device=evals.device)
-        got = evals[:, idx].cpu().numpy()
+        got = merkle.gather_columns(evals, positions)
         prover.proof.layer_values.append(
             {p: tuple(int(x) for x in got[:, i]) for i, p in enumerate(positions)})
 

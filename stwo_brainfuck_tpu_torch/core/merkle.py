@@ -30,8 +30,10 @@ from . import blake2s
 class MerkleTree:
     root: bytes
     # level -> (8, 2^level) int32 digest words (32-bit patterns), on device
+    # (mesh-sharded at the levels parallel/merkle_sharded.py hashes sharded)
     layers: Dict[int, torch.Tensor]
-    # level -> (n_cols, 2^level) column matrix the caller committed (no copy)
+    # level -> (n_cols, 2^level) column matrix the caller committed (no
+    # copy; a mesh-sharded array where the caller's was)
     column_mats: Dict[int, torch.Tensor]
 
     @property
@@ -51,15 +53,32 @@ def commit(columns_by_log: Dict[int, torch.Tensor]) -> MerkleTree:
     layers: Dict[int, torch.Tensor] = {}
     prev = None
     for k in range(max(columns_by_log), -1, -1):
-        parts = []
-        if prev is not None:
-            parts += [prev[:, 0::2], prev[:, 1::2]]  # child 2i || child 2i+1
-        if k in columns_by_log:
-            parts.append(columns_by_log[k])
-        prev = blake2s.words_to_int32(blake2s.hash_parts(parts))
+        prev = hash_level(prev, columns_by_log.get(k))
         layers[k] = prev
     root = blake2s.digest_to_bytes(layers[0][:, 0])
     return MerkleTree(root=root, layers=layers, column_mats=dict(columns_by_log))
+
+
+def hash_level(children, columns) -> torch.Tensor:
+    """One level's nodes, (8, m) int32 digest words: node i hashes child
+    2i || child 2i+1 (children: (8, 2m) digests of the level below, or
+    None at the deepest level) || the level's column values at i
+    (columns: (C, m), or None)."""
+    parts = []
+    if children is not None:
+        parts += [children[:, 0::2], children[:, 1::2]]
+    if columns is not None:
+        parts.append(columns)
+    return blake2s.words_to_int32(blake2s.hash_parts(parts))
+
+
+def gather_columns(mat, positions) -> np.ndarray:
+    """mat[:, positions] on the host, for a tensor or a mesh-sharded
+    array (parallel/mesh.Sharded.gather)."""
+    if isinstance(mat, torch.Tensor):
+        idx = torch.as_tensor(list(positions), dtype=torch.int64, device=mat.device)
+        return mat[:, idx].cpu().numpy()
+    return mat.gather(positions).numpy()
 
 
 @dataclass
@@ -113,18 +132,14 @@ def decommit(tree: MerkleTree, queries, include_values: bool = True) -> MerkleDe
     out = MerkleDecommitment()
     for k in range(tree.max_log, -1, -1):
         if include_values and k in tree.column_mats:
-            idx = torch.as_tensor(needed[k], dtype=torch.int64,
-                                  device=tree.column_mats[k].device)
-            got = tree.column_mats[k][:, idx].cpu().numpy()
+            got = gather_columns(tree.column_mats[k], needed[k])
             out.column_values[k] = [[int(v) for v in row] for row in got]
         if k < tree.max_log:
             child_needed = set(needed[k + 1])
             witness_pos = [child for p in needed[k] for child in (2 * p, 2 * p + 1)
                            if child not in child_needed]
             if witness_pos:
-                layer = tree.layers[k + 1]
-                idx = torch.as_tensor(witness_pos, dtype=torch.int64, device=layer.device)
-                got = layer[:, idx].cpu().numpy()
+                got = gather_columns(tree.layers[k + 1], witness_pos)
                 for j in range(got.shape[1]):
                     out.witness_hashes.append(blake2s.digest_to_bytes(got[:, j]))
     return out

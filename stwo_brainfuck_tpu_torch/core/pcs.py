@@ -47,14 +47,21 @@ class ColumnRecord:
     extended: torch.Tensor   # (2^(log+blowup),) evaluation (a row view)
 
 
+def row(x, j: int):
+    """Row j of a (C, N) tensor or mesh-sharded array."""
+    return x[j] if isinstance(x, torch.Tensor) else x.rows(j)
+
+
 class TreeProver:
     """One committed phase: extend columns, commit, mix the root."""
 
     def __init__(self, columns: Sequence[Tuple[int, torch.Tensor]], config: PcsConfig,
-                 channel):
+                 channel, ops=None):
         """columns: list of (log_size, (2^log_size,) int32 trace-domain
         evaluation). Columns of a common size are stacked and extended as
-        one (C, N) batch."""
+        one (C, N) batch. With `ops` (the mesh backend,
+        parallel/prove.ShardedOps) the extends and the commitment run
+        sharded, and the records hold sharded rows."""
         self.config = config
         groups: Dict[int, List[int]] = {}
         for i, (log_size, _) in enumerate(columns):
@@ -62,17 +69,21 @@ class TreeProver:
         coeffs_all: Dict[int, torch.Tensor] = {}
         ext_all: Dict[int, torch.Tensor] = {}
         for log_size, idxs in groups.items():
-            mat = torch.stack([columns[i][1] for i in idxs])
-            coeffs_all[log_size], ext_all[log_size] = fft.extend_with_coeffs(
-                mat, log_size, config.log_blowup)
+            cols = [columns[i][1] for i in idxs]
+            if ops is None:
+                coeffs_all[log_size], ext_all[log_size] = fft.extend_with_coeffs(
+                    torch.stack(cols), log_size, config.log_blowup)
+            else:
+                coeffs_all[log_size], ext_all[log_size] = ops.extend_with_coeffs(
+                    cols, log_size, config.log_blowup)
         self.records: List[ColumnRecord] = []
         pos: Dict[int, int] = {k: 0 for k in groups}
         for log_size, _ in columns:
             j = pos[log_size]
             pos[log_size] = j + 1
             self.records.append(ColumnRecord(
-                log_size, coeffs_all[log_size][j], ext_all[log_size][j]))
-        self.tree = merkle.commit(
+                log_size, row(coeffs_all[log_size], j), row(ext_all[log_size], j)))
+        self.tree = (merkle.commit if ops is None else ops.commit)(
             {lg + config.log_blowup: ext_all[lg] for lg in groups})
         channel.mix_root(self.tree.root)
 

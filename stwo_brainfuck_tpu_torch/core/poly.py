@@ -55,21 +55,28 @@ def half_bases_at_point(log_size: int, point) -> Tuple[np.ndarray, np.ndarray]:
 
 
 def sample_tensor(rows: Sequence[torch.Tensor], b_lo: np.ndarray,
-                  b_hi: np.ndarray) -> torch.Tensor:
+                  b_hi: np.ndarray, offset: int = 0) -> torch.Tensor:
     """Evaluate C coefficient rows (each (N,) int32, N = 2^log) at one QM31
     point via the tensor-product basis split:
     out[:, c] = sum_hi b_hi * (sum_lo rows[c].(H, L) * b_lo). Exact mod p, so
-    bit-identical to the direct basis dot. Returns (4, C) int64."""
+    bit-identical to the direct basis dot. Returns (4, C) int64.
+
+    With `offset`, the rows are the coefficients [offset, offset + n) of
+    longer rows (one shard's chunk, n and offset multiples of the same
+    power of two) and the result is their part of the sum: the parts of
+    all chunks add up mod p to the whole rows' values."""
     dev = rows[0].device
-    lo = torch.as_tensor(b_lo.astype(np.int64), device=dev)      # (4, L)
-    hi = torch.as_tensor(b_hi.astype(np.int64), device=dev)      # (4, H)
-    big_l = lo.shape[1]
     n = rows[0].shape[0]
+    big_l = b_lo.shape[1]
+    w = min(n, big_l)                                            # lo terms a row of m3 takes
+    lo = torch.as_tensor(b_lo[:, offset % big_l:][:, :w].astype(np.int64), device=dev)
+    hi = torch.as_tensor(b_hi[:, offset // big_l:][:, :max(1, n // big_l)].astype(np.int64),
+                         device=dev)
     step = max(1, _SAMPLE_CHUNK // n)
     outs = []
     for c0 in range(0, len(rows), step):
         mat = torch.stack(list(rows[c0:c0 + step])).to(torch.int64)
-        m3 = mat.reshape(mat.shape[0], -1, big_l)                # (C, H, L)
+        m3 = mat.reshape(mat.shape[0], -1, w)                    # (C, H, L)
         t = torch.stack([(m3 * lo[k] % P_INT).sum(-1) % P_INT for k in range(4)])
         outs.append(qm31.mul(t, hi[:, None, :]).sum(-1) % P_INT)  # (4, C)
     return torch.cat(outs, dim=1)

@@ -136,6 +136,7 @@ def accumulate_quotients(
     columns: Sequence[torch.Tensor],
     claims: Sequence[Sequence[QuotientClaim]],
     alpha: tuple,
+    ops=None,
 ) -> torch.Tensor:
     """Prover: combined quotient evaluation on the commitment domain
     2^log_size (QM31, (4, N) int32).
@@ -143,14 +144,25 @@ def accumulate_quotients(
     Claims are grouped by sample point: all columns sampled at the same z
     share the pair-vanishing V and the line structure, so
         sum_k a^k (f_k - l_k)/V  =  (1/V) * (sum_k a^k f_k - A - B*p.y)
-    with scalar A = sum a^k l0_k, B = sum a^k s_k."""
+    with scalar A = sum a^k l0_k, B = sum a^k s_k. With `ops` (the mesh
+    backend, parallel/prove.ShardedOps) the accumulation runs sharded."""
+    groups = [_group_constants(members, alpha) for members in _group_claims(claims).values()]
+    if ops is not None:
+        return ops.accumulate_all(log_size, columns, groups)
+    px, py = domain_points_storage(log_size, columns[0].device)
+    return accumulate_groups(columns, groups, px, py)
+
+
+def accumulate_groups(columns: Sequence[torch.Tensor], groups, px: torch.Tensor,
+                      py: torch.Tensor) -> torch.Tensor:
+    """The combined quotient at the domain points (px, py) (any run of
+    them: a shard's chunk) from the columns' values there and the point
+    groups' host constants (_group_constants). (4, n) int32."""
     dev = columns[0].device
-    px, py = domain_points_storage(log_size, dev)
     acc = None
-    for members in _group_claims(claims).values():
-        consts, weights, idxs = _group_constants(members, alpha)
+    for consts, weights, idxs in groups:
         w = torch.as_tensor(weights.astype(np.int64), device=dev)   # (C_g, 4)
-        wf = torch.zeros((4, 1 << log_size), dtype=torch.int64, device=dev)
+        wf = torch.zeros((4, px.shape[0]), dtype=torch.int64, device=dev)
         for j, ci in enumerate(idxs):
             wf = (wf + w[j][:, None] * columns[ci].to(torch.int64)) % P_INT
         q = _point_group_quotient(wf, consts, px, py)

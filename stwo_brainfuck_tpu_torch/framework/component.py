@@ -297,6 +297,23 @@ def _device_elements(elements: Dict[str, LookupElements], device) -> Dict[str, d
     return {k: e.tensors(device) for k, e in elements.items()}
 
 
+def logup_fractions(component: Component, main_cols: Dict[str, torch.Tensor],
+                    is_first: torch.Tensor, els: Dict[str, dict]):
+    """The LogUp fraction columns of the component's relations, pointwise
+    over whatever rows main_cols hold: ([(4, n) int32 Q_k], (4, n) int64
+    sum of the Q_k). els: the device elements (_device_elements)."""
+    ev = _RelationsEvaluator(component, main_cols, [], None, is_first, None, els, host=False)
+    component.define_constraints(ev)
+    q_cols: List[torch.Tensor] = []
+    total = None
+    for rel in ev.relations:
+        den = _device_combine(els[rel.elements_name], [v.v for v in rel.values])
+        q = qm31.mul(rel.numerator._qm(den), qm31.inv(den))
+        q_cols.append(q.to(torch.int32))
+        total = q if total is None else (total + q) % P_INT
+    return q_cols, total
+
+
 def build_interaction_trace(
     component: Component,
     main_cols: Dict[str, torch.Tensor],
@@ -312,17 +329,8 @@ def build_interaction_trace(
     n = 1 << component.log_size
     is_first = torch.zeros(n, dtype=torch.int64, device=dev)
     is_first[0] = 1
-    els = _device_elements(elements, dev)
-    ev = _RelationsEvaluator(component, main_cols, [], None, is_first, None, els, host=False)
-    component.define_constraints(ev)
-
-    q_cols: List[torch.Tensor] = []
-    total = None
-    for rel in ev.relations:
-        den = _device_combine(els[rel.elements_name], [v.v for v in rel.values])
-        q = qm31.mul(rel.numerator._qm(den), qm31.inv(den))
-        q_cols.append(q.to(torch.int32))
-        total = q if total is None else (total + q) % P_INT
+    q_cols, total = logup_fractions(component, main_cols, is_first,
+                                    _device_elements(elements, dev))
     perm = coset_order_permutation(component.log_size, dev)
     s_lin = torch.cumsum(total[:, perm], dim=1) % P_INT
     s = torch.empty_like(s_lin)

@@ -153,17 +153,19 @@ def _launch(mode, src, dst, n, rows, copies_log, p, scale=1, ext=None) -> Launch
     return Launch(mode, src, dst, n, copies_log, l0, s, w, rows, rpb, scale, ext)
 
 
-def launch_plan(op: str, n: int, rows: int, log_blowup: int = 0) -> list:
+def launch_plan(op: str, n: int, rows: int, log_blowup: int = 0, scale=None) -> list:
     """The kernel launches of one transform of `rows` rows of 2^n:
-    "evaluate" (in -> out), "interpolate" (in -> out) or "extend"
-    (in -> coeffs, ext with 2^log_blowup copies a row)."""
+    "evaluate" (in -> out), "interpolate" (in -> out, the last launch
+    multiplying by `scale`, default 2^-n) or "extend" (in -> coeffs, ext
+    with 2^log_blowup copies a row)."""
     if op == "evaluate":
         return [_launch(MODE_FORWARD, "in" if i == 0 else "out", "out", n, rows, 0, p)
                 for i, p in enumerate(pass_plan(n, False))]
     inv = pass_plan(n, True)
     if op == "interpolate":
+        last = fft.inv_pow2(n) if scale is None else scale
         return [_launch(MODE_INVERSE, "in" if i == 0 else "out", "out", n, rows, 0, p,
-                        scale=fft.inv_pow2(n) if i == len(inv) - 1 else 1)
+                        scale=last if i == len(inv) - 1 else 1)
                 for i, p in enumerate(inv)]
     if op != "extend":
         raise ValueError(f"unknown circle FFT operation {op!r}")
@@ -184,6 +186,19 @@ def twiddle_table(n: int, inverse: bool, device: str) -> torch.Tensor:
     Built without keeping fft.get_twiddles' cached int64 stages."""
     doubled = 2 * torch.cat(fft.twiddle_stages(n, inverse, device))
     return torch.where(doubled >= 1 << 31, doubled - (1 << 32), doubled).to(torch.int32)
+
+
+@lru_cache(maxsize=256)
+def shard_twiddle_table(n: int, n_shards: int, i: int, inverse: bool, device: str) -> torch.Tensor:
+    """The kernel's table for shard i's local stages of a 2^n transform
+    split into n_shards chunks of 2^local: fft.shard_stages concatenated
+    and doubled, which is exactly twiddle_table's layout for a 2^local
+    transform (stage L at offset 2^local - 2^(local-L)). Sliced from
+    twiddle_table(n, inverse, device)."""
+    local = n - (n_shards.bit_length() - 1)
+    full = twiddle_table(n, inverse, device)
+    return torch.cat([full[(1 << n) - (1 << (n - L)) + (i << (local - 1 - L)):]
+                      [: 1 << (local - 1 - L)] for L in range(local)])
 
 
 def _check(x: torch.Tensor, n: int) -> None:
@@ -212,13 +227,22 @@ class CircleFFTKernel:
         self.lib = nvcc.CudaLibrary("circle_fft", _bind)
         self.launches = 0
 
-    def run(self, op: str, x: torch.Tensor, n: int, log_blowup: int = 0):
+    def run(self, op: str, x: torch.Tensor, n: int, log_blowup: int = 0,
+            twiddles: torch.Tensor | None = None, scale=None):
         """One transform of every row of x (CUDA, int32, contiguous):
         "evaluate" and "interpolate" return one tensor, "extend" returns
-        (coefficients, extension)."""
+        (coefficients, extension). `twiddles` replaces the size-2^n
+        domain's table of an evaluate or interpolate (a shard's local
+        stages: shard_twiddle_table); `scale` replaces the interpolate's
+        2^-n (1: unscaled)."""
         _check(x, n)
         if op == "extend":
             _check_blowup(n, log_blowup)
+            if twiddles is not None:
+                raise ValueError("the fused extend takes no explicit twiddle table")
+        if twiddles is not None and (twiddles.dtype != torch.int32 or twiddles.device != x.device
+                                     or twiddles.numel() != (1 << n) - 1):
+            raise ValueError(f"a twiddle table for 2^{n} is 2^{n} - 1 int32 on {x.device}")
         if not x.is_cuda:
             raise ValueError(f"the circle FFT kernel takes CUDA tensors, got {x.device}")
         if not x.is_contiguous():
@@ -234,11 +258,15 @@ class CircleFFTKernel:
             bufs["out"] = torch.empty_like(x)
         if rows:
             dev = str(x.device)
-            tw_inv = twiddle_table(n, True, dev) if op != "evaluate" else None
-            tw_fwd = twiddle_table(n + log_blowup, False, dev) if op != "interpolate" else None
+            tw_inv = tw_fwd = None
+            if op != "evaluate":
+                tw_inv = twiddles if twiddles is not None else twiddle_table(n, True, dev)
+            if op != "interpolate":
+                tw_fwd = (twiddles if twiddles is not None
+                          else twiddle_table(n + log_blowup, False, dev))
             ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
             stream = torch.cuda.current_stream(x.device).cuda_stream
-            for a in launch_plan(op, n, rows, log_blowup):
+            for a in launch_plan(op, n, rows, log_blowup, scale):
                 rc = lib.circle_fft_pass(
                     ptr(bufs[a.src]), ptr(bufs[a.dst]), ptr(bufs.get(a.ext)), ptr(tw_inv),
                     ptr(tw_fwd), a.mode, a.n, a.copies_log, a.l0, a.s_count, a.w_log,
@@ -284,6 +312,29 @@ def extend(values: torch.Tensor, n: int, log_blowup: int):
         _check_blowup(n, log_blowup)
         return fft.extend_plain(values, n, log_blowup)
     return KERNEL.run("extend", values, n, log_blowup)
+
+
+def shard_evaluate(x: torch.Tensor, n: int, n_shards: int, i: int) -> torch.Tensor:
+    """The local forward stages of shard i (x: its 2^local chunk, rows on
+    the last axis) of a 2^n evaluate split into n_shards chunks: the
+    kernel with the shard's table, or on the CPU the plain version with
+    the shard's stages."""
+    local = n - (n_shards.bit_length() - 1)
+    if _device_of(x) == "cpu":
+        return fft.evaluate_plain(x, local, fft.shard_stages(n, n_shards, i, False, "cpu"))
+    return KERNEL.run("evaluate", x, local,
+                      twiddles=shard_twiddle_table(n, n_shards, i, False, str(x.device)))
+
+
+def shard_interpolate(x: torch.Tensor, n: int, n_shards: int, i: int) -> torch.Tensor:
+    """The local inverse stages of shard i of a 2^n interpolate, unscaled
+    (the 2^-n comes after the cross-shard stages)."""
+    local = n - (n_shards.bit_length() - 1)
+    if _device_of(x) == "cpu":
+        return fft.interpolate_plain(x, local, fft.shard_stages(n, n_shards, i, True, "cpu"),
+                                     scale=1)
+    return KERNEL.run("interpolate", x, local, scale=1,
+                      twiddles=shard_twiddle_table(n, n_shards, i, True, str(x.device)))
 
 
 # ---------------------------------------------------------------------------
@@ -417,16 +468,19 @@ def _replay(a: Launch, bufs: dict, tw_inv, tw_fwd) -> None:
                     work[r][..., swizzle(e)].reshape(-1)
 
 
-def _emulate(op: str, x: torch.Tensor, n: int, log_blowup: int = 0):
+def _emulate(op: str, x: torch.Tensor, n: int, log_blowup: int = 0, twiddles=None, scale=None):
     _check(x, n)
     rows = x.reshape(-1, 1 << n)
     c = rows.shape[0]
     bufs = {"in": m31.wide(rows).clone(), "out": torch.zeros(c, 1 << n, dtype=torch.int64),
             "coeffs": torch.zeros(c, 1 << n, dtype=torch.int64),
             "ext": torch.zeros(c << log_blowup, 1 << n, dtype=torch.int64)}
-    tw_inv = twiddle_table(n, True, "cpu").to(torch.int64) & _MASK
-    tw_fwd = twiddle_table(n + log_blowup, False, "cpu").to(torch.int64) & _MASK
-    for a in launch_plan(op, n, c, log_blowup):
+    if twiddles is None:
+        tw_inv, tw_fwd = twiddle_table(n, True, "cpu"), twiddle_table(n + log_blowup, False, "cpu")
+    else:
+        tw_inv = tw_fwd = twiddles
+    tw_inv, tw_fwd = tw_inv.to(torch.int64) & _MASK, tw_fwd.to(torch.int64) & _MASK
+    for a in launch_plan(op, n, c, log_blowup, scale):
         if smem_bytes(a.mode, a.s_count, a.w_log) > SMEM_LIMIT or a.grid()[1] > MAX_GRID_Y:
             raise AssertionError(f"launch out of the card's limits: {a}")
         _replay(a, bufs, tw_inv, tw_fwd)
@@ -437,9 +491,11 @@ def _emulate(op: str, x: torch.Tensor, n: int, log_blowup: int = 0):
     return bufs["out"].reshape(x.shape).to(torch.int32)
 
 
-def emulate(x: torch.Tensor, n: int, inverse: bool) -> torch.Tensor:
-    """The kernel's evaluate (or interpolate) launches replayed on the CPU."""
-    return _emulate("interpolate" if inverse else "evaluate", x, n)
+def emulate(x: torch.Tensor, n: int, inverse: bool, twiddles=None, scale=None) -> torch.Tensor:
+    """The kernel's evaluate (or interpolate) launches replayed on the CPU,
+    with run's `twiddles` and `scale` (a shard's local stages: its
+    shard_twiddle_table and scale 1)."""
+    return _emulate("interpolate" if inverse else "evaluate", x, n, twiddles=twiddles, scale=scale)
 
 
 def emulate_extend(x: torch.Tensor, n: int, log_blowup: int):

@@ -181,7 +181,12 @@ def test_port_imports_without_jax():
             "stwo_brainfuck_tpu_torch.cli, stwo_brainfuck_tpu_torch.ops.circle_fft, "
             "stwo_brainfuck_tpu_torch.ops.m31_kernels, stwo_brainfuck_tpu_torch.vm.cli, "
             "stwo_brainfuck_tpu_torch.components.device_build, "
-            "stwo_brainfuck_tpu_torch.convert; import chip_smoke; "
+            "stwo_brainfuck_tpu_torch.convert, stwo_brainfuck_tpu_torch.entry, "
+            "stwo_brainfuck_tpu_torch.parallel.mesh, "
+            "stwo_brainfuck_tpu_torch.parallel.fft_sharded, "
+            "stwo_brainfuck_tpu_torch.parallel.merkle_sharded, "
+            "stwo_brainfuck_tpu_torch.parallel.sharded, "
+            "stwo_brainfuck_tpu_torch.parallel.prove; import chip_smoke; "
             "assert 'stwo_brainfuck_tpu' not in sys.modules; print('ok')")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)

@@ -14,6 +14,8 @@ from stwo_brainfuck_tpu_torch.components import device_build, tables
 from stwo_brainfuck_tpu_torch.components.defs import COMPONENT_CLASSES
 from stwo_brainfuck_tpu_torch.core import fft
 from stwo_brainfuck_tpu_torch.ops import circle_fft, m31_kernels
+from stwo_brainfuck_tpu_torch.parallel import fft_sharded
+from stwo_brainfuck_tpu_torch.parallel.mesh import make_mesh
 from stwo_brainfuck_tpu_torch.vm.compiler import compile_program
 from stwo_brainfuck_tpu_torch.vm.machine import create_test_machine
 
@@ -71,6 +73,50 @@ def test_small_proof_on_the_card_matches_jax_reference(cuda):
     fft.PLAIN_CUDA_CALLS = 0
     proof = air.prove_brainfuck(m, device=cuda)
     assert fft.PLAIN_CUDA_CALLS == 0
+    assert chip_smoke.proof_sha256(proof) == chip_smoke.REFERENCE_SHA256["small"]
+    air.verify_brainfuck(proof, device=cuda)
+
+
+@pytest.mark.parametrize("d, n", [(d, n) for d in (2, 4, 8) for n in (4, 14, 16, 20)])
+def test_sharded_fft_matches_one_device_on_the_card(cuda, d, n):
+    """D shards on one card: every shard's local stages launch the kernel
+    with the shard's twiddle table; the transforms equal the one-device
+    kernel's and the plain version's, bit for bit."""
+    mesh = make_mesh(d, cuda)
+    for shape in ((1 << n,), (3, 1 << n)):
+        x = torch.as_tensor(np.random.default_rng(n + d).integers(0, P, shape).astype(np.int32),
+                            device=cuda)
+        before, plain = circle_fft.KERNEL.launches, fft.PLAIN_CUDA_CALLS
+        ev = fft_sharded.make_sharded_evaluate(mesh, n)(x)
+        it = fft_sharded.make_sharded_interpolate(mesh, n)(x)
+        coeffs, ext = fft_sharded.sharded_extend(mesh, x, n, 1)
+        local = n - mesh.split_log
+        per_shard = (len(circle_fft.launch_plan("evaluate", local, 1))
+                     + len(circle_fft.launch_plan("interpolate", local, 1)))
+        assert circle_fft.KERNEL.launches - before == d * per_shard + d * (
+            len(circle_fft.launch_plan("interpolate", local, 1))
+            + len(circle_fft.launch_plan("evaluate", local + 1, 1)))
+        assert fft.PLAIN_CUDA_CALLS == plain
+        assert all(s.is_cuda for s in ev.shards + ext.shards)
+        assert torch.equal(ev.full(), circle_fft.evaluate(x, n))
+        assert torch.equal(ev.full(), fft.evaluate_plain(x, n))
+        assert torch.equal(it.full(), circle_fft.interpolate(x, n))
+        assert torch.equal(it.full(), fft.interpolate_plain(x, n))
+        want_c, want_e = fft.extend_with_coeffs(x, n, 1)
+        assert torch.equal(coeffs.full(), want_c)
+        assert torch.equal(ext.full(), want_e)
+        assert torch.equal(ext.full(), fft.extend_plain(x, n, 1)[1])
+
+
+def test_sharded_small_proof_on_the_card_matches_jax_reference(cuda):
+    m = create_test_machine(compile_program(chip_smoke.SMALL_CODE),
+                            chip_smoke.SMALL_INPUT.encode())
+    m.execute()
+    fft.PLAIN_CUDA_CALLS = 0
+    before = circle_fft.KERNEL.launches
+    proof = air.prove_brainfuck(m, device=cuda, mesh=make_mesh(8, cuda))
+    assert fft.PLAIN_CUDA_CALLS == 0
+    assert circle_fft.KERNEL.launches > before
     assert chip_smoke.proof_sha256(proof) == chip_smoke.REFERENCE_SHA256["small"]
     air.verify_brainfuck(proof, device=cuda)
 
