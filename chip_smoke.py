@@ -37,7 +37,18 @@ Phases (any failure raises and the script exits non-zero):
      fib19_io at D = 2 and 4 (sha256, verify), each with its per-phase
      split, peak device memory and FFT launches, no plain FFT on a CUDA
      tensor and no M31 kernel;
-  7. the prover's main path, counts set to 0 first: the small program
+  7. multi-process proving over torch.distributed
+     (stwo_brainfuck_tpu_torch/parallel/multihost.py, one shard a process):
+     the small program through `python -m stwo_brainfuck_tpu_torch.cli
+     prove --distributed` as two processes sharing the card (gloo), as one
+     process with NCCL, and under torchrun with one NCCL process a card
+     (sha256, verified on the card); fib19_io in two
+     spawned processes sharing the card (gloo), cold then warm, each process
+     reporting its phases, peak device memory, FFT launches and plain calls
+     (counts at 0 before each prove); with two or more cards, fib19_io on
+     two (and four) cards with NCCL. Every process must launch the FFT
+     kernel and run no plain FFT on a CUDA tensor;
+  8. the prover's main path, counts set to 0 first: the small program
      through the CLI entry point (prove, verify, proof sha256 against the
      JAX package's, a tampered copy rejected), then fib19_io
      (programs/fib19_io.bf, input 19: 223,689 steps; prove once cold, twice
@@ -48,6 +59,12 @@ Phases (any failure raises and the script exits non-zero):
      op may have run.
 The last line of stdout is the JSON result; the line before it lists the
 kernels, the one before that names the card. Needs no jax.
+
+    python3 chip_smoke.py distributed
+
+runs phase 7 alone, after one one-device fib19_io prove (cold and warm) to
+hold it against: on a machine with several cards (one process a card,
+NCCL) it is the multi-card check.
 """
 
 from __future__ import annotations
@@ -58,13 +75,17 @@ import hashlib
 import io
 import json
 import logging
+import multiprocessing
 import os
+import queue
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -103,6 +124,9 @@ FFT_SHAPES = (("evaluate", 4, 24, 0), ("interpolate", 4, 23, 0), ("extend", 8, 1
 # the mesh prover's checks: shard counts and sizes of the sharded transforms
 SHARDED_MESHES = (2, 4, 8)
 SHARDED_SIZES = (16, 20, 24)
+# a process group that has not finished by then failed (each of its
+# processes is ended)
+DIST_TIMEOUT_S = 300
 M31_SIZES = (1, 127, 128, 4097, 1 << 20, 1 << 24)
 M31_EDGES = (0, 1, 2**16 - 1, 2**16, 2**31 - 2)
 P = 2**31 - 1
@@ -493,6 +517,222 @@ def phase_program(name, path, inp, runs: int, expect_sha: str | None,
     return launched
 
 
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _rank_counts(rank: int, launches: int, plain: int) -> dict:
+    """A process's FFT kernel launches and plain FFT calls on CUDA tensors
+    over one prove: at least one launch and no plain call."""
+    if launches <= 0:
+        raise AssertionError(f"process {rank}: the circle FFT kernel was not launched")
+    if plain:
+        raise AssertionError(f"process {rank}: the plain FFT ran on a CUDA tensor")
+    return {"fft_launches": launches, "plain_fft_cuda_calls": plain}
+
+
+_CLI_COUNTS = re.compile(r"Circle FFT kernel launches: (\d+); plain FFT calls on CUDA "
+                         r"tensors: (\d+)")
+
+
+def _distributed_cli(world: int, backend: str, torchrun: bool = False) -> int:
+    """The small program through `python -m stwo_brainfuck_tpu_torch.cli
+    prove --distributed --device cuda`, `world` processes on this machine's
+    cards (on one card they share it), started one by one with the
+    STWO_BF_* variables or by torchrun: the coordinator alone writes the
+    proof, its sha256 is the JAX package's and it verifies on the card.
+    Returns the FFT launches of all processes."""
+    port = _free_port()
+    env = dict(os.environ, STWO_BF_BACKEND=backend)
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    env.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    procs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        def prove(output):
+            # the CLI logs at info by default; no --log here, since torchrun's
+            # argument parser may take it for an abbreviation of its --log-dir
+            return ["-m", "stwo_brainfuck_tpu_torch.cli", "prove", "--code", SMALL_CODE,
+                    "--input", SMALL_INPUT, "--output", os.path.join(tmp, output),
+                    "--device", "cuda", "--distributed"]
+
+        try:
+            if torchrun:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+                     str(world), "--master-port", str(port), *prove("proof.json")],
+                    cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+            for rank in range(0 if torchrun else world):
+                procs.append(subprocess.Popen(
+                    [sys.executable, *prove(f"rank{rank}.json")], cwd=ROOT,
+                    env=dict(env, STWO_BF_NUM_PROCESSES=str(world),
+                             STWO_BF_COORDINATOR=f"127.0.0.1:{port}",
+                             STWO_BF_PROCESS_ID=str(rank)),
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+            outs = [p.communicate(timeout=DIST_TIMEOUT_S) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for p, (_, err) in zip(procs, outs):
+            if p.returncode != 0:
+                raise AssertionError(f"distributed CLI ({world} x {backend}) exited "
+                                     f"{p.returncode}:\n{err[-4000:]}")
+        # one log a process, or torchrun's, which carries every process's
+        counts = [c for _, err in outs for c in _CLI_COUNTS.findall(err)]
+        times = [float(t) for _, err in outs for t in re.findall(r"proof time: ([0-9.]+) s", err)]
+        written = sum(err.count("Proof written") for _, err in outs)
+        if len(counts) != world or len(times) != world or written != 1:
+            raise AssertionError(f"distributed CLI ({world} x {backend}): {len(counts)} counts, "
+                                 f"{len(times)} times and {written} proofs written in the logs")
+        ranks = [{"prove_s": t, **_rank_counts(i, int(c[0]), int(c[1]))}
+                 for i, (c, t) in enumerate(zip(counts, times))]
+        files = sorted(os.listdir(tmp))
+        if files != (["proof.json"] if torchrun else ["rank0.json"]):
+            raise AssertionError(f"distributed CLI: wrote {files}, only the coordinator writes")
+        with open(os.path.join(tmp, files[0])) as f:
+            proof = json.load(f)
+    sha = proof_sha256(proof)
+    if sha != REFERENCE_SHA256["small"]:
+        raise AssertionError(f"distributed small proof ({world} x {backend}) sha256 {sha} "
+                             f"!= JAX reference")
+    air.verify_brainfuck(proof, device="cuda")
+    _line("distributed", {"program": "small", "via": "torchrun" if torchrun else "cli",
+                          "world": world, "backend": backend, "sha256": sha, "matches_jax": True,
+                          "verified": True, "processes": ranks})
+    return sum(r["fft_launches"] for r in ranks)
+
+
+def _prove_rank(rank: int, world: int, port: int, backend: str, device: str, runs: int,
+                results) -> None:
+    """One process of a fib19_io process group (started with spawn): joins
+    the group, proves `runs` times (the first cold) on the global mesh with
+    the counts set to 0 before each prove, and puts one result a prove on
+    `results` (an error's traceback instead if it fails)."""
+    try:
+        os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+        os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+        from stwo_brainfuck_tpu_torch.parallel import multihost
+
+        multihost.initialize(f"127.0.0.1:{port}", world, rank, backend, device)
+        try:
+            mesh = multihost.global_mesh()
+            with open(os.path.join(ROOT, "programs", "fib19_io.bf")) as f:
+                code = compile_program(f.read())
+            for run in range(runs):
+                machine = create_test_machine(code, FIB_INPUT)
+                machine.execute()
+                torch.cuda.reset_peak_memory_stats(mesh.home)
+                _reset_counts()
+                timer = air.PhaseTimer(mesh.home)
+                t0 = time.perf_counter()
+                proof = air.prove_brainfuck(machine, timer=timer, mesh=mesh)
+                torch.cuda.synchronize(mesh.home)
+                res = {"rank": rank, "run": run, "device": str(mesh.home),
+                       "steps": len(machine.trace()), "prove_s": time.perf_counter() - t0,
+                       "phases_s": timer.seconds,
+                       "peak_device_bytes": torch.cuda.max_memory_allocated(mesh.home),
+                       "fft_launches": circle_fft.KERNEL.launches,
+                       "plain_fft_cuda_calls": fft.PLAIN_CUDA_CALLS,
+                       "m31_launches": sum(m31_kernels.KERNELS.launches.values()),
+                       "plain_m31_cuda_calls": m31_kernels.PLAIN_CUDA_CALLS}
+                if multihost.is_coordinator():
+                    t1 = time.perf_counter()
+                    air.verify_brainfuck(proof, device=mesh.home)
+                    res.update(verify_s=time.perf_counter() - t1, sha256=proof_sha256(proof),
+                               proof_bytes=len(json.dumps(proof)))
+                del proof
+                results.put(res)
+        finally:
+            multihost.shutdown()
+    except BaseException:
+        results.put({"rank": rank, "error": traceback.format_exc()})
+        raise
+
+
+def _distributed_group(world: int, backend: str, device: str, runs: int) -> int:
+    """fib19_io proved `runs` times by `world` spawned processes; one
+    `distributed` line per prove. Returns the FFT launches of all
+    processes and proves."""
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=_prove_rank, args=(r, world, port, backend, device, runs, results))
+             for r in range(world)]
+    got = []
+    try:
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + DIST_TIMEOUT_S
+        while len(got) < world * runs:
+            try:
+                res = results.get(timeout=5)
+            except queue.Empty:
+                dead = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+                if dead or time.monotonic() > deadline:
+                    raise AssertionError(f"fib19_io process group ({world} x {backend}): "
+                                         f"exit codes {[p.exitcode for p in procs]}, "
+                                         f"{len(got)} of {world * runs} results")
+                continue
+            if "error" in res:
+                raise AssertionError(f"fib19_io process {res['rank']} ({world} x {backend}) "
+                                     f"failed:\n{res['error']}")
+            got.append(res)
+        for p in procs:
+            p.join(timeout=60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    if any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"fib19_io process group exit codes {[p.exitcode for p in procs]}")
+    launched = 0
+    for run in range(runs):
+        ranks = sorted((r for r in got if r["run"] == run), key=lambda r: r["rank"])
+        for r in ranks:
+            _rank_counts(r["rank"], r["fft_launches"], r["plain_fft_cuda_calls"])
+            if r["m31_launches"] or r["plain_m31_cuda_calls"]:
+                raise AssertionError(f"process {r['rank']}: an M31 kernel or plain M31 op ran")
+            launched += r["fft_launches"]
+        sha = ranks[0]["sha256"]
+        if sha != REFERENCE_SHA256["fib19_io"]:
+            raise AssertionError(f"distributed fib19_io proof sha256 {sha} != JAX reference")
+        _line("distributed", {
+            "program": "fib19_io", "world": world, "backend": backend,
+            "run": "cold" if run == 0 else "warm", "steps": ranks[0]["steps"],
+            "prove_s": max(r["prove_s"] for r in ranks), "verify_s": ranks[0]["verify_s"],
+            "khz": ranks[0]["steps"] / max(r["prove_s"] for r in ranks) / 1e3,
+            "proof_bytes": ranks[0]["proof_bytes"], "sha256": sha, "matches_jax": True,
+            "processes": [{k: r[k] for k in ("rank", "device", "prove_s", "phases_s",
+                                         "peak_device_bytes", "fft_launches",
+                                         "plain_fft_cuda_calls")} for r in ranks]})
+    return launched
+
+
+def phase_distributed() -> int:
+    """Multi-process proving over torch.distributed (every process starts
+    its counts at 0): the small program through the CLI as two processes
+    sharing the card (gloo), as one NCCL process, and under torchrun with
+    one NCCL process a card (as many as a power of two allows); fib19_io
+    in two processes sharing the card (gloo, cold then warm) and, with two
+    or more cards, one process a card with NCCL (on two cards, and on four
+    where there are four). Returns the FFT launches of every process."""
+    cards = torch.cuda.device_count()
+    launched = _distributed_cli(2, "gloo")
+    launched += _distributed_cli(1, "nccl")
+    launched += _distributed_cli(1 << (cards.bit_length() - 1), "nccl", torchrun=True)
+    launched += _distributed_group(2, "gloo", "cuda:0", runs=2)
+    if cards < 2:
+        _line("distributed", {"nccl_multi_card": "not run: 1 card"})
+    for world in (2, 4):
+        if cards >= world:
+            launched += _distributed_group(world, "nccl", "cuda", runs=2)
+    return launched
+
+
 def _m31_values(rng, n: int, spread: str) -> torch.Tensor:
     """n random canonical values on the card, the first 25 every pair of
     edge values (a takes them repeated, b and c tiled)."""
@@ -642,7 +882,10 @@ def phase_m31_path(m31: dict, per_mul: float, dispatch_per_s: float) -> dict:
     return launches
 
 
-def main() -> int:
+def main(argv) -> int:
+    if argv not in ([], ["distributed"]):
+        print(f"usage: {sys.argv[0]} [distributed]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -652,6 +895,17 @@ def main() -> int:
     for lib in (circle_fft.KERNEL.lib, m31_kernels.KERNELS.lib):
         if lib.build_log.strip():
             print(lib.build_log.strip(), file=sys.stderr)
+    if argv == ["distributed"]:
+        # phase 7 alone (on a machine with several cards, its NCCL groups
+        # across them), after the one-device fib19_io prove it is held against
+        _reset_counts()
+        phase_program("fib19_io", os.path.join(ROOT, "programs", "fib19_io.bf"), FIB_INPUT,
+                      runs=2, expect_sha=REFERENCE_SHA256["fib19_io"])
+        _clear_prover_caches()
+        launched = phase_distributed()
+        print(card)
+        print(json.dumps({"distributed_launches": launched, "cards": torch.cuda.device_count()}))
+        return 0
     sass = sass_per_mul()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     dispatch_per_s = sms * 4 * 32 * max_mhz * 1e6  # SMs x schedulers x lanes x max SM clock
@@ -693,6 +947,10 @@ def main() -> int:
         raise AssertionError("the mesh prover did not run on the circle FFT kernel")
     _clear_prover_caches()
 
+    # multi-process proving: each process counts from 0 (the kernels it
+    # loads were built above, in stwo_brainfuck_tpu_torch/build/)
+    distributed_launches = phase_distributed()
+
     # the prover's main path: counts start at 0 here
     _reset_counts()
     phase_small()
@@ -711,7 +969,8 @@ def main() -> int:
         "replaces": "stwo_brainfuck_tpu/ops/fft_pallas.py:364 (_make_pass1); "
                     "stwo_brainfuck_tpu/ops/fft_pallas.py:402 (_make_pass2)",
         "launches": fft_launches,
-        "launches_by_path": {"prover": fft_launches, "sharded_prover": sharded_launches},
+        "launches_by_path": {"prover": fft_launches, "sharded_prover": sharded_launches,
+                             "distributed_prover": distributed_launches},
         "max_abs_err": max(kern["max_abs_err"], sharded_fft["max_abs_err"]),
         "ms": headline["kernel_ms"], "plain_ms": headline["plain_ms"],
         "bound_ms": headline["bound_ms"], "bound_by": headline["bound_by"],
@@ -738,4 +997,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

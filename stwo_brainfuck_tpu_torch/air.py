@@ -86,6 +86,20 @@ class PhaseTimer:
         self._t = now
 
 
+def canonical_device(device) -> torch.device:
+    """`device` as a torch.device that names a card by its index ("cuda"
+    is the current card, cuda:{torch.cuda.current_device()}), so that one
+    card is one key of the device caches. Raises if a card is asked for and
+    there is none."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"{device}: no CUDA device is available")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 @lru_cache(maxsize=4)
 def _preprocessed_tree(ladder: tuple, log_blowup: int, device: str) -> TreeProver:
     """The is_first ladder commitment: a pure function of (ladder, blowup),
@@ -199,11 +213,11 @@ def prove_brainfuck(machine, config: Optional[PcsConfig] = None, device="cuda",
     package's proof of the same execution and config.
 
     mesh: a parallel.mesh.Mesh to prove on instead (the tables are built
-    on its first device): every heavy phase runs sharded through
-    parallel/prove.ShardedOps, and the proof bytes are the same for any
-    number of shards."""
+    on this process's device, mesh.home): every heavy phase runs sharded
+    through parallel/prove.ShardedOps, and the proof bytes are the same for
+    any number of shards and processes."""
     mark = timer.mark if timer is not None else (lambda name: None)
-    device = torch.device(device) if mesh is None else mesh.devices[0]
+    device = canonical_device(device) if mesh is None else mesh.home
     trace = machine.trace()
     mark("trace")
     meta = device_build.build_meta(trace, machine.program())
@@ -218,7 +232,7 @@ def _prove_tables(mats: Dict[str, torch.Tensor], claim: Dict[str, int],
                   mesh=None) -> dict:
     """The prove pipeline from the component matrices (name -> (n_cols, N)
     int32 on `device`, rows in the component's column order), on `mesh`
-    (whose first device is `device`) if one is given."""
+    (whose home is `device`) if one is given."""
     config = config or PcsConfig(log_max_rows=0)  # 0 = auto ladder top
     ops = None
     if mesh is not None:
@@ -432,9 +446,7 @@ def verify_brainfuck(proof: dict, min_config: Optional[PcsConfig] = None,
     preprocessed ladder root is recomputed; every other check runs on the
     host. The default device is the card: without one this raises
     RuntimeError (pass device="cpu" to verify on the CPU)."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"verify on {device}: no CUDA device is available")
+    device = canonical_device(device)
     try:
         _verify_brainfuck_inner(proof, min_config, str(device))
     except VerificationError:

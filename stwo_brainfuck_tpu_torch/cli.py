@@ -1,6 +1,6 @@
 """brainfuck_prover CLI for the torch port: prove / verify subcommands.
 
-Counterpart of ``stwo_brainfuck_tpu/cli.py`` (single device):
+Counterpart of ``stwo_brainfuck_tpu/cli.py``:
 
     python -m stwo_brainfuck_tpu_torch.cli prove --file prog.bf --output proof.json
     python -m stwo_brainfuck_tpu_torch.cli verify proof.json
@@ -9,7 +9,19 @@ Counterpart of ``stwo_brainfuck_tpu/cli.py`` (single device):
 raises rather than carrying on on the CPU (pass ``--device cpu`` there).
 ``prove --devices N`` proves on a mesh of N shards over the visible devices
 of ``--device``'s type (``parallel/mesh.make_mesh``; on one card all N
-shards share it); the proof is the same bytes for any N.
+shards share it). ``prove --distributed`` joins a ``torch.distributed``
+process group and proves with one shard per process
+(``parallel/multihost.py``); every process runs the same command and
+process 0 alone writes ``--output`` / ``--print``. Launch it with torchrun,
+one process per card (NCCL):
+
+    torchrun --nproc-per-node 4 -m stwo_brainfuck_tpu_torch.cli prove --file prog.bf \
+        --output proof.json --distributed
+
+or start each process with STWO_BF_NUM_PROCESSES, STWO_BF_COORDINATOR
+(``host:port`` of process 0) and STWO_BF_PROCESS_ID set; STWO_BF_BACKEND=gloo
+for processes that share one card or run on the CPU. The proof is the same
+bytes for any N and any number of processes.
 """
 
 from __future__ import annotations
@@ -23,19 +35,14 @@ import time
 import torch
 
 from . import air
+from .core import fft
 from .core.pcs import PcsConfig
+from .ops import circle_fft
 from .vm.compiler import CompileError, compile_program
 from .vm.machine import DEFAULT_RAM_SIZE, Machine, MachineError
 from .vm.registers import TRACE_COLUMNS
 
 log = logging.getLogger("stwo_brainfuck_tpu_torch")
-
-
-def _device(name: str) -> torch.device:
-    dev = torch.device(name)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {name}: no CUDA device is available")
-    return dev
 
 
 def _add_prove_args(p):
@@ -55,13 +62,18 @@ def _add_prove_args(p):
     p.add_argument("--n-queries", type=int, default=20)
     p.add_argument("--pow-bits", type=int, default=10)
     p.add_argument("--device", default="cuda", help="torch device to prove on")
-    p.add_argument("--devices", type=int, default=0,
-                   help="prove on a mesh of N shards (a power of two) over the visible "
-                        "devices of --device's type; 0 = one device")
+    mesh = p.add_mutually_exclusive_group()
+    mesh.add_argument("--devices", type=int, default=0,
+                      help="prove on a mesh of N shards (a power of two) over the visible "
+                           "devices of --device's type; 0 = one device")
+    mesh.add_argument("--distributed", action="store_true",
+                      help="join the torch.distributed process group and prove with one "
+                           "shard per process (each on its own --device card); every "
+                           "process runs this same command")
 
 
 def cmd_prove(args) -> int:
-    device = _device(args.device)
+    device = air.canonical_device(args.device)
     if args.file:
         with open(args.file) as f:
             source = f.read()
@@ -94,21 +106,37 @@ def cmd_prove(args) -> int:
     config = PcsConfig(log_max_rows=args.log_max_rows, n_queries=args.n_queries,
                        pow_bits=args.pow_bits)
     mesh = None
-    if args.devices:
+    coordinator = True
+    if args.distributed:
+        from .parallel import multihost
+
+        multihost.initialize(device=args.device)
+        mesh = multihost.global_mesh()
+        coordinator = multihost.is_coordinator()
+        log.info("Process %d of %d on %s", mesh.local[0], mesh.size, mesh.home)
+    elif args.devices:
         from .parallel.mesh import make_mesh
 
-        mesh = make_mesh(args.devices, device)
+        mesh = make_mesh(args.devices, args.device)
         log.info("Mesh: %d shards on %s", mesh.size,
                  ", ".join(sorted({str(d) for d in mesh.devices})))
-    t0 = time.time()
-    proof = air.prove_brainfuck(machine, config, device=device, mesh=mesh)
-    for dev in {device} if mesh is None else set(mesh.devices):
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-    proof_time = time.time() - t0
+    try:
+        t0 = time.time()
+        proof = air.prove_brainfuck(machine, config, device=device, mesh=mesh)
+        for dev in {device} if mesh is None else mesh.local_devices:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        proof_time = time.time() - t0
+    finally:
+        if args.distributed:
+            multihost.shutdown()
     log.info("Proof generation speed: %.2f kHz", steps / max(proof_time, 1e-9) / 1e3)
     log.info("Execution trace time: %.1f ms; proof time: %.2f s; total: %.2f s",
              trace_time * 1e3, proof_time, trace_time + proof_time)
+    log.info("Circle FFT kernel launches: %d; plain FFT calls on CUDA tensors: %d",
+             circle_fft.KERNEL.launches, fft.PLAIN_CUDA_CALLS)
+    if not coordinator:
+        return 0  # the proof is the same in every process; process 0 writes it
 
     payload = json.dumps(proof)
     if args.output:
@@ -121,7 +149,7 @@ def cmd_prove(args) -> int:
 
 
 def cmd_verify(args) -> int:
-    device = _device(args.device)
+    device = air.canonical_device(args.device)
     with open(args.proof) as f:
         proof = json.load(f)
     t0 = time.time()

@@ -114,7 +114,7 @@ def fri_commit(inputs: Dict[int, torch.Tensor], channel, ops=None) -> FriProver:
     if not logs:
         raise ValueError("no FRI inputs")
     max_log = logs[0]
-    dev = inputs[max_log].device if ops is None else ops.mesh.devices[0]
+    dev = inputs[max_log].device if ops is None else ops.mesh.home
     fold = _fold if ops is None else ops.fold
 
     beta0 = channel.draw_felt()  # circle fold coefficient for all injections

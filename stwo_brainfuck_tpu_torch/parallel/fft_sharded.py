@@ -9,7 +9,8 @@ of 2^local positions, local = n - log2 D. Stage L has butterfly stride 2^L:
   twiddles are the slice [i·2^(local-1-L), (i+1)·2^(local-1-L)) of the
   global stage L: the circle-FFT kernel with the shard's table on a CUDA
   shard, the plain staged version with the shard's stages on a CPU shard
-  (``ops/circle_fft.shard_evaluate`` / ``shard_interpolate``);
+  (``ops/circle_fft.shard_evaluate`` / ``shard_interpolate``), on the
+  shards this process owns;
 - cross stages (L >= local, the top log2 D stages): every position of a
   shard shares one block and one twiddle; partners are shards i and
   i ^ dist, dist = 2^(L-local). One exchange per stage; the lower shard
@@ -69,11 +70,11 @@ def make_sharded_evaluate(mesh: Mesh, log_size: int):
             dist = 1 << (L - local)
             other = mesh.exchange(v, dist)
             # the lower shard holds a (gets a + t·b), the upper b (a - t·b)
-            v = [(m31.add(mine, m31.mul(theirs, t)) if i & dist == 0
-                  else m31.sub(theirs, m31.mul(mine, t))).to(torch.int32)
-                 for i, (mine, theirs, t) in enumerate(zip(v, other, cross[k]))]
-        return Sharded(mesh, [circle_fft.shard_evaluate(x.contiguous(), n, mesh.size, i)
-                              for i, x in enumerate(v)])
+            v = mesh.each(lambda i: (
+                m31.add(v[i], m31.mul(other[i], cross[k][i])) if i & dist == 0
+                else m31.sub(other[i], m31.mul(v[i], cross[k][i]))).to(torch.int32))
+        return Sharded(mesh, mesh.each(
+            lambda i: circle_fft.shard_evaluate(v[i].contiguous(), n, mesh.size, i)))
 
     return fn
 
@@ -88,16 +89,17 @@ def make_sharded_interpolate(mesh: Mesh, log_size: int):
     scale = fft.inv_pow2(n)
 
     def fn(values) -> Sharded:
-        v = [circle_fft.shard_interpolate(x.contiguous(), n, mesh.size, i)
-             for i, x in enumerate(mesh.as_sharded(values).shards)]
+        x = mesh.as_sharded(values).shards
+        v = mesh.each(lambda i: circle_fft.shard_interpolate(x[i].contiguous(), n, mesh.size, i))
         for L in range(local, n):
             dist = 1 << (L - local)
             other = mesh.exchange(v, dist)
+            t = cross[n - 1 - L]
             # the lower shard holds a (gets a + b), the upper b ((a - b)/t)
-            v = [(m31.add(mine, theirs) if i & dist == 0
-                  else m31.mul(m31.sub(theirs, mine), t)).to(torch.int32)
-                 for i, (mine, theirs, t) in enumerate(zip(v, other, cross[n - 1 - L]))]
-        return Sharded(mesh, [m31.mul(x, scale).to(torch.int32) for x in v])
+            v = mesh.each(lambda i: (
+                m31.add(v[i], other[i]) if i & dist == 0
+                else m31.mul(m31.sub(other[i], v[i]), t[i])).to(torch.int32))
+        return Sharded(mesh, mesh.each(lambda i: m31.mul(v[i], scale).to(torch.int32)))
 
     return fn
 

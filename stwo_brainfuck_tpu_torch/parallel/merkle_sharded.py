@@ -3,11 +3,11 @@
 Counterpart of ``stwo_brainfuck_tpu/parallel/merkle_sharded.py``. Nodes are
 sharded as contiguous chunks, so the children (2i, 2i+1) of a shard's nodes
 always lie in the same shard: every level with at least D nodes hashes
-locally on each shard (``core/merkle.hash_level``) until one node per shard
-is left. One ``all_gather`` collects the D subtree roots, and the top
-log2 D levels (with any columns injected there) are hashed on the mesh's
-first device. The root is the single-device ``core/merkle.commit`` root for
-any D.
+locally on each shard this process owns (``core/merkle.hash_level``) until
+one node per shard is left. One ``all_gather`` collects the D subtree roots,
+and the top log2 D levels (with any columns injected there) are hashed in
+every process, on its own device. The root is the single-device
+``core/merkle.commit`` root for any D.
 """
 
 from __future__ import annotations
@@ -41,10 +41,10 @@ def commit_sharded(mesh: Mesh, columns_by_log: Dict[int, object]) -> merkle.Merk
     prev = [None] * mesh.size
     for k in range(max_log, split - 1, -1):
         cols = mats[k].shards if k in mats else [None] * mesh.size
-        prev = [merkle.hash_level(c, m) for c, m in zip(prev, cols)]
+        prev = mesh.each(lambda i: merkle.hash_level(prev[i], cols[i]))
         layers[k] = Sharded(mesh, prev)
-    # one node per shard: gather the D subtree roots onto the first device
-    top = mesh.all_gather([p[:, 0] for p in prev])[0].T
+    # one node per shard: gather the D subtree roots into every process
+    top = mesh.all_gather(mesh.each(lambda i: prev[i][:, 0]))[mesh.local[0]].T
     for k in range(split - 1, -1, -1):
         top = merkle.hash_level(top, mats.get(k))
         layers[k] = top

@@ -1,18 +1,34 @@
-"""A mesh of torch devices for multi-device proving, its collectives, and
-the sharded-array type.
+"""Meshes of shards for multi-device proving, their collectives, and the
+sharded-array type.
 
 Counterpart of ``stwo_brainfuck_tpu/parallel/mesh.py``. The sharding axis
 is trace ROWS: an array is split along its last axis into D contiguous
-chunks, chunk i on ``mesh.devices[i]``. The JAX package's prover is one
-program over a ``jax.sharding.Mesh``; here one process drives an ordered
-list of D devices, so the body of each JAX ``shard_map`` becomes a loop
-over shards whose work runs on each shard's device, and the
-collectives it uses are explicit copies between per-shard tensors:
+chunks, chunk i being shard i. The JAX package's prover is one SPMD program
+over a ``jax.sharding.Mesh`` whose runtime is either one process or many;
+here the same split is two mesh types behind one surface:
+
+- ``DeviceMesh`` (``make_mesh``): one process drives an ordered list of D
+  devices and owns every shard; the collectives are copies between
+  per-shard tensors (``Tensor.to``);
+- ``ProcessGroupMesh`` (``multihost.global_mesh``): one process per shard
+  over ``torch.distributed``; a process owns only its own shard and the
+  collectives are ``torch.distributed`` calls.
+
+A mesh's ``local`` lists the shards this process owns and ``home`` is its
+own device. A per-shard list (``Sharded.shards``, a collective's input and
+output) has D entries, None for the shards other processes own, so the body
+of each JAX ``shard_map`` becomes a loop over ``local`` (``Mesh.each``).
+A plain tensor in the mesh backend holds the same value in every process.
+
+The collectives:
 
 - ``all_gather``: every shard receives the stack of all shards' values;
 - ``exchange``: shard i receives shard i ^ dist (the FFT's cross stages);
 - ``shift``: shard i receives the last column of shard i - 1, cyclically;
-- ``permute``: the global gather ``out[j] = x[perm[j]]``.
+- ``permute``: the global gather ``out[j] = x[perm[j]]``;
+- ``sum``: the sum of every shard's value (the OODS partial contractions);
+- ``full`` and ``gather``: the whole array, or some of its positions, in
+  every process (the last FRI layer, the decommitment's reads).
 
 Shards may share a device (D shards on one card, or on the CPU): then
 ``t.to(device)`` returns the same tensor, so every collective builds a
@@ -22,49 +38,50 @@ new list of shards and none updates a shard in place.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as tdist
 
 
-@dataclass(frozen=True)
 class Mesh:
-    """An ordered list of D devices, D a power of two (shard i on
-    ``devices[i]``)."""
+    """D shards, D a power of two. Subclasses give ``size``, ``local``
+    (the shards this process owns), ``home`` (this process's device),
+    ``device(i)`` (where this process keeps shard i) and the collectives."""
 
-    devices: Tuple[torch.device, ...]
+    size: int
 
     def __post_init__(self):
-        d = len(self.devices)
+        d = self.size
         if d < 1 or d & (d - 1):
             raise ValueError(f"a mesh has a power-of-two number of shards, got {d}")
-
-    @property
-    def size(self) -> int:
-        return len(self.devices)
 
     @property
     def split_log(self) -> int:
         return self.size.bit_length() - 1
 
+    @property
+    def local_devices(self) -> set:
+        return {self.device(i) for i in self.local}
+
+    def each(self, fn: Callable[[int], torch.Tensor]) -> List[Optional[torch.Tensor]]:
+        """[fn(i) for every shard i this process owns, None for the others]."""
+        return [fn(i) if i in self.local else None for i in range(self.size)]
+
     # -- placing arrays ---------------------------------------------------
 
     def shard(self, x: torch.Tensor) -> "Sharded":
-        """Split x along its last axis into D contiguous chunks, chunk i on
-        device i."""
+        """Split x (the same in every process) along its last axis into D
+        contiguous chunks, chunk i on shard i's device."""
         n = x.shape[-1]
         if n % self.size:
             raise ValueError(f"{n} elements do not split into {self.size} shards")
         c = n // self.size
-        return Sharded(self, [x.narrow(-1, i * c, c).to(dev).contiguous()
-                              for i, dev in enumerate(self.devices)])
+        return Sharded(self, self.each(
+            lambda i: x.narrow(-1, i * c, c).to(self.device(i)).contiguous()))
 
     def as_sharded(self, x) -> "Sharded":
         return x if isinstance(x, Sharded) else self.shard(x)
-
-    def full(self, x) -> torch.Tensor:
-        """The whole array on the first device."""
-        return x.full() if isinstance(x, Sharded) else x.to(self.devices[0])
 
     def stack(self, items: Sequence) -> "torch.Tensor | Sharded":
         """torch.stack of equal-shape arrays: a tensor if every item is
@@ -72,28 +89,64 @@ class Mesh:
         if all(isinstance(x, torch.Tensor) for x in items):
             return torch.stack(list(items))
         items = [self.as_sharded(x) for x in items]
-        return Sharded(self, [torch.stack([x.shards[i] for x in items])
-                              for i in range(self.size)])
+        return Sharded(self, self.each(lambda i: torch.stack([x.shards[i] for x in items])))
 
     def pad(self, x, log_size: int) -> "Sharded":
         """x (a tensor or a Sharded array, 2^k elements on its last axis)
         zero-padded to 2^log_size elements and sharded: each chunk moves
         to the shard that owns its positions of the larger array."""
-        pieces = ([(i * x.chunk, s) for i, s in enumerate(x.shards)]
-                  if isinstance(x, Sharded) else [(0, x)])
         c = (1 << log_size) // self.size
-        lead = tuple(pieces[0][1].shape[:-1])
-        out = [torch.zeros(lead + (c,), dtype=pieces[0][1].dtype, device=dev)
-               for dev in self.devices]
-        for off, t in pieces:
-            pos, end = off, off + t.shape[-1]
+        if isinstance(x, Sharded):
+            spans = [(s, s * x.chunk, x.chunk) for s in range(self.size)]
+        else:
+            spans = [(None, 0, int(x.shape[-1]))]
+        moves = []  # (source shard or None, start in it, destination shard, start in it, length)
+        for s, off, n in spans:
+            pos, end = off, off + n
             while pos < end:
                 j = pos // c
                 stop = min(end, (j + 1) * c)
-                out[j][..., pos - j * c: stop - j * c] = \
-                    t[..., pos - off: stop - off].to(self.devices[j])
+                moves.append((s, pos - off, j, pos - j * c, stop - pos))
                 pos = stop
+        lead = tuple(x.shape[:-1])
+        out = self.each(lambda i: torch.zeros(lead + (c,), dtype=x.dtype, device=self.device(i)))
+        self._place(x, moves, out)
         return Sharded(self, out)
+
+    def full(self, x) -> torch.Tensor:
+        """The whole array on this process's device."""
+        return self._concat(x.shards) if isinstance(x, Sharded) else x.to(self.home)
+
+
+@dataclass(frozen=True)
+class DeviceMesh(Mesh):
+    """One process over an ordered list of D devices (shard i on
+    ``devices[i]``): it owns every shard."""
+
+    devices: Tuple[torch.device, ...]
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    @property
+    def local(self) -> range:
+        return range(self.size)
+
+    @property
+    def home(self) -> torch.device:
+        return self.devices[0]
+
+    def device(self, i: int) -> torch.device:
+        return self.devices[i]
+
+    def _place(self, x, moves, out) -> None:
+        for s, s0, j, d0, n in moves:
+            src = x if s is None else x.shards[s]
+            out[j][..., d0:d0 + n] = src[..., s0:s0 + n].to(self.devices[j])
+
+    def _concat(self, shards) -> torch.Tensor:
+        return torch.cat([s.to(self.home) for s in shards], dim=-1)
 
     # -- collectives over per-shard tensors --------------------------------
 
@@ -124,19 +177,177 @@ class Mesh:
             out.append(o)
         return out
 
+    def sum(self, shards: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The sum of every shard's value, on this process's device."""
+        return sum(s.to(self.home) for s in shards)
+
+    def gather(self, shards: Sequence[torch.Tensor], positions: Sequence[int]) -> torch.Tensor:
+        """x[..., positions] of the concatenated shards, as a CPU tensor."""
+        pos = torch.as_tensor(list(positions), dtype=torch.int64)
+        chunk = int(shards[0].shape[-1])
+        out = torch.empty(tuple(shards[0].shape[:-1]) + (pos.numel(),), dtype=shards[0].dtype)
+        owner = pos // chunk
+        for i, s in enumerate(shards):
+            sel = torch.nonzero(owner == i).flatten()
+            if sel.numel():
+                out[..., sel] = s[..., (pos[sel] % chunk).to(s.device)].cpu()
+        return out
+
+
+@dataclass(frozen=True)
+class ProcessGroupMesh(Mesh):
+    """One shard per process of the default ``torch.distributed`` process
+    group (shard i = rank i, D = world size): this process owns shard
+    `rank` on `home`. Under NCCL, CUDA tensors go to the collectives as
+    they are; under gloo, payloads are staged through host memory."""
+
+    size: int
+    rank: int
+    home: torch.device
+    backend: str
+
+    @property
+    def local(self) -> Tuple[int]:
+        return (self.rank,)
+
+    def device(self, i: int) -> torch.device:
+        return self.home
+
+    @property
+    def _wire(self) -> torch.device:
+        """Where payloads travel: host memory under gloo, the card under NCCL."""
+        return torch.device("cpu") if self.backend == "gloo" else self.home
+
+    def _stage(self, x: torch.Tensor) -> torch.Tensor:
+        return x.to(self._wire).contiguous()
+
+    def _gather_list(self, x: torch.Tensor) -> List[torch.Tensor]:
+        x = self._stage(x)
+        parts = [torch.empty_like(x) for _ in range(self.size)]
+        tdist.all_gather(parts, x)
+        return [p.to(self.home) for p in parts]
+
+    def _sendrecv(self, x: torch.Tensor, to: int, frm: int) -> torch.Tensor:
+        """Send x to rank `to` while receiving a tensor of x's shape from
+        rank `frm`."""
+        if to == self.rank and frm == self.rank:
+            return x.clone()
+        x = self._stage(x)
+        buf = torch.empty_like(x)
+        for req in tdist.batch_isend_irecv([tdist.P2POp(tdist.isend, x, to),
+                                           tdist.P2POp(tdist.irecv, buf, frm)]):
+            req.wait()
+        return buf.to(self.home)
+
+    def _all_to_all(self, sends: List[torch.Tensor], recv_counts: List[int]) -> List[torch.Tensor]:
+        """sends[d] (lead..., k_d) goes to rank d; returns what each rank
+        sent here, (lead..., recv_counts[s]) from rank s. One
+        all_to_all_single over the element axis moved first."""
+        inp = self._stage(torch.cat([s.movedim(-1, 0) for s in sends], dim=0))
+        out = torch.empty((sum(recv_counts),) + tuple(inp.shape[1:]), dtype=inp.dtype,
+                          device=inp.device)
+        tdist.all_to_all_single(out, inp, output_split_sizes=recv_counts,
+                               input_split_sizes=[int(s.shape[-1]) for s in sends])
+        return [p.movedim(0, -1).to(self.home) for p in torch.split(out, recv_counts, dim=0)]
+
+    def _place(self, x, moves, out) -> None:
+        me = self.rank
+        o = out[me]
+        if not isinstance(x, Sharded):  # the same input in every process: no traffic
+            for _, s0, j, d0, n in moves:
+                if j == me:
+                    o[..., d0:d0 + n] = x[..., s0:s0 + n].to(self.home)
+            return
+        mine = x.shards[me]
+        sends = [mine[..., :0]] * self.size
+        counts = [0] * self.size
+        lands = []  # (source rank, destination start, length) of what arrives here
+        for s, s0, j, d0, n in moves:
+            if s == me:
+                sends[j] = torch.cat([sends[j], mine[..., s0:s0 + n]], dim=-1)
+            if j == me:
+                lands.append((s, d0, n))
+                counts[s] += n
+        got = self._all_to_all(sends, counts)
+        taken = [0] * self.size
+        for s, d0, n in lands:
+            o[..., d0:d0 + n] = got[s][..., taken[s]:taken[s] + n]
+            taken[s] += n
+
+    def _concat(self, shards) -> torch.Tensor:
+        return torch.cat(self._gather_list(shards[self.rank]), dim=-1)
+
+    # -- collectives over per-shard tensors --------------------------------
+
+    def _only(self, value: torch.Tensor) -> List[Optional[torch.Tensor]]:
+        out = [None] * self.size
+        out[self.rank] = value
+        return out
+
+    def all_gather(self, shards: Sequence[torch.Tensor]) -> List[Optional[torch.Tensor]]:
+        return self._only(torch.stack(self._gather_list(shards[self.rank])))
+
+    def exchange(self, shards: Sequence[torch.Tensor], dist: int) -> List[Optional[torch.Tensor]]:
+        peer = self.rank ^ dist
+        return self._only(self._sendrecv(shards[self.rank], peer, peer))
+
+    def shift(self, shards: Sequence[torch.Tensor]) -> List[Optional[torch.Tensor]]:
+        r, d = self.rank, self.size
+        return self._only(self._sendrecv(shards[r][..., -1:], (r + 1) % d, (r - 1) % d))
+
+    def permute(self, shards: Sequence[torch.Tensor], perm) -> List[Optional[torch.Tensor]]:
+        if not isinstance(perm, Permutation):
+            perm = Permutation(self, perm)
+        me = self.rank
+        x = shards[me]
+        sends = [x[..., perm.sends[d]] if d in perm.sends else x[..., :0]
+                 for d in range(self.size)]
+        counts = [0] * self.size
+        for s, dst, _ in perm.moves[me]:
+            if s != me:
+                counts[s] = int(dst.numel())
+        got = self._all_to_all(sends, counts)
+        o = torch.empty(tuple(x.shape[:-1]) + (perm.chunk,), dtype=x.dtype, device=self.home)
+        for s, dst, src in perm.moves[me]:
+            o[..., dst] = x[..., src] if s == me else got[s]
+        return self._only(o)
+
+    def sum(self, shards: Sequence[torch.Tensor]) -> torch.Tensor:
+        x = self._stage(shards[self.rank]).clone()
+        tdist.all_reduce(x)
+        return x.to(self.home)
+
+    def gather(self, shards: Sequence[torch.Tensor], positions: Sequence[int]) -> torch.Tensor:
+        """Every process fills the positions its shard owns, zeros elsewhere;
+        one all_reduce sums them (exact: one term a position is non-zero)."""
+        mine = shards[self.rank]
+        chunk = int(mine.shape[-1])
+        pos = torch.as_tensor(list(positions), dtype=torch.int64)
+        out = torch.zeros(tuple(mine.shape[:-1]) + (pos.numel(),), dtype=mine.dtype,
+                          device=self._wire)
+        sel = torch.nonzero(pos // chunk == self.rank).flatten()
+        if sel.numel():
+            out[..., sel.to(self._wire)] = \
+                mine[..., (pos[sel] % chunk).to(mine.device)].to(self._wire)
+        tdist.all_reduce(out)
+        return out.cpu()
+
 
 class Permutation:
-    """A global index permutation split into per-shard moves: for
-    destination shard i, a list of (source shard s, positions in shard i,
-    positions in shard s), each index tensor on the device it indexes."""
+    """A global index permutation split into per-shard moves. For each
+    destination shard i this process owns, ``moves[i]`` lists (source shard
+    s, positions in shard i, positions in shard s); for the destinations
+    other processes own, ``sends[d]`` holds the positions of this process's
+    shard that go there, in the order shard d places them."""
 
     def __init__(self, mesh: Mesh, perm: torch.Tensor):
         n = perm.numel()
         if n % mesh.size:
             raise ValueError(f"a permutation of {n} does not split into {mesh.size} shards")
         self.chunk = c = n // mesh.size
-        self.moves = []
-        for i, dev in enumerate(mesh.devices):
+        self.moves = {}
+        self.sends = {}
+        for i in range(mesh.size):
             p = perm[i * c:(i + 1) * c].to(torch.int64)
             src = p // c
             order = torch.argsort(src, stable=True)
@@ -145,70 +356,72 @@ class Permutation:
             for s, k in enumerate(counts):
                 if k:
                     sel = order[start:start + k]
-                    moves.append((s, sel.to(dev), (p[sel] % c).to(mesh.devices[s])))
+                    if i in mesh.local:
+                        moves.append((s, sel.to(mesh.device(i)), (p[sel] % c).to(mesh.device(s))))
+                    elif s in mesh.local:
+                        self.sends[i] = (p[sel] % c).to(mesh.device(s))
                 start += k
-            self.moves.append(moves)
+            if i in mesh.local:
+                self.moves[i] = moves
 
 
 class Sharded:
     """An array split along its last axis into contiguous chunks, chunk i
-    on the mesh's device i. The consumers outside the mesh backend read it
-    through ``rows``, ``gather`` and ``full``."""
+    on the mesh's shard i (None where another process owns it). The
+    consumers outside the mesh backend read it through ``rows``,
+    ``gather`` and ``full``."""
 
-    def __init__(self, mesh: Mesh, shards: List[torch.Tensor]):
+    def __init__(self, mesh: Mesh, shards: List[Optional[torch.Tensor]]):
         if len(shards) != mesh.size:
             raise ValueError(f"{len(shards)} shards for a mesh of {mesh.size}")
         self.mesh = mesh
         self.shards = list(shards)
 
     @property
+    def _first(self) -> torch.Tensor:
+        return self.shards[self.mesh.local[0]]
+
+    @property
     def chunk(self) -> int:
-        return int(self.shards[0].shape[-1])
+        return int(self._first.shape[-1])
 
     @property
     def shape(self) -> tuple:
-        return tuple(self.shards[0].shape[:-1]) + (self.chunk * self.mesh.size,)
+        return tuple(self._first.shape[:-1]) + (self.chunk * self.mesh.size,)
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.shards[0].dtype
+        return self._first.dtype
 
     def rows(self, j: int) -> "Sharded":
         """Row j of a (C, N) array, as an (N,) Sharded array of views."""
-        return Sharded(self.mesh, [s[j] for s in self.shards])
+        return Sharded(self.mesh, self.mesh.each(lambda i: self.shards[i][j]))
 
     def gather(self, positions: Sequence[int]) -> torch.Tensor:
-        """x[..., positions] as a CPU tensor (the decommitment's reads)."""
-        pos = torch.as_tensor(list(positions), dtype=torch.int64)
-        out = torch.empty(self.shape[:-1] + (pos.numel(),), dtype=self.dtype)
-        owner = pos // self.chunk
-        for i, s in enumerate(self.shards):
-            sel = torch.nonzero(owner == i).flatten()
-            if sel.numel():
-                local = (pos[sel] % self.chunk).to(s.device)
-                out[..., sel] = s[..., local].cpu()
-        return out
+        """x[..., positions] as a CPU tensor (the decommitment's reads), the
+        same in every process."""
+        return self.mesh.gather(self.shards, positions)
 
-    def full(self, device: Optional[torch.device] = None) -> torch.Tensor:
-        """The concatenated array on `device` (default: the first device)."""
-        dev = self.mesh.devices[0] if device is None else device
-        return torch.cat([s.to(dev) for s in self.shards], dim=-1)
+    def full(self) -> torch.Tensor:
+        """The concatenated array on this process's device."""
+        return self.mesh.full(self)
 
 
-def make_mesh(n_devices: Optional[int] = None, device="cuda") -> Mesh:
-    """A mesh of `n_devices` shards (default: one per visible device of
-    that type) over the visible devices of `device`'s type, round robin:
-    on one card every shard is on cuda:0, on the CPU every shard is on
-    cpu. A CUDA mesh without a card raises."""
-    dev = torch.device(device)
+def make_mesh(n_devices: Optional[int] = None, device="cuda") -> DeviceMesh:
+    """A one-process mesh of `n_devices` shards (default: one per visible
+    device of that type) over the visible devices of `device`'s type,
+    round robin: on one card every shard is on cuda:0, on the CPU every
+    shard is on cpu. An indexed device ("cuda:1") holds every shard. A CUDA
+    mesh without a card raises."""
+    from ..air import canonical_device
+
+    dev = canonical_device(device)
     if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(f"mesh on {device}: no CUDA device is available")
-        visible = ([dev] if dev.index is not None else
+        visible = ([dev] if torch.device(device).index is not None else
                    [torch.device("cuda", k) for k in range(torch.cuda.device_count())])
     elif dev.type == "cpu":
-        visible = [torch.device("cpu")]
+        visible = [dev]
     else:
         raise ValueError(f"mesh on {device}: unsupported device type")
     n = len(visible) if n_devices is None else n_devices
-    return Mesh(tuple(visible[i % len(visible)] for i in range(n)))
+    return DeviceMesh(tuple(visible[i % len(visible)] for i in range(n)))

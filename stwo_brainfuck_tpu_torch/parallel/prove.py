@@ -12,14 +12,17 @@ through this object:
   stages);
 - Merkle commitments: parallel/merkle_sharded.commit_sharded;
 - composition constraints, quotient accumulation and OODS sampling: per
-  shard (the samples as per-shard partial contractions summed mod p);
+  shard (the samples as per-shard partial contractions, one mesh sum, mod
+  p);
 - FRI folds: per shard (fold pairs are adjacent in bit-reversed storage,
   so a shard's chunk folds to a chunk, until the layer is smaller than the
-  mesh and finishes on the first device).
+  mesh and finishes whole).
 
-All arithmetic is exact mod p, so the proof bytes are those of the
-single-device proof for any number of shards. Arrays with fewer than 2
-rows a shard stay on the single-device path, on the mesh's first device.
+Each process works on the shards it owns (``Mesh.each``). All arithmetic
+is exact mod p, so the proof bytes are those of the single-device proof for
+any number of shards and processes. Arrays with fewer than 2 rows a shard
+stay on the single-device path: the whole array (``Mesh.full``) in every
+process, on its own device, so every process computes the same values.
 """
 
 from __future__ import annotations
@@ -43,7 +46,7 @@ def _permutation(mesh: Mesh, kind: str, log_size: int, log_blowup: int = 0) -> P
     """The global gathers of the prover, split into per-shard moves:
     "linear" (storage -> coset linear order), "storage" (its inverse) and
     "rotation" (f(p - g) on the blown-up domain)."""
-    dev = mesh.devices[0]
+    dev = mesh.home
     if kind == "rotation":
         perm = fft.rotation_permutation(log_size, log_blowup, 1, dev)
     else:
@@ -54,14 +57,14 @@ def _permutation(mesh: Mesh, kind: str, log_size: int, log_blowup: int = 0) -> P
 
 
 def _int32(shards: List[torch.Tensor]) -> List[torch.Tensor]:
-    return [s.to(torch.int32) for s in shards]
+    return [None if s is None else s.to(torch.int32) for s in shards]
 
 
 class ShardedOps:
     """Multi-device implementations of the prove pipeline's primitives.
     Each takes tensors or Sharded arrays and returns Sharded arrays where
     the size shards (at least 2 rows a shard), else tensors on the mesh's
-    first device (the same values either way)."""
+    home device, the same in every process (the same values either way)."""
 
     def __init__(self, mesh: Mesh):
         self.mesh = mesh
@@ -103,7 +106,7 @@ class ShardedOps:
                 padded = self.mesh.pad(coeffs, comp_log)
             else:
                 padded = torch.zeros((4, 1 << comp_log), dtype=torch.int32,
-                                     device=self.mesh.devices[0])
+                                     device=self.mesh.home)
                 padded[:, :1 << lg] = coeffs
             total = padded if total is None else self._add(total, padded)
         return self.evaluate(total, comp_log)
@@ -115,14 +118,14 @@ class ShardedOps:
             total = sum(self.mesh.full(a).to(torch.int64) for a in arrs) % P_INT
             return total.to(torch.int32)
         arrs = [self.mesh.as_sharded(a) for a in arrs]
-        return Sharded(self.mesh, _int32([sum(a.shards[i].to(torch.int64) for a in arrs) % P_INT
-                                          for i in range(self.D)]))
+        return Sharded(self.mesh, _int32(self.mesh.each(
+            lambda i: sum(a.shards[i].to(torch.int64) for a in arrs) % P_INT)))
 
     def _add(self, a, b):
         if isinstance(a, torch.Tensor):
             return ((a.to(torch.int64) + b) % P_INT).to(torch.int32)
-        return Sharded(self.mesh, _int32([(x.to(torch.int64) + y) % P_INT
-                                          for x, y in zip(a.shards, b.shards)]))
+        return Sharded(self.mesh, _int32(self.mesh.each(
+            lambda i: (a.shards[i].to(torch.int64) + b.shards[i]) % P_INT)))
 
     # -- Merkle ------------------------------------------------------------
 
@@ -144,14 +147,15 @@ class ShardedOps:
                 component, {k: self.mesh.full(v) for k, v in main_cols.items()}, elements)
         mesh = self.mesh
         main = {k: mesh.as_sharded(v) for k, v in main_cols.items()}
-        is_first = torch.zeros(1 << log_size, dtype=torch.int64, device=mesh.devices[0])
+        is_first = torch.zeros(1 << log_size, dtype=torch.int64, device=mesh.home)
         is_first[0] = 1
         q_cols, totals = fractions(mesh, component, main, mesh.shard(is_first),
                                    shard_elements(mesh, elements))
         lin = mesh.permute(totals, _permutation(mesh, "linear", log_size))
         s_lin, claimed = prefix_sum(mesh, lin)
         s = mesh.permute(s_lin, _permutation(mesh, "storage", log_size))
-        cols = [Sharded(mesh, [q[k] for q in q_cols]) for k in range(len(q_cols[0]))]
+        n_q = len(q_cols[mesh.local[0]])
+        cols = [Sharded(mesh, mesh.each(lambda i: q_cols[i][k])) for k in range(n_q)]
         return cols + [Sharded(mesh, _int32(s))], claimed
 
     # -- Composition -------------------------------------------------------
@@ -178,22 +182,22 @@ class ShardedOps:
         main = {k: sh(v) for k, v in ext_main.items()}
         inter = [sh(x) for x in ext_inter]
         s_prev, isf_ext, v_inv = sh(s_prev), sh(isf_ext), sh(v_inv)
-        outs = []
-        for i in range(self.D):
+        outs = [None] * self.D
+        for i in self.mesh.local:
             out, nxt = composition_contribution(
                 component, {k: v.shards[i] for k, v in main.items()},
                 [x.shards[i] for x in inter], s_prev.shards[i], isf_ext.shards[i],
                 claimed_sum, elements, alpha, alpha_offset, v_inv.shards[i])
-            outs.append(out.to(torch.int32))
+            outs[i] = out.to(torch.int32)
         return Sharded(self.mesh, outs), nxt
 
     # -- OODS --------------------------------------------------------------
 
     def sample_tensor(self, rows, b_lo, b_hi) -> torch.Tensor:
         """poly.sample_tensor of rows that may be Sharded: each shard's
-        partial contraction, summed mod p. (4, C) int64 on the first
-        device."""
-        dev = self.mesh.devices[0]
+        partial contraction, summed over the mesh (one reduction), mod p.
+        (4, C) int64 on the home device, the same in every process."""
+        dev = self.mesh.home
         plain = [k for k, r in enumerate(rows) if isinstance(r, torch.Tensor)]
         spread = [k for k, r in enumerate(rows) if not isinstance(r, torch.Tensor)]
         out = torch.empty((4, len(rows)), dtype=torch.int64, device=dev)
@@ -201,9 +205,9 @@ class ShardedOps:
             out[:, plain] = poly.sample_tensor([rows[k] for k in plain], b_lo, b_hi).to(dev)
         if spread:
             chunk = rows[spread[0]].chunk
-            parts = [poly.sample_tensor([rows[k].shards[i] for k in spread], b_lo, b_hi,
-                                        offset=i * chunk).to(dev) for i in range(self.D)]
-            out[:, spread] = sum(parts) % P_INT
+            parts = self.mesh.each(lambda i: poly.sample_tensor(
+                [rows[k].shards[i] for k in spread], b_lo, b_hi, offset=i * chunk))
+            out[:, spread] = self.mesh.sum(parts) % P_INT
         return out
 
     # -- Quotients ---------------------------------------------------------
@@ -211,16 +215,13 @@ class ShardedOps:
     def accumulate_all(self, log_size: int, columns, groups) -> object:
         """quotients.accumulate_groups on every shard's chunk of the
         domain."""
-        dev = self.mesh.devices[0]
-        px, py = quotients.domain_points_storage(log_size, dev)
+        px, py = quotients.domain_points_storage(log_size, self.mesh.home)
         if not self._shardable(log_size):
             return quotients.accumulate_groups([self.mesh.full(c) for c in columns], groups, px, py)
         cols = [self.mesh.as_sharded(c) for c in columns]
         px, py = self.mesh.shard(px), self.mesh.shard(py)
-        return Sharded(self.mesh, [
-            quotients.accumulate_groups([c.shards[i] for c in cols], groups,
-                                        px.shards[i], py.shards[i])
-            for i in range(self.D)])
+        return Sharded(self.mesh, self.mesh.each(lambda i: quotients.accumulate_groups(
+            [c.shards[i] for c in cols], groups, px.shards[i], py.shards[i])))
 
     # -- FRI ---------------------------------------------------------------
 
@@ -229,8 +230,8 @@ class ShardedOps:
         if values.shape[1] // 2 < 2 * self.D:
             return fri._fold(self.mesh.full(values), itw, beta).to(torch.int32)
         v, t = self.mesh.as_sharded(values), self.mesh.shard(itw)
-        return Sharded(self.mesh, _int32([fri._fold(a, b, beta)
-                                          for a, b in zip(v.shards, t.shards)]))
+        return Sharded(self.mesh, _int32(self.mesh.each(
+            lambda i: fri._fold(v.shards[i], t.shards[i], beta))))
 
     def fold2(self, values, itw1, itw2, beta, beta2):
         """Two folds (beta, then beta2): a radix-4 layer's body."""
@@ -239,8 +240,8 @@ class ShardedOps:
             return full.to(torch.int32)
         v = self.mesh.as_sharded(values)
         t1, t2 = self.mesh.shard(itw1), self.mesh.shard(itw2)
-        return Sharded(self.mesh, _int32([fri._fold(fri._fold(a, b, beta), c, beta2)
-                                          for a, b, c in zip(v.shards, t1.shards, t2.shards)]))
+        return Sharded(self.mesh, _int32(self.mesh.each(lambda i: fri._fold(
+            fri._fold(v.shards[i], t1.shards[i], beta), t2.shards[i], beta2))))
 
     def fold_add(self, values, itw, beta, cur):
         """cur + fold(values): an injected FRI input."""
@@ -249,5 +250,5 @@ class ShardedOps:
             return ((self.mesh.full(cur).to(torch.int64) + folded) % P_INT).to(torch.int32)
         v, t = self.mesh.as_sharded(values), self.mesh.shard(itw)
         c = self.mesh.as_sharded(cur)
-        return Sharded(self.mesh, _int32([(x.to(torch.int64) + fri._fold(a, b, beta)) % P_INT
-                                          for x, a, b in zip(c.shards, v.shards, t.shards)]))
+        return Sharded(self.mesh, _int32(self.mesh.each(lambda i: (
+            c.shards[i].to(torch.int64) + fri._fold(v.shards[i], t.shards[i], beta)) % P_INT)))

@@ -32,19 +32,20 @@ from .mesh import Mesh, Sharded
 
 
 def shard_elements(mesh: Mesh, elements: Dict[str, LookupElements]) -> List[dict]:
-    """The lookup elements' device tensors for each shard (one copy per
-    device)."""
-    by_dev = {dev: _device_elements(elements, dev) for dev in set(mesh.devices)}
-    return [by_dev[dev] for dev in mesh.devices]
+    """The lookup elements' device tensors for each shard this process owns
+    (one copy per device)."""
+    by_dev = {dev: _device_elements(elements, dev) for dev in mesh.local_devices}
+    return mesh.each(lambda i: by_dev[mesh.device(i)])
 
 
 def fractions(mesh: Mesh, component, main: Dict[str, Sharded], is_first: Sharded,
               els: List[dict]):
     """LogUp fractions on every shard: ([per shard [(4, c) int32 Q_k]],
     [per shard (4, c) int64 sum of the Q_k])."""
-    out = [logup_fractions(component, {k: v.shards[i] for k, v in main.items()},
-                           is_first.shards[i], els[i]) for i in range(mesh.size)]
-    return [q for q, _ in out], [t for _, t in out]
+    out = mesh.each(lambda i: logup_fractions(
+        component, {k: v.shards[i] for k, v in main.items()}, is_first.shards[i], els[i]))
+    return ([None if o is None else o[0] for o in out],
+            [None if o is None else o[1] for o in out])
 
 
 def prefix_sum(mesh: Mesh, shards: List[torch.Tensor]) -> Tuple[List[torch.Tensor], tuple]:
@@ -52,10 +53,10 @@ def prefix_sum(mesh: Mesh, shards: List[torch.Tensor]) -> Tuple[List[torch.Tenso
     N: each shard's local cumulative sum plus the sum of the totals of the
     shards before it. Returns (per-shard (4, c) int64 sums, the claimed
     sum = the total of all shards, as a host tuple)."""
-    local = [torch.cumsum(x, dim=1) % P_INT for x in shards]
-    totals = mesh.all_gather([x[:, -1] for x in local])          # (D, 4) per shard
-    out = [(x + totals[i][:i].sum(0)[:, None]) % P_INT for i, x in enumerate(local)]
-    claimed = tuple(int(v) for v in (totals[0].sum(0) % P_INT).cpu())
+    local = mesh.each(lambda i: torch.cumsum(shards[i], dim=1) % P_INT)
+    totals = mesh.all_gather(mesh.each(lambda i: local[i][:, -1]))   # (D, 4) per shard
+    out = mesh.each(lambda i: (local[i] + totals[i][:i].sum(0)[:, None]) % P_INT)
+    claimed = tuple(int(v) for v in (totals[mesh.local[0]].sum(0) % P_INT).cpu())
     return out, claimed
 
 
@@ -75,14 +76,14 @@ def sharded_prove_step(mesh: Mesh, component_cls, log_size: int):
         q_cols, totals = fractions(mesh, comp, main, isf, els)
         s, claimed = prefix_sum(mesh, totals)
         left = mesh.shift(s)
-        cons = []
-        for i in range(mesh.size):
+        cons = [None] * mesh.size
+        for i in mesh.local:
             s_prev = torch.cat([left[i], s[i][:, :-1]], dim=1)
             ev = Evaluator(comp, {k: v.shards[i] for k, v in main.items()}, q_cols[i] + [s[i]],
                            s_prev, isf.shards[i], qm31.const(claimed, s[i].device),
                            els[i], host=False)
             comp.define_constraints(ev)
-            cons.append(torch.stack([c._qm(s[i]).expand(s[i].shape) for c in ev.constraints]))
+            cons[i] = torch.stack([c._qm(s[i]).expand(s[i].shape) for c in ev.constraints])
         return Sharded(mesh, s), claimed, Sharded(mesh, cons)
 
     return fn, comp

@@ -121,6 +121,22 @@ def test_sharded_small_proof_on_the_card_matches_jax_reference(cuda):
     air.verify_brainfuck(proof, device=cuda)
 
 
+def test_one_ladder_tree_per_card(cuda):
+    """The mesh names the card cuda:0 and the verifier is asked for "cuda":
+    both resolve to one cache key, so the verify after a mesh prove finds
+    the ladder tree the prove built."""
+    m = create_test_machine(compile_program(chip_smoke.SMALL_CODE),
+                            chip_smoke.SMALL_INPUT.encode())
+    m.execute()
+    air._preprocessed_tree.cache_clear()
+    air._preprocessed_root.cache_clear()
+    proof = air.prove_brainfuck(m, mesh=make_mesh(2, "cuda"))
+    trees = air._preprocessed_tree.cache_info().currsize
+    assert trees == 1
+    air.verify_brainfuck(proof, device="cuda")
+    assert air._preprocessed_tree.cache_info().currsize == trees
+
+
 EDGES = [0, 1, 2**16 - 1, 2**16, P - 1]
 
 

@@ -1,7 +1,9 @@
 """Whole proves on a mesh of CPU shards: the port's mesh proof of the small
 program is byte-identical to the JAX package's one-device proof for 1, 2
 and 8 shards and verified by both packages; the CLI's --devices and the
-port's entry points (entry, dryrun_multichip) run the same path."""
+port's entry points (entry, dryrun_multichip) run the same path;
+--distributed (tests/test_torch_multihost.py) does not combine with
+--devices."""
 
 import json
 import os
@@ -70,11 +72,11 @@ def test_cli_refuses_a_mesh_that_is_not_a_power_of_two(tmp_path, capsysbinary):
                    str(tmp_path / "p.json"), "--device", "cpu", "--devices", "3"])
 
 
-def test_cli_does_not_accept_distributed_yet(tmp_path, capsys):
+def test_cli_refuses_distributed_with_devices(tmp_path, capsys):
     with pytest.raises(SystemExit):
         tcli.main(["prove", "--code", CODE, "--output", str(tmp_path / "p.json"),
-                   "--device", "cpu", "--distributed"])
-    assert "--distributed" in capsys.readouterr().err
+                   "--device", "cpu", "--distributed", "--devices", "2"])
+    assert "not allowed with argument" in capsys.readouterr().err
 
 
 def test_dryrun_multichip_on_cpu(capsys):

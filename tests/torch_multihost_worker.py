@@ -1,0 +1,81 @@
+"""One process of tests/test_torch_multihost.py's process groups (imports
+the port only, never jax):
+
+    STWO_BF_NUM_PROCESSES=W STWO_BF_COORDINATOR=127.0.0.1:PORT STWO_BF_PROCESS_ID=R \\
+        python tests/torch_multihost_worker.py OUT_DIR
+
+joins a gloo group of W processes on the CPU, runs every collective of the
+ProcessGroupMesh on the seeded inputs of ``inputs(W)`` (and, at W = 2, the
+sharded evaluate, interpolate and extend of ``fft_input()``), and saves
+what this process got to OUT_DIR/rank{R}.pt.
+"""
+
+import os
+import sys
+
+import numpy as np
+import torch
+
+P = 2**31 - 1
+FFT_LOG = 10
+
+
+def inputs(world: int) -> dict:
+    """The collectives' inputs, the same in every process and in the test."""
+    rng = np.random.default_rng(world)
+    return {"x": torch.as_tensor(rng.integers(0, P, (3, 64)).astype(np.int64)),
+            "perm": torch.as_tensor(rng.permutation(64)),
+            "positions": [63, 0, 17, 5, 32, 31, 48],
+            "pad_log": 8}
+
+
+def fft_input() -> torch.Tensor:
+    rng = np.random.default_rng(99)
+    return torch.as_tensor(rng.integers(0, P, (2, 1 << FFT_LOG)).astype(np.int32))
+
+
+def collectives(mesh) -> dict:
+    """Every collective on ``inputs(mesh.size)``: what this process holds
+    of each output (its own shard's entry, or the replicated result)."""
+    inp = inputs(mesh.size)
+    me = mesh.local[0]
+    sh = mesh.shard(inp["x"])
+    out = {"all_gather": mesh.all_gather(mesh.each(lambda i: sh.shards[i][:, 0]))[me],
+           "shift": mesh.shift(sh.shards)[me],
+           "permute": mesh.permute(sh.shards, inp["perm"])[me],
+           "full": sh.full(),
+           "gather": sh.gather(inp["positions"]),
+           "pad": mesh.pad(sh, inp["pad_log"]).shards[me],
+           "sum": mesh.sum(mesh.each(lambda i: sh.shards[i]))}
+    for k in range(mesh.split_log):
+        out[f"exchange{1 << k}"] = mesh.exchange(sh.shards, 1 << k)[me]
+    return out
+
+
+def transforms(mesh) -> dict:
+    from stwo_brainfuck_tpu_torch.parallel import fft_sharded
+
+    x = fft_input()
+    coeffs, ext = fft_sharded.sharded_extend(mesh, x, FFT_LOG, 1)
+    return {"evaluate": fft_sharded.make_sharded_evaluate(mesh, FFT_LOG)(x).full(),
+            "interpolate": fft_sharded.make_sharded_interpolate(mesh, FFT_LOG)(x).full(),
+            "extend_coeffs": coeffs.full(), "extend": ext.full()}
+
+
+def main(out_dir: str) -> None:
+    from stwo_brainfuck_tpu_torch.parallel import multihost
+
+    torch.set_num_threads(1)
+    multihost.initialize(device="cpu")
+    try:
+        mesh = multihost.global_mesh()
+        got = collectives(mesh)
+        if mesh.size == 2:
+            got.update(transforms(mesh))
+        torch.save(got, os.path.join(out_dir, f"rank{mesh.local[0]}.pt"))
+    finally:
+        multihost.shutdown()
+
+
+if __name__ == "__main__":
+    main(sys.argv[1])
