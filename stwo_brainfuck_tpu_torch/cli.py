@@ -21,7 +21,9 @@ one process per card (NCCL):
 or start each process with STWO_BF_NUM_PROCESSES, STWO_BF_COORDINATOR
 (``host:port`` of process 0) and STWO_BF_PROCESS_ID set; STWO_BF_BACKEND=gloo
 for processes that share one card or run on the CPU. The proof is the same
-bytes for any N and any number of processes.
+bytes for any N and any number of processes. The log level is ``--log``,
+else the STWO_BF_LOG environment variable, else info (under torchrun set
+STWO_BF_LOG: torchrun's own parser takes ``--log`` for its ``--log-dir``).
 """
 
 from __future__ import annotations
@@ -29,15 +31,16 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
 import sys
 import time
 
 import torch
 
 from . import air
-from .core import fft
+from .core import blake2s, fft
 from .core.pcs import PcsConfig
-from .ops import circle_fft
+from .ops import blake2s_kernels, circle_fft
 from .vm.compiler import CompileError, compile_program
 from .vm.machine import DEFAULT_RAM_SIZE, Machine, MachineError
 from .vm.registers import TRACE_COLUMNS
@@ -56,7 +59,7 @@ def _add_prove_args(p):
     out = p.add_mutually_exclusive_group()
     out.add_argument("--output", help="write the proof JSON to this path")
     out.add_argument("--print", action="store_true", help="print the proof JSON")
-    p.add_argument("--log", default="info", help="log level")
+    p.add_argument("--log", default=None, help="log level (default: $STWO_BF_LOG, else info)")
     p.add_argument("--log-max-rows", type=int, default=0,
                    help="preprocessed ladder top (0 = auto from trace)")
     p.add_argument("--n-queries", type=int, default=20)
@@ -105,6 +108,7 @@ def cmd_prove(args) -> int:
 
     config = PcsConfig(log_max_rows=args.log_max_rows, n_queries=args.n_queries,
                        pow_bits=args.pow_bits)
+    log.debug("PCS config: %s", config.to_json())
     mesh = None
     coordinator = True
     if args.distributed:
@@ -135,6 +139,10 @@ def cmd_prove(args) -> int:
              trace_time * 1e3, proof_time, trace_time + proof_time)
     log.info("Circle FFT kernel launches: %d; plain FFT calls on CUDA tensors: %d",
              circle_fft.KERNEL.launches, fft.PLAIN_CUDA_CALLS)
+    hashes = blake2s_kernels.KERNELS.launches
+    log.info("Blake2s kernel launches: level %d, tail %d, grind %d; plain Blake2s calls on "
+             "CUDA tensors: %d", hashes["level"], hashes["tail"], hashes["grind"],
+             blake2s.PLAIN_CUDA_CALLS)
     if not coordinator:
         return 0  # the proof is the same in every process; process 0 writes it
 
@@ -158,7 +166,7 @@ def cmd_verify(args) -> int:
     except air.VerificationError as exc:
         log.error("Verification FAILED: %s", exc)
         return 1
-    log.info("Verification OK (%.2f s)", time.time() - t0)
+    log.info("Verification OK (%.4f s)", time.time() - t0)
     return 0
 
 
@@ -169,13 +177,15 @@ def main(argv=None) -> int:
     _add_prove_args(p_prove)
     p_verify = sub.add_parser("verify", help="verify a proof JSON")
     p_verify.add_argument("proof", help="path to the proof JSON")
-    p_verify.add_argument("--log", default="info")
+    p_verify.add_argument("--log", default=None,
+                          help="log level (default: $STWO_BF_LOG, else info)")
     p_verify.add_argument("--device", default="cuda",
                           help="torch device for the preprocessed-root recompute")
     args = parser.parse_args(argv)
 
+    level = args.log or os.environ.get("STWO_BF_LOG") or "info"
     logging.basicConfig(
-        level=getattr(logging, args.log.upper(), logging.INFO),
+        level=getattr(logging, level.upper(), logging.INFO),
         format="%(asctime)s %(levelname)s %(message)s",
         stream=sys.stderr,
     )

@@ -8,6 +8,10 @@ Words are computed in int64 masked to 32 bits (torch has no unsigned 32-bit
 arithmetic on the CPU). Messages of more than 16 words run several
 compressions with byte counter 64·(b+1), the true length on the last block,
 and zero padding.
+
+``hash_parts`` is the plain version: the reference of the hand-written
+kernels (``ops/blake2s_kernels.py``, ``csrc/blake2s.cu``), which hash every
+CUDA tensor of the Merkle trees, the PoW grind and ``hash_words``.
 """
 
 from __future__ import annotations
@@ -37,6 +41,10 @@ SIGMA = (
     (6, 15, 14, 9, 11, 3, 0, 8, 12, 2, 13, 7, 1, 4, 10, 5),
     (10, 2, 8, 4, 7, 6, 1, 5, 15, 11, 9, 14, 3, 12, 13, 0),
 )
+
+# Calls of the plain hash_parts on CUDA tensors. The prover never makes one
+# (CUDA tensors go to the kernels); chip_smoke.py checks that.
+PLAIN_CUDA_CALLS = 0
 
 
 def _rotr(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -83,6 +91,9 @@ def hash_parts(parts: Sequence[torch.Tensor], n_bytes: int | None = None) -> tor
     The concatenation is never materialized: each 16-word block gathers its
     rows from the parts, so a wide column matrix costs one block of int64
     at a time."""
+    global PLAIN_CUDA_CALLS
+    if parts[0].is_cuda:
+        PLAIN_CUDA_CALLS += 1
     rows = []  # (part, row) per message word
     for pi, p in enumerate(parts):
         rows.extend((pi, r) for r in range(p.shape[0]))
@@ -112,8 +123,16 @@ def hash_parts(parts: Sequence[torch.Tensor], n_bytes: int | None = None) -> tor
 
 
 def hash_words(words: torch.Tensor, n_bytes: int | None = None) -> torch.Tensor:
-    """BLAKE2s-256 of N messages given as one (W, N) word-leading tensor."""
-    return hash_parts([words], n_bytes)
+    """BLAKE2s-256 of N messages given as one (W, N) word-leading tensor:
+    the plain hash_parts on the CPU, the level kernel (int32 words) on a
+    CUDA tensor. Returns (8, N) int64 digest words either way."""
+    if words.device.type == "cpu":
+        return hash_parts([words], n_bytes)
+    if words.device.type != "cuda":
+        raise ValueError(f"Blake2s: unsupported device {words.device}")
+    from ..ops import blake2s_kernels
+
+    return blake2s_kernels.KERNELS.level(None, words, n_bytes).to(torch.int64) & MASK
 
 
 def words_to_int32(d: torch.Tensor) -> torch.Tensor:

@@ -4,7 +4,8 @@ Counterpart of ``stwo_brainfuck_tpu/core/channel.py`` (stwo's
 ``Blake2sChannel``). The transcript is tiny and strictly sequential, so it
 runs on the host with hashlib.blake2s; the torch Blake2s (core/blake2s.py)
 is bit-identical. Only a PoW grind above 2^13 expected hashes runs on a
-device: batches of nonces hashed by the torch Blake2s.
+device: on a CUDA device the grind kernel (ops/blake2s_kernels.py), on the
+CPU batches of nonces hashed by the plain torch Blake2s.
 
 Transcript rules (self-consistent; both prover and verifier call the same
 methods in the same order):
@@ -99,8 +100,7 @@ class Blake2sChannel:
 
     def grind_pow(self, pow_bits: int) -> int:
         """Smallest valid nonce. Small grinds run on the host; beyond 2^13
-        expected hashes the torch Blake2s searches 2^17-nonce batches on
-        self.device."""
+        expected hashes the search runs on self.device."""
         if pow_bits <= 13:
             nonce = 0
             while not self.check_pow_nonce(pow_bits, nonce):
@@ -119,8 +119,22 @@ _POW_BATCH_LOG = 17
 
 
 def _device_grind(digest: bytes, pow_bits: int, device) -> int:
-    """Smallest nonce whose hash has pow_bits low zero bits: 40-byte
-    messages digest || nonce_le8, 2^17 nonces per batch."""
+    """Smallest nonce whose hash has pow_bits low zero bits (40-byte
+    messages digest || nonce_le8): the grind kernel on a CUDA device, else
+    the plain torch Blake2s on 2^17 nonces a batch. The answer is checked
+    with hashlib."""
+    if torch.device(device).type == "cuda":
+        from ..ops import blake2s_kernels
+
+        found = blake2s_kernels.KERNELS.grind(digest, pow_bits, device)
+    else:
+        found = _plain_grind(digest, pow_bits, device)
+    if not _check_pow(digest, pow_bits, found):
+        raise RuntimeError("device PoW grind disagrees with hashlib")
+    return found
+
+
+def _plain_grind(digest: bytes, pow_bits: int, device) -> int:
     batch = 1 << _POW_BATCH_LOG
     mask = (1 << pow_bits) - 1
     dw = torch.as_tensor(np.frombuffer(digest, dtype="<u4").astype(np.int64),
@@ -131,12 +145,9 @@ def _device_grind(digest: bytes, pow_bits: int, device) -> int:
         nonce = base + offs
         msg = torch.cat([dw[:, None].expand(8, batch),
                          (nonce & blake2s.MASK)[None], (nonce >> 32)[None]])
-        ok = (blake2s.hash_words(msg, n_bytes=40)[0] & mask) == 0
+        ok = (blake2s.hash_parts([msg], n_bytes=40)[0] & mask) == 0
         hits = torch.nonzero(ok)
         if hits.numel():
-            found = base + int(hits[0, 0])
-            if not _check_pow(digest, pow_bits, found):
-                raise RuntimeError("device PoW grind disagrees with hashlib")
-            return found
+            return base + int(hits[0, 0])
         base += batch
     raise RuntimeError("PoW grind exhausted")

@@ -8,10 +8,14 @@ at tree level k (level k has 2^k nodes; level 0 is the root):
                           || col_values_at_level_k[i] ... )
 
 The deepest level hashes each row of its (C, 2^k) column matrix as one
-message of C words. Levels are hashed one at a time on the columns' device
-(the JAX package's chain chunking only served its compile cache; the
-digests are the same). Decommitment gathers the queried positions on the
-device; verification runs on the host with hashlib.
+message of C words. On CUDA tensors the tree is hashed by the Blake2s
+kernels (``ops/blake2s_kernels.py``) on the schedule of ``launch_plan``:
+one launch a level that carries columns or has more than 2^TAIL_LOG nodes,
+one launch for each run of smaller digest-only levels (the JAX package
+fuses up to four digest-only levels a program, ``level_plan``; the digests
+are the same). On CPU tensors every level is the plain ``hash_parts``.
+Decommitment gathers the queried positions on the device; verification
+runs on the host with hashlib.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import numpy as np
 import torch
 
 from . import blake2s
+from ..ops import blake2s_kernels
 
 
 @dataclass
@@ -42,34 +47,55 @@ class MerkleTree:
 
 
 def commit(columns_by_log: Dict[int, torch.Tensor]) -> MerkleTree:
-    """Build the tree level by level on the matrices' device; only the
-    32-byte root comes to the host. columns_by_log: level -> (C, 2^level)
-    int32 column matrix."""
+    """Build the tree on the matrices' device; only the 32-byte root comes
+    to the host. columns_by_log: level -> (C, 2^level) int32 column
+    matrix."""
     if not columns_by_log:
         raise ValueError("empty commitment")
     for k, mat in columns_by_log.items():
         if mat.dim() != 2 or mat.shape[1] != 1 << k:
             raise ValueError(f"level {k}: bad column matrix {tuple(mat.shape)}")
-    layers: Dict[int, torch.Tensor] = {}
-    prev = None
-    for k in range(max(columns_by_log), -1, -1):
-        prev = hash_level(prev, columns_by_log.get(k))
-        layers[k] = prev
+    layers = hash_levels(None, columns_by_log, max(columns_by_log))
     root = blake2s.digest_to_bytes(layers[0][:, 0])
     return MerkleTree(root=root, layers=layers, column_mats=dict(columns_by_log))
+
+
+def hash_levels(children, columns_by_log: Dict[int, torch.Tensor],
+                max_log: int) -> Dict[int, torch.Tensor]:
+    """Levels max_log .. 0 of a tree, level -> (8, 2^level) int32 digests,
+    from the digests below max_log (children, (8, 2^(max_log+1)), or None
+    at the deepest level) and the column matrices at those levels: level
+    by level with the plain version on the CPU, on launch_plan's schedule
+    with the kernels on a CUDA device."""
+    devices = {t.device for t in [children, *columns_by_log.values()] if t is not None}
+    if len(devices) != 1:
+        raise ValueError(f"Merkle levels on several devices or none: {devices}")
+    device = devices.pop()
+    if device.type == "cpu":
+        layers: Dict[int, torch.Tensor] = {}
+        for k in range(max_log, -1, -1):
+            children = hash_level(children, columns_by_log.get(k))
+            layers[k] = children
+        return layers
+    if device.type != "cuda":
+        raise ValueError(f"Merkle commit: unsupported device {device}")
+    K = blake2s_kernels
+    plan = K.launch_plan([(k, m.shape[0]) for k, m in columns_by_log.items()], max_log)
+    return K.walk_plan(plan, columns_by_log, children, K.KERNELS.level, K.KERNELS.tail)
 
 
 def hash_level(children, columns) -> torch.Tensor:
     """One level's nodes, (8, m) int32 digest words: node i hashes child
     2i || child 2i+1 (children: (8, 2m) digests of the level below, or
     None at the deepest level) || the level's column values at i
-    (columns: (C, m), or None)."""
-    parts = []
-    if children is not None:
-        parts += [children[:, 0::2], children[:, 1::2]]
-    if columns is not None:
-        parts.append(columns)
-    return blake2s.words_to_int32(blake2s.hash_parts(parts))
+    (columns: (C, m), or None). The plain hash_parts on CPU tensors, the
+    level kernel on CUDA tensors."""
+    device = (children if children is not None else columns).device
+    if device.type == "cuda":
+        return blake2s_kernels.KERNELS.level(children, columns)
+    if device.type != "cpu":
+        raise ValueError(f"Merkle level: unsupported device {device}")
+    return blake2s_kernels.level_plain(children, columns)
 
 
 def gather_columns(mat, positions) -> np.ndarray:

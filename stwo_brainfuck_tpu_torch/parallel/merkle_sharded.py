@@ -6,7 +6,9 @@ always lie in the same shard: every level with at least D nodes hashes
 locally on each shard this process owns (``core/merkle.hash_level``) until
 one node per shard is left. One ``all_gather`` collects the D subtree roots,
 and the top log2 D levels (with any columns injected there) are hashed in
-every process, on its own device. The root is the single-device
+every process, on its own device (``core/merkle.hash_levels``: on CUDA the
+digest-only run of them is one tail launch). On CUDA shards every level is
+a Blake2s kernel launch. The root is the single-device
 ``core/merkle.commit`` root for any D.
 """
 
@@ -44,10 +46,11 @@ def commit_sharded(mesh: Mesh, columns_by_log: Dict[int, object]) -> merkle.Merk
         prev = mesh.each(lambda i: merkle.hash_level(prev[i], cols[i]))
         layers[k] = Sharded(mesh, prev)
     # one node per shard: gather the D subtree roots into every process
-    top = mesh.all_gather(mesh.each(lambda i: prev[i][:, 0]))[mesh.local[0]].T
-    for k in range(split - 1, -1, -1):
-        top = merkle.hash_level(top, mats.get(k))
-        layers[k] = top
+    top = mesh.all_gather(mesh.each(lambda i: prev[i][:, 0]))[mesh.local[0]].T.contiguous()
+    if split:
+        layers.update(merkle.hash_levels(top, {k: m for k, m in mats.items() if k < split},
+                                         split - 1))
+        top = layers[0]
     root = blake2s.digest_to_bytes(top[:, 0])
     return merkle.MerkleTree(root=root, layers=layers, column_mats=mats)
 

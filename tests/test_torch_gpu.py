@@ -12,8 +12,9 @@ import chip_smoke
 from stwo_brainfuck_tpu_torch import air
 from stwo_brainfuck_tpu_torch.components import device_build, tables
 from stwo_brainfuck_tpu_torch.components.defs import COMPONENT_CLASSES
-from stwo_brainfuck_tpu_torch.core import fft
-from stwo_brainfuck_tpu_torch.ops import circle_fft, m31_kernels
+from stwo_brainfuck_tpu_torch.core import blake2s, channel, fft, merkle
+from stwo_brainfuck_tpu_torch.core.pcs import PcsConfig
+from stwo_brainfuck_tpu_torch.ops import blake2s_kernels, circle_fft, m31_kernels
 from stwo_brainfuck_tpu_torch.parallel import fft_sharded
 from stwo_brainfuck_tpu_torch.parallel.mesh import make_mesh
 from stwo_brainfuck_tpu_torch.vm.compiler import compile_program
@@ -193,3 +194,83 @@ def test_device_tables_match_host_on_the_card(cuda):
         want = np.stack([host[comp.name][col] for col in comp.columns]).astype(np.int32)
         assert mats[comp.name].is_cuda
         np.testing.assert_array_equal(mats[comp.name].cpu().numpy(), want, err_msg=comp.name)
+
+
+# ---------------------------------------------------------------------------
+# The Blake2s kernels
+# ---------------------------------------------------------------------------
+
+def _words(rng, shape, cuda):
+    return torch.as_tensor(rng.integers(-2**31, 2**31, shape).astype(np.int32), device=cuda)
+
+
+@pytest.mark.parametrize("cols, children, n", [
+    (c, ch, n) for c in (0, 1, 4, 16, 17, 40) for ch in (False, True) for n in (1, 3, 1 << 12)
+    if c or ch])
+def test_blake2s_level_matches_plain_on_the_card(cuda, cols, children, n):
+    rng = np.random.default_rng(cols * 7 + n)
+    kids = _words(rng, (8, 2 * n), cuda) if children else None
+    mat = _words(rng, (cols, n), cuda) if cols else None
+    got = blake2s_kernels.KERNELS.level(kids, mat)
+    assert torch.equal(got, blake2s_kernels.level_plain(kids, mat))
+
+
+def test_blake2s_level_n_bytes_and_row_slices_on_the_card(cuda):
+    rng = np.random.default_rng(5)
+    words = _words(rng, (12, 1000), cuda)
+    for n_bytes in (40, 0, 37):
+        got = blake2s_kernels.KERNELS.level(None, words[:10], n_bytes)
+        assert torch.equal(got, blake2s_kernels.level_plain(None, words[:10], n_bytes))
+    assert torch.equal(blake2s.hash_words(words), blake2s.hash_words(words.cpu()).to(cuda))
+
+
+@pytest.mark.parametrize("k_top, k_bottom", [(0, 0), (3, 0), (10, 0), (10, 4), (6, 6)])
+def test_blake2s_tail_matches_plain_on_the_card(cuda, k_top, k_bottom):
+    kids = _words(np.random.default_rng(k_top), (8, 2 << k_top), cuda)
+    got = blake2s_kernels.KERNELS.tail(kids, k_top, k_bottom)
+    want = blake2s_kernels.tail_plain(kids, k_top, k_bottom)
+    assert sorted(got) == sorted(want)
+    for k in got:
+        assert torch.equal(got[k], want[k]), f"level {k}"
+
+
+@pytest.mark.parametrize("tree", [{3: 4}, {12: 4}, {14: 3, 12: 17, 9: 1, 4: 2},
+                                  {k: 1 for k in range(13, 2, -1)}, {1: 2, 0: 5}])
+def test_merkle_commit_on_the_card_matches_cpu(cuda, tree):
+    rng = np.random.default_rng(len(tree))
+    cols = {k: rng.integers(0, P, (c, 1 << k)).astype(np.int32) for k, c in tree.items()}
+    launches = dict(blake2s_kernels.KERNELS.launches)
+    calls = blake2s.PLAIN_CUDA_CALLS
+    got = merkle.commit({k: torch.as_tensor(v, device=cuda) for k, v in cols.items()})
+    want = merkle.commit({k: torch.as_tensor(v) for k, v in cols.items()})
+    plan = blake2s_kernels.launch_plan([(k, v.shape[0]) for k, v in cols.items()])
+    for kind in ("level", "tail"):
+        assert blake2s_kernels.KERNELS.launches[kind] - launches[kind] == sum(
+            s[0] == kind for s in plan)
+    assert blake2s.PLAIN_CUDA_CALLS == calls
+    assert got.root == want.root
+    for k in want.layers:
+        assert torch.equal(got.layers[k].cpu(), want.layers[k]), f"level {k}"
+
+
+@pytest.mark.parametrize("pow_bits", [8, 14, 16, 20])
+def test_blake2s_grind_matches_the_host_loop(cuda, pow_bits):
+    digest = np.random.default_rng(pow_bits).integers(0, 256, 32).astype(np.uint8).tobytes()
+    want = 0
+    while not channel._check_pow(digest, pow_bits, want):
+        want += 1
+    assert blake2s_kernels.KERNELS.grind(digest, pow_bits, cuda) == want
+    assert channel._device_grind(digest, pow_bits, cuda) == want
+
+
+def test_small_proof_at_pow_bits_16_on_the_card(cuda):
+    m = create_test_machine(compile_program(chip_smoke.SMALL_CODE),
+                            chip_smoke.SMALL_INPUT.encode())
+    m.execute()
+    grinds = blake2s_kernels.KERNELS.launches["grind"]
+    calls = blake2s.PLAIN_CUDA_CALLS
+    proof = air.prove_brainfuck(m, PcsConfig(log_max_rows=0, pow_bits=16), device=cuda)
+    assert blake2s_kernels.KERNELS.launches["grind"] > grinds
+    assert blake2s.PLAIN_CUDA_CALLS == calls
+    assert chip_smoke.proof_sha256(proof) == chip_smoke.REFERENCE_SHA256["small_pow16"]
+    air.verify_brainfuck(proof, device=cuda)

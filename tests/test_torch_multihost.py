@@ -175,7 +175,8 @@ def test_two_process_sharded_fft_matches_jax(groups, op):
 
 def _prove_argv(output) -> list:
     """The CLI prove of the small program (it logs at info by default; no
-    --log, which torchrun's argument parser may take for its --log-dir)."""
+    --log, which torchrun's argument parser may take for its --log-dir:
+    STWO_BF_LOG sets the level instead)."""
     return ["-m", "stwo_brainfuck_tpu_torch.cli", "prove", "--code", chip_smoke.SMALL_CODE,
             "--input", chip_smoke.SMALL_INPUT, "--output", str(output), "--device", "cpu",
             "--distributed"]
@@ -201,9 +202,10 @@ def test_distributed_cli_proof_is_byte_identical_to_jax(tmp_path, world):
 def test_distributed_cli_under_torchrun(tmp_path):
     """The launch the CLI's docstring gives: torchrun sets WORLD_SIZE,
     RANK, LOCAL_RANK, MASTER_ADDR and MASTER_PORT, and every process runs
-    the same command line."""
+    the same command line; STWO_BF_LOG=debug sets the log level that
+    --log cannot set under torchrun (the PCS config is logged at debug)."""
     env = {k: v for k, v in os.environ.items() if k not in DIST_ENV}
-    env.update({"OMP_NUM_THREADS": "1"})
+    env.update({"OMP_NUM_THREADS": "1", "STWO_BF_LOG": "debug"})
     res = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "2",
                           "--master-port", str(_free_port()),
                           *_prove_argv(tmp_path / "proof.json")],
@@ -211,4 +213,6 @@ def test_distributed_cli_under_torchrun(tmp_path):
     assert res.returncode == 0, res.stderr.decode()[-3000:]
     assert res.stderr.count(b"Proof written") == 1
     assert res.stderr.count(b"Circle FFT kernel launches") == 2
+    assert res.stderr.count(b"Blake2s kernel launches: level 0, tail 0, grind 0") == 2
+    assert res.stderr.count(b"DEBUG PCS config") == 2
     _check_proof(tmp_path / "proof.json")
