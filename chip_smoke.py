@@ -31,13 +31,18 @@ Phases (any failure raises and the script exits non-zero):
      bit, for the small program, fib19_io and big22; then the Blake2s
      kernels against their plain versions on the card, bit for bit: the
      level kernel (BLAKE_COLS columns, with and without children,
-     BLAKE_SIZES nodes, a length override, hash_words), the tail kernel
-     from 2^TAIL_LOG nodes down, merkle.commit of every tree signature of a
-     fib19_io and a small prove (against the plain commit on the card, and
-     the small trees and fib19_io's FRI layer trees against the CPU, with
-     the launches of each commit's plan), the grind against the host loop
-     for pow_bits 8-20; then both versions timed at the main path's
-     shapes beside their bounds;
+     BLAKE_SIZES nodes, a length override, hash_words), the tree kernel
+     (one launch a tree, every level against tree_plain) over TREE_CASES,
+     row-sliced columns and given children, merkle.commit of every tree
+     signature of a fib19_io and a small prove (the small trees and
+     fib19_io's FRI layer trees also against the CPU), the largest fib19_io
+     tree committed TREE_REPEATS times back to back, two trees back to
+     back and a commit over 4 shards of the card; the grind against the
+     host loop for pow_bits 8-20; then the compression probe (the card's
+     rate, one warp's latency) and both versions timed at the main path's
+     shapes (the 2^20-leaf FRI layer tree and every fib19_io tree as whole
+     commits) beside the dispatch bound, the bound at the measured rate
+     and a tree's root-chain latency floor;
   6. the mesh prover (stwo_brainfuck_tpu_torch/parallel/, D shards sharing
      the one card): the sharded evaluate, interpolate and extend (D 2, 4, 8;
      n 16, 20, 24; 1 and 8 columns) against the one-device kernel and the
@@ -59,8 +64,8 @@ Phases (any failure raises and the script exits non-zero):
      reporting its phases, peak device memory, FFT launches and plain calls
      (counts at 0 before each prove); with two or more cards, fib19_io on
      two (and four) cards with NCCL. Every process must launch the FFT
-     kernel and the Blake2s level and tail kernels and run no plain FFT or
-     Blake2s on a CUDA tensor;
+     kernel and the Blake2s tree kernel (at most twice a commit: its shard's
+     subtree and the top) and run no plain FFT or Blake2s on a CUDA tensor;
   8. the prover's main path, counts set to 0 first: the small program
      through the CLI entry point (prove, verify, proof sha256 against the
      JAX package's, a tampered copy rejected), again at --pow-bits 16 (the
@@ -72,9 +77,11 @@ Phases (any failure raises and the script exits non-zero):
      device memory, then one more warm fib19_io prove under
      torch.profiler (device busy share, host syncs and the time waiting
      in them).
-     After each prove the FFT kernel's and the Blake2s level and tail
-     kernels' launch counts must have risen, no plain FFT or Blake2s may
-     have run on a CUDA tensor and no M31 kernel or plain M31 op.
+     After each prove the FFT kernel's and the Blake2s tree kernel's launch
+     counts must have risen (the tree kernel once a commit on one device,
+     at most once a shard and once for the top on the mesh), no plain FFT
+     or Blake2s may have run on a CUDA tensor and no M31 kernel or plain
+     M31 op.
 The last line of stdout is the JSON result; the line before it lists the
 kernels, the one before that names the card. Needs no jax.
 
@@ -119,6 +126,7 @@ from stwo_brainfuck_tpu_torch.core.channel import _plain_grind
 from stwo_brainfuck_tpu_torch.core.pcs import PcsConfig
 from stwo_brainfuck_tpu_torch.ops import blake2s_kernels, circle_fft, m31_kernels, nvcc
 from stwo_brainfuck_tpu_torch.parallel import fft_sharded
+from stwo_brainfuck_tpu_torch.parallel.merkle_sharded import commit_sharded
 from stwo_brainfuck_tpu_torch.parallel import prove as sharded_prove
 from stwo_brainfuck_tpu_torch.parallel.mesh import make_mesh
 from stwo_brainfuck_tpu_torch.vm.compiler import compile_program
@@ -156,6 +164,28 @@ DIST_TIMEOUT_S = 300
 # pow_bits and digests
 BLAKE_COLS = (0, 1, 4, 16, 17, 40)
 BLAKE_SIZES = (1, 2, 3, 1 << 10, 1 << 20, 1 << 21)
+# the tree kernel's synthetic trees {level: n_cols}, beside the recorded
+# signatures of real proves (a CTA owns 2^8 nodes of its stage's top; on an
+# H100 a tree of 2^21 leaves runs stages from levels 21, 17, 13, 9 and 5)
+TREE_CASES = {
+    "1 node": {0: 5},
+    "2 nodes": {1: 3},
+    "2^8 nodes, one CTA": {8: 4},
+    "2^9 nodes, two stages": {9: 4},
+    "columns at the top, middle and bottom of a run": {20: 3, 13: 20, 0: 2},
+    "a column at every level, four stages": {k: 1 for k in range(18, -1, -1)},
+    "columns at each stage's top": {21: 2, 17: 17, 13: 1, 9: 3, 5: 1},
+    "column blocks of 57, 16, 17 and 33 words": {12: 57, 11: 16, 10: 17, 9: 33},
+}
+# the largest fib19_io tree is committed this many times back to back (the
+# cross-CTA reads of the tree kernel)
+TREE_REPEATS = 50
+# the compression-rate probe: chain length on a full card, and on one warp
+# (the latency of one dependent compression)
+PROBE_CHAIN = 64
+PROBE_WARP_CHAIN = 256
+# the main path's widest FRI layer tree has 2^FRI_LOG leaves (4 columns)
+FRI_LOG = 20
 POW_BITS = tuple(range(8, 21))
 GRIND_DIGESTS = 3
 M31_SIZES = (1, 127, 128, 4097, 1 << 20, 1 << 24)
@@ -467,10 +497,11 @@ def phase_sharded_fft() -> dict:
 # compression (jnp, not Pallas) as XLA fuses it into one program a level, a
 # chain of levels or a PoW batch
 BLAKE_REPLACES = {
+    "tree": "stwo_brainfuck_tpu/core/blake2s.py:54 (_compress_t) fused by "
+            "stwo_brainfuck_tpu/core/merkle.py:48 (_leaf_hash_jit), :60 (_node_hash_jit) "
+            "and :68 (_chain_hash_jit) on the schedule of :78 (level_plan)",
     "level": "stwo_brainfuck_tpu/core/blake2s.py:54 (_compress_t) fused by "
-             "stwo_brainfuck_tpu/core/merkle.py:48 (_leaf_hash_jit) and :60 (_node_hash_jit)",
-    "tail": "stwo_brainfuck_tpu/core/blake2s.py:54 (_compress_t) fused by "
-            "stwo_brainfuck_tpu/core/merkle.py:68 (_chain_hash_jit)",
+             "stwo_brainfuck_tpu/core/blake2s.py:123 (_hash_words_jit)",
     "grind": "stwo_brainfuck_tpu/core/blake2s.py:54 (_compress_t) fused by "
              "stwo_brainfuck_tpu/core/channel.py:137 (_pow_batch)",
 }
@@ -524,17 +555,38 @@ def _level_work(children: bool, cols: int, m: int) -> tuple:
     return 4 * m * words + 32 * m, m * max(1, -(-words // 16))
 
 
+def _tree_work(sig) -> tuple:
+    """(bytes, compressions, root chain) of a whole tree of signature sig
+    [(level, n_cols), ...]: each column word read once and each digest
+    written once; a node's compressions are its message's 16-word blocks;
+    the root chain is one node a level, its blocks dependent."""
+    by = dict(sig)
+    top = max(by)
+    nbytes = compressions = chain = 0
+    for k in range(top, -1, -1):
+        blocks = max(1, -(-(16 * (k < top) + by.get(k, 0)) // 16))
+        nbytes += (4 * by.get(k, 0) + 32) << k
+        compressions += blocks << k
+        chain += blocks
+    return nbytes, compressions, chain
+
+
 def phase_blake2s(per_compress: float, dispatch_per_s: float, fib_code: str,
                   small_code: str) -> dict:
     """The Blake2s kernels against their plain versions on the card, bit for
     bit: the level kernel over BLAKE_COLS x children x BLAKE_SIZES, a
-    length override and hash_words; the tail kernel from 2^TAIL_LOG nodes
-    down; merkle.commit of every tree signature of a fib19_io and a small
-    prove against the plain commit on the card (emulate_commit), the small
-    program's trees and fib19_io's FRI layer trees also against the CPU;
-    the grind against the host loop for POW_BITS on GRIND_DIGESTS digests.
-    Then both versions timed at the main path's shapes beside their bounds.
-    No kernel call makes a plain call."""
+    length override and hash_words; the tree kernel (one launch a commit,
+    against tree_plain on every level) over TREE_CASES, row-sliced columns,
+    given children (hash_levels), every tree signature of a fib19_io and a
+    small prove (the small program's trees and fib19_io's FRI layer trees
+    also against the CPU commit), the largest fib19_io tree committed
+    TREE_REPEATS times back to back, two trees back to back and a commit
+    over D = 4 shards of the card; the grind against the host loop for
+    POW_BITS on GRIND_DIGESTS digests. Then the compression probe (rate on
+    the full card, latency on one warp), and both versions timed at the
+    main path's shapes beside their bounds: the dispatch bound, the bound
+    at the measured rate, and for whole trees the root chain's latency
+    floor. No kernel call makes a plain call."""
     K = blake2s_kernels
     rng = np.random.default_rng(4)
     max_err = dict.fromkeys(K.ENTRIES, 0)
@@ -573,42 +625,91 @@ def phase_blake2s(per_compress: float, dispatch_per_s: float, fib_code: str,
             got = kernel(lambda: blake2s.hash_words(cols_all[:10], 40))
             same("level", got, blake2s.hash_parts([cols_all[:10]], 40), "hash_words, N=2^20")
         del kids_all, cols_all
-    T = K.TAIL_LOG
-    for top, bottom in ((T, 0), (T, T // 2), (T // 2, 0), (0, 0)):
-        kids = _words(rng, (8, 2 << top))
-        got = kernel(lambda: K.KERNELS.tail(kids, top, bottom))
-        want = K.tail_plain(kids, top, bottom)
-        for k in range(top, bottom - 1, -1):
-            same("tail", got[k], want[k], f"tail {top}..{bottom}, level {k}")
+
+    def tree_check(what, cols, children=None, max_log=None, cpu=False, sig=None):
+        """One commit (or hash_levels from children) on the card: one tree
+        launch, every level equal to tree_plain's (and the CPU's)."""
+        max_log = max(cols) if max_log is None else max_log
+        before = dict(K.KERNELS.launches)
+        if children is None:
+            layers = kernel(lambda: merkle.commit(cols)).layers
+        else:
+            layers = kernel(lambda: merkle.hash_levels(children, cols, max_log))
+        plan = K.launch_plan([(k, m.shape[0]) for k, m in cols.items()], max_log)
+        launched = {e: K.KERNELS.launches[e] - before[e] for e in K.ENTRIES}
+        if launched != {"tree": len(plan), "level": 0, "grind": 0}:
+            raise AssertionError(f"{what}: launches {launched}, plan {plan}")
+        want = K.tree_plain(children, cols, max_log)
+        if sorted(want) != sorted(layers):
+            raise AssertionError(f"{what}: levels {sorted(layers)}")
+        for k in want:
+            same("tree", layers[k], want[k], f"{what}, level {k}")
+        if cpu:
+            host = merkle.hash_levels(None if children is None else children.cpu(),
+                                      {k: m.cpu() for k, m in cols.items()}, max_log)
+            if any(not torch.equal(host[k], layers[k].cpu()) for k in host):
+                raise AssertionError(f"{what}: the card's tree != the CPU's")
+        return layers
+
+    cpu_checked = 0
+    for name, sig in TREE_CASES.items():
+        cols = {k: _words(rng, (c, 1 << k)) for k, c in sig.items()}
+        tree_check(name, cols, cpu=max(sig) <= 12)
+        cpu_checked += max(sig) <= 12
+    # row slices of wider matrices (row stride 2^(k+1)), and the children
+    # of a run given (the sharded top; a row slice of wider digests)
+    wide = {k: _words(rng, (c + 3, 2 << k)) for k, c in {20: 4, 16: 9, 5: 2}.items()}
+    tree_check("row-sliced columns", {k: m[3:, 1 << k:] for k, m in wide.items()})
+    del wide
+    for top, sig in ((0, {}), (2, {1: 3}), (12, {12: 2, 7: 1}), (17, {})):
+        kids = _words(rng, (8, 4 << top))[:, 2 << top:]
+        cols = {k: _words(rng, (c, 1 << k)) for k, c in sig.items()}
+        tree_check(f"children below level {top}, columns {sig}", cols, kids, top,
+                   cpu=top <= 12)
+        cpu_checked += top <= 12
 
     # whole trees: the signatures of real proves
     trees = {"fib19_io": _recorded_signatures(fib_code, FIB_INPUT),
              "small": _recorded_signatures(small_code, SMALL_INPUT.encode())}
-    cpu_checked = 0
     for name, sigs in trees.items():
         for sig in sigs:
             cols = {k: _words(rng, (c, 1 << k)) for k, c in sig}
-            before = dict(K.KERNELS.launches)
-            tree = kernel(lambda: merkle.commit(cols))
-            plan = K.launch_plan(sig)
-            for kind in ("level", "tail"):
-                if K.KERNELS.launches[kind] - before[kind] != sum(s[0] == kind for s in plan):
-                    raise AssertionError(f"commit {sig}: {kind} launches differ from its plan")
-            root, layers = K.emulate_commit(cols)
-            entry = {k: "level" for _, k, _ in plan}
-            entry.update({k: "tail" for kind, top, bottom in plan if kind == "tail"
-                          for k in range(bottom, top + 1)})
-            for k, want in layers.items():
-                same(entry[k], tree.layers[k], want, f"{name} tree {sig}, level {k}")
-            if root != tree.root:
-                raise AssertionError(f"{name} tree {sig}: root differs from the plain commit")
-            if name == "small" or (len(sig) == 1 and sig[0][1] == 4):
-                host = merkle.commit({k: m.cpu() for k, m in cols.items()})
-                if host.root != tree.root or any(
-                        not torch.equal(host.layers[k], tree.layers[k].cpu()) for k in host.layers):
-                    raise AssertionError(f"{name} tree {sig}: the card's commit != the CPU's")
-                cpu_checked += 1
-            del cols, tree, layers
+            fri = len(sig) == 1 and sig[0][1] == 4
+            tree_check(f"{name} tree {sig}", cols, cpu=name == "small" or fri)
+            cpu_checked += name == "small" or fri
+            del cols
+    # the largest fib19_io tree TREE_REPEATS times back to back (no sync):
+    # every commit's levels equal the plain tree's
+    largest = max(trees["fib19_io"], key=lambda sig: (sig[0][0], sum(c for _, c in sig)))
+    cols = {k: _words(rng, (c, 1 << k)) for k, c in largest}
+    want = K.tree_plain(None, cols, largest[0][0])
+    before = K.KERNELS.launches["tree"]
+    runs = [kernel(lambda: merkle.hash_levels(None, cols, largest[0][0]))
+            for _ in range(TREE_REPEATS)]
+    if K.KERNELS.launches["tree"] - before != TREE_REPEATS:
+        raise AssertionError(f"{TREE_REPEATS} commits of {largest}: "
+                             f"{K.KERNELS.launches['tree'] - before} tree launches")
+    for r, layers in enumerate(runs):
+        for k in want:
+            same("tree", layers[k], want[k], f"commit {r} of {largest}, level {k}")
+    del runs
+    # two trees back to back, then checked; the largest over D = 4 shards
+    fri_cols = {FRI_LOG: _words(rng, (4, 1 << FRI_LOG))}
+    first, second = (kernel(lambda: merkle.hash_levels(None, c, max(c))) for c in (cols, fri_cols))
+    for layers, c in ((first, cols), (second, fri_cols)):
+        for k, w in K.tree_plain(None, c, max(c)).items():
+            same("tree", layers[k], w, f"back to back, tree {max(c)}, level {k}")
+    del first, second
+    before = K.KERNELS.launches["tree"]
+    sharded = kernel(lambda: commit_sharded(make_mesh(4, "cuda"), cols))
+    if K.KERNELS.launches["tree"] - before != 5:
+        raise AssertionError(f"D = 4 commit: {K.KERNELS.launches['tree'] - before} tree "
+                             f"launches, not 4 shards + the top")
+    for k in want:
+        got = sharded.layers[k]
+        same("tree", got if isinstance(got, torch.Tensor) else got.full(), want[k],
+             f"D = 4 shards, level {k}")
+    del cols, want, sharded, fri_cols
     torch.cuda.empty_cache()
 
     grind_checks = 0
@@ -621,59 +722,95 @@ def phase_blake2s(per_compress: float, dispatch_per_s: float, fib_code: str,
             grind_checks += 1
     checks["grind"] = grind_checks
     _line("blake2s_check", {
-        "level_cols": BLAKE_COLS, "level_sizes": BLAKE_SIZES, "tail_log": T,
+        "level_cols": BLAKE_COLS, "level_sizes": BLAKE_SIZES,
+        "tree_cases": {k: sorted(v.items(), reverse=True) for k, v in TREE_CASES.items()},
         "tree_signatures": {k: [list(s) for s in v] for k, v in trees.items()},
+        "repeated_tree": [list(t) for t in largest], "repeats": TREE_REPEATS,
         "trees_against_cpu": cpu_checked, "pow_bits": POW_BITS, "grind_digests": GRIND_DIGESTS,
         "comparisons": checks, "tolerance": 0, "max_abs_err": max_err})
+
+    # the compression probe: the card's rate, one warp's latency
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n_full = sms * 2048 * 4
+    full_ms = _time_ms(lambda: K.KERNELS.chain(n_full, PROBE_CHAIN, "cuda"), reps=5)
+    warp_ms = _time_ms(lambda: K.KERNELS.chain(32, PROBE_WARP_CHAIN, "cuda"), reps=5)
+    rate = n_full * PROBE_CHAIN / (full_ms / 1e3)
+    latency_s = warp_ms / 1e3 / PROBE_WARP_CHAIN
+    probe = {"threads": n_full, "chain": PROBE_CHAIN, "kernel_ms": full_ms,
+             "compressions_per_s": rate,
+             "dispatch_compressions_per_s": dispatch_per_s / per_compress,
+             "share_of_dispatch": rate * per_compress / dispatch_per_s,
+             "warp_chain": PROBE_WARP_CHAIN, "warp_kernel_ms": warp_ms,
+             "compression_latency_us": latency_s * 1e6}
+    _line("blake2s_probe", probe)
 
     # times at the main path's shapes
     widest = max(((k, c, k < sig[0][0]) for sig in trees["fib19_io"] for k, c in sig),
                  key=lambda t: (t[1], t[2]))
     times = {}
 
-    def timed(key, entry, k_fn, p_fn, nbytes, compressions):
+    def timed(key, entry, k_fn, p_fn, nbytes, compressions, call_fn=None, chain=None):
         """kernel_ms: device time (the calls queued behind a sleep; the
         grind reads 4 bytes a batch, so its time is whole calls); call_ms:
-        whole calls back to back, the wrapper's host work included."""
+        whole calls back to back (call_fn, k_fn by default), the wrapper's
+        host work included."""
         same(entry, k_fn() if entry != "grind" else torch.tensor(k_fn()),
              p_fn() if entry != "grind" else torch.tensor(p_fn()), f"timed {key}")
-        call_ms = _time_ms(k_fn, reps=10)
+        call_ms = _time_ms(call_fn or k_fn, reps=10)
         times[key] = {"entry": entry,
                       "kernel_ms": call_ms if entry == "grind" else _time_ms(k_fn, 10, queued=True),
                       "call_ms": call_ms, "plain_ms": _time_ms(p_fn, reps=2),
                       "compressions": compressions,
-                      **bound(nbytes, compressions * per_compress, dispatch_per_s)}
+                      **bound(nbytes, compressions * per_compress, dispatch_per_s),
+                      "rate_bound_ms": compressions / rate * 1e3,
+                      **({"root_chain": chain, "latency_floor_ms": chain * latency_s * 1e3}
+                         if chain else {})}
 
-    leaf = _words(rng, (4, 1 << 20))
-    timed("level: FRI leaf (4, 2^20)", "level", lambda: K.KERNELS.level(None, leaf),
-          lambda: K.level_plain(None, leaf), *_level_work(False, 4, 1 << 20))
-    kids = _words(rng, (8, 1 << 21))
-    timed("level: digest-only 2^21 -> 2^20", "level", lambda: K.KERNELS.level(kids, None),
-          lambda: K.level_plain(kids, None), *_level_work(True, 0, 1 << 20))
+    def timed_tree(key, sig):
+        cols = {k: _words(rng, (c, 1 << k)) for k, c in sig}
+        top = sig[0][0]
+        nbytes, compressions, chain = _tree_work(sig)
+        timed(key, "tree", lambda: merkle.hash_levels(None, cols, top)[0],
+              lambda: K.tree_plain(None, cols, top)[0], nbytes, compressions,
+              call_fn=lambda: merkle.commit(cols).root, chain=chain)
+
+    timed_tree(f"tree: FRI layer of 2^{FRI_LOG} leaves", [(FRI_LOG, 4)])
+    for sig in trees["fib19_io"]:
+        timed_tree(f"tree: fib19_io {[list(t) for t in sig]}", sig)
+    torch.cuda.empty_cache()
+    leaf = _words(rng, (4, 1 << FRI_LOG))
+    timed(f"level: FRI leaf (4, 2^{FRI_LOG})", "level", lambda: K.KERNELS.level(None, leaf),
+          lambda: K.level_plain(None, leaf), *_level_work(False, 4, 1 << FRI_LOG))
+    kids = _words(rng, (8, 2 << FRI_LOG))
+    timed(f"level: digest-only 2^{FRI_LOG + 1} -> 2^{FRI_LOG}", "level",
+          lambda: K.KERNELS.level(kids, None), lambda: K.level_plain(kids, None),
+          *_level_work(True, 0, 1 << FRI_LOG))
     k, c, with_kids = widest
     wide = _words(rng, (c, 1 << k))
     wkids = _words(rng, (8, 2 << k)) if with_kids else None
     timed(f"level: fib19_io's widest ({c}, 2^{k}){' with children' if with_kids else ''}",
           "level", lambda: K.KERNELS.level(wkids, wide), lambda: K.level_plain(wkids, wide),
           *_level_work(with_kids, c, 1 << k))
-    del wide, wkids
-    tkids = _words(rng, (8, 2 << T))
-    timed(f"tail: 2^{T} -> 1", "tail", lambda: K.KERNELS.tail(tkids, T, 0)[0],
-          lambda: K.tail_plain(tkids, T, 0)[0], 32 * (2 << T) + 32 * ((2 << T) - 1),
-          (2 << T) - 1)
-    timed("tree: FRI layer of 2^20 leaves", "level", lambda: merkle.commit({20: leaf}).layers[0],
-          lambda: K.emulate_commit({20: leaf})[1][0], 16 * (1 << 20) + 32 * ((2 << 20) - 1),
-          (2 << 20) - 1)
+    del wide, wkids, kids
     digest = rng.integers(0, 256, 32).astype(np.uint8).tobytes()
     nonce = K.KERNELS.grind(digest, 16, "cuda")
     batches = nonce // (1 << K.GRIND_BATCH_LOG) + 1
     timed(f"grind: pow_bits 16 (nonce {nonce}, {batches} batch)", "grind",
           lambda: K.KERNELS.grind(digest, 16, "cuda"), lambda: _plain_grind(digest, 16, "cuda"),
           batches * (32 + 4), batches << K.GRIND_BATCH_LOG)
-    del leaf, kids, tkids
     torch.cuda.empty_cache()
     _line("blake2s_times", times)
-    return {"max_abs_err": max_err, "times": times}
+
+    # hash_words, the level kernel's own path (no prove path launches it),
+    # counts at 0: the channel's 40-byte messages and the FRI leaf words
+    msgs = _words(rng, (10, 1 << 16))
+    before = K.KERNELS.launches["level"]
+    blake2s.hash_words(msgs, 40)
+    blake2s.hash_words(leaf)
+    hash_words_launches = K.KERNELS.launches["level"] - before
+    del leaf, msgs
+    return {"max_abs_err": max_err, "times": times, "probe": probe,
+            "hash_words_launches": hash_words_launches}
 
 
 def _clear_prover_caches() -> None:
@@ -706,12 +843,38 @@ def _add_counts(a: dict, b: dict) -> dict:
     return {k: a.get(k, 0) + b.get(k, 0) for k in {**a, **b}}
 
 
+@contextlib.contextmanager
+def _counting_commits():
+    """Count the Merkle trees committed inside (merkle.commit and the mesh's
+    commit_sharded each build one MerkleTree)."""
+    counted = {"commits": 0}
+    real = merkle.MerkleTree
+
+    class Counted(real):
+        def __init__(self, *args, **kw):
+            counted["commits"] += 1
+            super().__init__(*args, **kw)
+
+    with mock.patch.object(merkle, "MerkleTree", Counted):
+        yield counted
+
+
+def _trees_per_commit(launched: dict, commits: int, shards: int, what: str) -> dict:
+    """Tree launches against commits: one a commit on one device; with
+    `shards` local mesh shards at most one a shard and one for the top."""
+    limit = commits * (shards + 1 if shards else 1)
+    if not commits or launched["tree"] > limit:
+        raise AssertionError(f"{what}: {launched['tree']} tree launches for {commits} "
+                             f"commits (at most {limit})")
+    return {"commits": commits, "tree_launches_per_commit": launched["tree"] / commits}
+
+
 def _require(launched: dict, plain_fft: int, plain_blake: int, what: str,
              grind: bool = False) -> dict:
-    """A prove's launches: the FFT, the Blake2s level and tail kernels (and
-    the grind where pow_bits > 13) launched, no plain FFT or Blake2s call on
-    a CUDA tensor."""
-    needed = ("fft", "level", "tail") + (("grind",) if grind else ())
+    """A prove's launches: the FFT and the Blake2s tree kernel (and the
+    grind where pow_bits > 13) launched, no plain FFT or Blake2s call on a
+    CUDA tensor."""
+    needed = ("fft", "tree") + (("grind",) if grind else ())
     missing = [k for k in needed if launched.get(k, 0) <= 0]
     if missing:
         raise AssertionError(f"{what}: not launched: {missing} ({launched})")
@@ -797,11 +960,14 @@ def phase_program(name, path, inp, runs: int, expect_sha: str | None,
         torch.cuda.reset_peak_memory_stats()
         before = _counts()
         timer = air.PhaseTimer("cuda")
-        t1 = time.perf_counter()
-        proof = air.prove_brainfuck(machine, device="cuda", timer=timer, mesh=mesh)
-        torch.cuda.synchronize()
-        prove_s = time.perf_counter() - t1
+        with _counting_commits() as counted:
+            t1 = time.perf_counter()
+            proof = air.prove_brainfuck(machine, device="cuda", timer=timer, mesh=mesh)
+            torch.cuda.synchronize()
+            prove_s = time.perf_counter() - t1
         launched = _check_launches(before, f"{name} prove")
+        trees = _trees_per_commit(launched, counted["commits"], len(mesh.local) if mesh else 0,
+                                  f"{name} prove")
         peak = torch.cuda.max_memory_allocated()
         t2 = time.perf_counter()
         air.verify_brainfuck(proof, device="cuda")
@@ -817,7 +983,7 @@ def phase_program(name, path, inp, runs: int, expect_sha: str | None,
             "claim_max_log": max(proof["claim"].values()),
             "phases_s": timer.seconds, "peak_device_bytes": peak,
             "fft_launches": launched["fft"],
-            "blake2s_launches": {k: launched[k] for k in blake2s_kernels.ENTRIES},
+            "blake2s_launches": {k: launched[k] for k in blake2s_kernels.ENTRIES}, **trees,
             "sha256": sha, "matches_jax": None if expect_sha is None else True,
         })
         if fresh_verify and run == runs - 1:
@@ -903,8 +1069,8 @@ def _free_port() -> int:
 def _rank_counts(rank: int, launches: dict, plain_fft: int, plain_blake: int,
                  grind: bool = False) -> dict:
     """A process's kernel launches and plain FFT and Blake2s calls on CUDA
-    tensors over one prove: the FFT, level and tail kernels (and the grind
-    where pow_bits > 13) launched, no plain call."""
+    tensors over one prove: the FFT and tree kernels (and the grind where
+    pow_bits > 13) launched, no plain call."""
     _require(launches, plain_fft, plain_blake, f"process {rank}", grind)
     return {"fft_launches": launches["fft"],
             "blake2s_launches": {k: launches[k] for k in blake2s_kernels.ENTRIES},
@@ -913,7 +1079,7 @@ def _rank_counts(rank: int, launches: dict, plain_fft: int, plain_blake: int,
 
 _CLI_COUNTS = re.compile(r"Circle FFT kernel launches: (\d+); plain FFT calls on CUDA "
                          r"tensors: (\d+)")
-_CLI_HASHES = re.compile(r"Blake2s kernel launches: level (\d+), tail (\d+), grind (\d+); "
+_CLI_HASHES = re.compile(r"Blake2s kernel launches: tree (\d+), level (\d+), grind (\d+); "
                          r"plain Blake2s calls on CUDA tensors: (\d+)")
 
 
@@ -972,7 +1138,7 @@ def _distributed_cli(world: int, backend: str, torchrun: bool = False,
                                  f"{len(hashes)} hash counts, {len(times)} times and {written} "
                                  f"proofs written in the logs")
         ranks = [{"prove_s": t, **_rank_counts(
-                     i, {"fft": int(c[0]), **dict(zip(blake2s_kernels.ENTRIES, map(int, h[:3])))},
+                     i, {"fft": int(c[0]), **dict(zip(("tree", "level", "grind"), map(int, h[:3])))},
                      int(c[1]), int(h[3]), grind=bool(pow_bits and pow_bits > 13))}
                  for i, (c, h, t) in enumerate(zip(counts, hashes, times))]
         files = sorted(os.listdir(tmp))
@@ -1018,10 +1184,12 @@ def _prove_rank(rank: int, world: int, port: int, backend: str, device: str, run
                 torch.cuda.reset_peak_memory_stats(mesh.home)
                 _reset_counts()
                 timer = air.PhaseTimer(mesh.home)
-                t0 = time.perf_counter()
-                proof = air.prove_brainfuck(machine, timer=timer, mesh=mesh)
-                torch.cuda.synchronize(mesh.home)
+                with _counting_commits() as counted:
+                    t0 = time.perf_counter()
+                    proof = air.prove_brainfuck(machine, timer=timer, mesh=mesh)
+                    torch.cuda.synchronize(mesh.home)
                 res = {"rank": rank, "run": run, "device": str(mesh.home),
+                       "commits": counted["commits"],
                        "steps": len(machine.trace()), "prove_s": time.perf_counter() - t0,
                        "phases_s": timer.seconds,
                        "peak_device_bytes": torch.cuda.max_memory_allocated(mesh.home),
@@ -1087,6 +1255,7 @@ def _distributed_group(world: int, backend: str, device: str, runs: int) -> int:
         for r in ranks:
             r.update(_rank_counts(r["rank"], r["launches"], r["plain_fft_cuda_calls"],
                                   r["plain_blake2s_cuda_calls"]))
+            r.update(_trees_per_commit(r["launches"], r["commits"], 1, f"process {r['rank']}"))
             if r["m31_launches"] or r["plain_m31_cuda_calls"]:
                 raise AssertionError(f"process {r['rank']}: an M31 kernel or plain M31 op ran")
             launched = _add_counts(launched, r["launches"])
@@ -1101,7 +1270,8 @@ def _distributed_group(world: int, backend: str, device: str, runs: int) -> int:
             "proof_bytes": ranks[0]["proof_bytes"], "sha256": sha, "matches_jax": True,
             "processes": [{k: r[k] for k in ("rank", "device", "prove_s", "phases_s",
                                          "peak_device_bytes", "fft_launches",
-                                         "blake2s_launches", "plain_fft_cuda_calls",
+                                         "blake2s_launches", "commits",
+                                         "tree_launches_per_commit", "plain_fft_cuda_calls",
                                          "plain_blake2s_cuda_calls")} for r in ranks]})
     return launched
 
@@ -1389,21 +1559,26 @@ def main(argv) -> int:
             "ms": t["kernel_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
         })
-    headlines = {"level": "level: FRI leaf (4, 2^20)",
-                 "tail": f"tail: 2^{blake2s_kernels.TAIL_LOG} -> 1",
+    headlines = {"tree": f"tree: FRI layer of 2^{FRI_LOG} leaves",
+                 "level": f"level: FRI leaf (4, 2^{FRI_LOG})",
                  "grind": next(k for k in blake["times"] if k.startswith("grind"))}
     for entry in blake2s_kernels.ENTRIES:
         t = blake["times"][headlines[entry]]
+        by_path = {"prover": main_path[entry], "sharded_prover": sharded[entry],
+                   "distributed_prover": distributed[entry]}
+        if entry == "level":  # on no prove path: its own, hash_words
+            by_path["hash_words"] = blake["hash_words_launches"]
         kernels.append({
             "name": f"blake2s_{entry}", "route": "cuda",
             "source": "stwo_brainfuck_tpu_torch/csrc/blake2s.cu",
             "replaces": BLAKE_REPLACES[entry], "shape": headlines[entry],
-            "launches": main_path[entry],
-            "launches_by_path": {"prover": main_path[entry], "sharded_prover": sharded[entry],
-                                 "distributed_prover": distributed[entry]},
+            "launches": by_path["hash_words" if entry == "level" else "prover"],
+            "launches_by_path": by_path,
             "max_abs_err": blake["max_abs_err"][entry],
             "ms": t["kernel_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": None,
+            "bound_by": t["bound_by"], "rate_bound_ms": t["rate_bound_ms"],
+            **({"latency_floor_ms": t["latency_floor_ms"]} if "latency_floor_ms" in t else {}),
+            "library_ms": None,
         })
     if not all(k["launches"] > 0 for k in kernels):
         raise AssertionError(f"a kernel was not launched on its path: {kernels}")

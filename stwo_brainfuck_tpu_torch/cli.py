@@ -140,8 +140,8 @@ def cmd_prove(args) -> int:
     log.info("Circle FFT kernel launches: %d; plain FFT calls on CUDA tensors: %d",
              circle_fft.KERNEL.launches, fft.PLAIN_CUDA_CALLS)
     hashes = blake2s_kernels.KERNELS.launches
-    log.info("Blake2s kernel launches: level %d, tail %d, grind %d; plain Blake2s calls on "
-             "CUDA tensors: %d", hashes["level"], hashes["tail"], hashes["grind"],
+    log.info("Blake2s kernel launches: tree %d, level %d, grind %d; plain Blake2s calls on "
+             "CUDA tensors: %d", hashes["tree"], hashes["level"], hashes["grind"],
              blake2s.PLAIN_CUDA_CALLS)
     if not coordinator:
         return 0  # the proof is the same in every process; process 0 writes it

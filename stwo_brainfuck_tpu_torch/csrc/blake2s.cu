@@ -1,44 +1,68 @@
-// BLAKE2s-256 for Hopper (sm_90a): one Merkle level, the small top of a
-// tree, and the proof-of-work nonce scan.
+// BLAKE2s-256 for Hopper (sm_90a): a whole Merkle tree in one launch, one
+// level of messages, and the proof-of-work nonce scan.
 //
 // Replaces stwo_brainfuck_tpu/core/blake2s.py:54 _compress_t as XLA fuses
 // it into one device program per Merkle level (core/merkle.py:48
-// _leaf_hash_jit, :60 _node_hash_jit, :68 _chain_hash_jit) and per PoW
-// batch (core/channel.py:137 _pow_batch). Those are jnp, not Pallas
-// kernels. Digests are bit-identical to hashlib.blake2s and to the plain
-// torch version (stwo_brainfuck_tpu_torch/core/blake2s.py hash_parts).
+// _leaf_hash_jit, :60 _node_hash_jit, :68 _chain_hash_jit, on the schedule
+// of level_plan, :78) and per PoW batch (core/channel.py:137 _pow_batch).
+// Those are jnp, not Pallas kernels. Digests are bit-identical to
+// hashlib.blake2s and to the plain torch version
+// (stwo_brainfuck_tpu_torch/core/blake2s.py hash_parts).
 //
 // Entry points (each launches on the caller's stream, allocates nothing and
-// returns cudaGetLastError()):
+// returns the CUDA error):
+//   blake2s_tree   levels k_top .. 0 of a tree in one launch: node i of
+//                  level k hashes child 2i || child 2i+1 (level k + 1) ||
+//                  the column words injected at level k, row i. The caller
+//                  gives a column table (pointer, row stride, column count
+//                  a level; a row slice of a larger matrix keeps its
+//                  stride), the digests below k_top or none, and a stage
+//                  table (ops/blake2s_kernels.py tree_stages). Level k is
+//                  written to its (8, 2^k) slice of `out`, word offset
+//                  8 * (2^k - 1).
 //   blake2s_level  one level: node i hashes child 2i || child 2i+1 || the
-//                  level's column words at i. children (8, 2m) and columns
-//                  (C, m) are word-leading int32 rows with a row stride, so
-//                  thread i reads word w at [w][2i], [w][2i+1] or [w][i] and
-//                  a warp's reads are coalesced. Either may be absent; with
-//                  no children the columns are any (W, N) message set.
-//   blake2s_tail   a run of digest-only levels k_top .. k_bottom (2^k_top
-//                  <= 2^kTailLog nodes) in one CTA: each level is kept in
-//                  shared memory for the next, with __syncthreads between
-//                  levels, and written to its own (8, 2^k) slice of `out`
-//                  (word offset 8 * (2^k - 2^k_bottom)).
+//                  level's column words at i, or any (W, N) message set
+//                  with a byte-length override (blake2s.hash_words).
 //   blake2s_grind  nonces base .. base + count - 1: thread i hashes
 //                  digest || (base + i) as 8 little-endian bytes (40 bytes)
 //                  and, if the low bits `mask` of digest word 0 are zero,
 //                  atomicMin's i into *best.
+//   blake2s_chain  a timing probe, off every path: `chain` dependent
+//                  compressions a thread.
 //
-// What bounds them on the card: integer instructions. A compression is 80
+// The tree kernel. A CTA of 256 threads owns 2^8 consecutive nodes of its
+// stage's first level, one a thread, and carries them up in shared memory
+// (8 KB and 4 KB, alternating levels, a barrier a level), writing every
+// level to device memory as it goes: to 2^5 nodes in a tree whose first
+// stage has more CTAs than the card holds at once (so that its narrow
+// levels do not idle SMs that have CTAs waiting), else to one node. Thread
+// 0 then arrives at its group's counter with one acq_rel atomic (after a
+// barrier, so the release covers the CTA's writes; the CTA reads after
+// another barrier): the CTA that arrives last in its group reads the
+// group's digests through L2 (__ldcg) and goes on up as a CTA of the next
+// stage, and the one CTA of the last stage writes the root. No CTA waits
+// for another, so the kernel needs no co-residency. The counters sit behind
+// the digests in the tree's own buffer and are zeroed on the stream before
+// the launch.
+//
+// What bounds it on the card: integer instructions. A compression is 80
 // quarter-round steps G of 12 instructions (two three-input adds, two adds,
 // four xors, four rotations), ~1,000 in all, for 64 message bytes; only a
 // level with many columns and no children moves enough bytes (4 per word
-// read, 32 per digest written) to approach the memory bound. The design
-// spends nothing beyond the hash: no 64-bit arithmetic inside a
-// compression; the rotations by 12 and 7 are one funnel shift each
-// (__funnelshift_r) and those by 16 and 8 one byte permute (__byte_perm);
-// a + b + m is one three-input add; the 8-word chaining value, the 16-word
-// state and the 16-word message block live in registers (the message
-// schedule SIGMA is unrolled into register indices); zero padding is never
-// read or stored; the byte counter is 64 * (b + 1) and the last block
-// carries the true length and the last-block flag.
+// read, 32 per digest written) to approach the memory bound. A tree adds a
+// latency floor: its root chain is one dependent compression a level (more
+// where a level carries more than 16 message words). The design spends
+// nothing beyond the hash and that chain: one launch a tree, so the narrow
+// levels near the root run beside other subtrees' wide levels instead of
+// as launches of their own; no 64-bit arithmetic inside a compression; the
+// rotations by 12 and 7 are one funnel shift each and those by 16 and 8
+// one byte permute; a + b + m is one three-input add; chaining value,
+// state and message block live in registers (at most 64 a thread, so four
+// CTAs share an SM); a block's 16 words are fetched by code specialised at
+// compile time (children, or a column block of 1..16 words), one branch a
+// block, never one a word; zero padding is never read or stored; the byte
+// counter is 64 * (b + 1) and the last block carries the true length and
+// the last-block flag.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -46,9 +70,11 @@
 namespace {
 
 constexpr int kThreads = 256;
-// The tail's first level has at most 2^kTailLog nodes: its digests (32 KB)
-// and the next level's (16 KB) fill the 48 KB of static shared memory.
-constexpr int kTailLog = 10;
+// A tree CTA owns 2^kSubtreeLog nodes of its stage's first level, one a thread.
+constexpr int kSubtreeLog = 8;
+static_assert(kThreads == 1 << kSubtreeLog, "one node a thread at a stage's first level");
+constexpr int kMaxLevel = 28;  // level offsets stay in 32 bits
+constexpr int kMaxStages = 12;
 
 #define IV0 0x6A09E667u
 #define IV1 0xBB67AE85u
@@ -129,6 +155,157 @@ __device__ __forceinline__ void compress(uint32_t h[8], const uint32_t m[16], ui
   for (int i = 0; i < 8; ++i) h[i] ^= v[i] ^ v[i + 8];
 }
 
+// ---------------------------------------------------------------------------
+// The tree kernel
+// ---------------------------------------------------------------------------
+
+struct Level {           // the columns injected at one level
+  const uint32_t* cols;  // (n_cols, 2^k) rows, row stride col_stride; null if none
+  uint32_t col_stride;
+  int n_cols;
+};
+
+struct Stage {
+  int top;      // its first level, whose children are read from device memory
+  int bottom;   // its last level: 2^(bottom - cta_log) nodes a CTA
+  int cta_log;  // 2^cta_log CTAs, each hashing 2^(k - cta_log) nodes of level k
+  int counter;  // its CTAs' arrival counters start here (stages after the first)
+};
+
+struct TreeArgs {
+  const uint32_t* children;  // (8, 2^(k_top+1)) digests below k_top (row stride), or null
+  uint32_t child_stride;
+  uint32_t* out;             // level k: (8, 2^k) at word 8 * (2^k - 1)
+  unsigned int* counters;    // the stages' arrival counters
+  Stage stages[kMaxStages];
+  Level levels[kMaxLevel + 1];
+};
+
+// Columns c0 .. c0 + R - 1 of a node (p = its first column word), zero past R.
+template <int R>
+__device__ __forceinline__ void fetch_columns(uint32_t m[16], const uint32_t* p, uint32_t stride) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j) m[j] = j < R ? __ldg(p + j * stride) : 0u;
+}
+
+__device__ __forceinline__ void fetch_column_block(uint32_t m[16], const uint32_t* p,
+                                                   uint32_t stride, int r) {
+  switch (r) {
+#define FETCH_CASE(R) \
+  case R:             \
+    fetch_columns<R>(m, p, stride); \
+    break;
+    FETCH_CASE(1) FETCH_CASE(2) FETCH_CASE(3) FETCH_CASE(4) FETCH_CASE(5) FETCH_CASE(6)
+    FETCH_CASE(7) FETCH_CASE(8) FETCH_CASE(9) FETCH_CASE(10) FETCH_CASE(11) FETCH_CASE(12)
+    FETCH_CASE(13) FETCH_CASE(14) FETCH_CASE(15)
+#undef FETCH_CASE
+    default:
+      fetch_columns<16>(m, p, stride);
+  }
+}
+
+// Children 2t and 2t + 1 of rows src[w * stride] (8-byte aligned pairs).
+__device__ __forceinline__ void fetch_children_shared(uint32_t m[16], const uint32_t* src,
+                                                      uint32_t stride, uint32_t t) {
+#pragma unroll
+  for (int w = 0; w < 8; ++w) {
+    const uint2 x = *reinterpret_cast<const uint2*>(src + w * stride + 2 * t);
+    m[w] = x.x;
+    m[w + 8] = x.y;
+  }
+}
+
+// The same from device memory written by other CTAs: through L2, never L1.
+__device__ __forceinline__ void fetch_children_global(uint32_t m[16], const uint32_t* src,
+                                                      uint32_t stride, uint32_t i) {
+#pragma unroll
+  for (int w = 0; w < 8; ++w) {
+    const uint2 x = __ldcg(reinterpret_cast<const uint2*>(src + w * stride + 2 * i));
+    m[w] = x.x;
+    m[w + 8] = x.y;
+  }
+}
+
+// One arrival at a group's counter, ordered after every write the CTA made
+// before the barrier that precedes it (release) and before every read after
+// the barrier that follows it (acquire); returns the arrivals before it.
+__device__ __forceinline__ unsigned int arrive_acq_rel(unsigned int* counter) {
+  unsigned int seen;
+  asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;"
+               : "=r"(seen)
+               : "l"(counter)
+               : "memory");
+  return seen;
+}
+
+__global__ void __launch_bounds__(kThreads, 4) tree_kernel(const __grid_constant__ TreeArgs a) {
+  __shared__ __align__(16) uint32_t even[8 * kThreads];  // a stage's levels top, top - 2, ...
+  __shared__ __align__(16) uint32_t odd[4 * kThreads];   // top - 1, top - 3, ...
+  __shared__ bool carry;
+  const uint32_t t = threadIdx.x;
+  uint32_t cta = blockIdx.x;
+  for (int j = 0;; ++j) {
+    const Stage st = a.stages[j];
+    for (int k = st.top; k >= st.bottom; --k) {
+      const int n_log = k - st.cta_log;  // 2^n_log nodes of level k a CTA
+      const int d = st.top - k;
+      // children: from device memory at the stage's top (the caller's
+      // digests in stage 0, if any; the previous stage's level after it),
+      // else the level below in shared memory
+      const uint32_t* gsrc = j == 0 ? a.children : a.out + 8u * ((2u << k) - 1u);
+      const uint32_t gstride = j == 0 ? a.child_stride : 2u << k;
+      const int kids = (d > 0 || gsrc != nullptr) ? 1 : 0;
+      const uint32_t* ssrc = (d & 1) ? even : odd;
+      uint32_t* dst = (d & 1) ? odd : even;
+      uint32_t* level = a.out + 8u * ((1u << k) - 1u);
+      const Level lv = a.levels[k];
+      const int n_blocks = kids + (lv.n_cols + 15) / 16;
+      const uint32_t n_bytes = 4u * (16u * kids + lv.n_cols);
+      if (t < (1u << n_log)) {
+        const uint32_t i = (cta << n_log) + t;
+        const uint32_t* cp = lv.cols + i;
+        uint32_t h[8];
+        init_state(h);
+#pragma unroll 1
+        for (int b = 0; b < n_blocks; ++b) {
+          uint32_t m[16];
+          if (b < kids) {
+            if (d > 0) {
+              fetch_children_shared(m, ssrc, 2u << n_log, t);
+            } else {
+              fetch_children_global(m, gsrc, gstride, i);
+            }
+          } else {
+            const int c0 = 16 * (b - kids);
+            fetch_column_block(m, cp + c0 * lv.col_stride, lv.col_stride, lv.n_cols - c0);
+          }
+          const bool last = b == n_blocks - 1;
+          compress(h, m, last ? n_bytes : 64u * (b + 1), 0u, last);
+        }
+#pragma unroll
+        for (int w = 0; w < 8; ++w) {
+          dst[(w << n_log) + t] = h[w];
+          level[(w << k) + i] = h[w];
+        }
+      }
+      __syncthreads();
+    }
+    if (st.cta_log == 0) return;  // the root is written
+    // arrive: the last CTA of the group goes on as the next stage's CTA
+    const int g = st.cta_log - a.stages[j + 1].cta_log;
+    if (t == 0) {
+      carry = arrive_acq_rel(a.counters + a.stages[j + 1].counter + (cta >> g)) == (1u << g) - 1u;
+    }
+    __syncthreads();
+    if (!carry) return;
+    cta >>= g;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// One level (hash_words), the grind, the probes
+// ---------------------------------------------------------------------------
+
 struct LevelArgs {
   const uint32_t* children;  // (8, 2m) rows, or null
   long long child_stride;
@@ -170,38 +347,6 @@ __global__ void __launch_bounds__(kThreads) level_kernel(const LevelArgs a) {
 }
 
 __global__ void __launch_bounds__(kThreads)
-tail_kernel(const uint32_t* __restrict__ children, long long child_stride, int k_top,
-            int k_bottom, uint32_t* __restrict__ out) {
-  __shared__ uint32_t even[8 << kTailLog];       // levels k_top, k_top - 2, ...
-  __shared__ uint32_t odd[8 << (kTailLog - 1)];  // levels k_top - 1, k_top - 3, ...
-  for (int k = k_top; k >= k_bottom; --k) {
-    const int n = 1 << k;
-    const uint32_t* src = ((k_top - k) & 1) ? even : odd;  // level k + 1
-    const long long src_stride = k == k_top ? child_stride : 2 * n;
-    if (k == k_top) src = children;
-    uint32_t* dst = ((k_top - k) & 1) ? odd : even;
-    uint32_t* slice = out + 8ll * (n - (1 << k_bottom));
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      uint32_t m[16];
-#pragma unroll
-      for (int w = 0; w < 8; ++w) {
-        m[w] = src[w * src_stride + 2 * i];
-        m[w + 8] = src[w * src_stride + 2 * i + 1];
-      }
-      uint32_t h[8];
-      init_state(h);
-      compress(h, m, 64u, 0u, true);
-#pragma unroll
-      for (int w = 0; w < 8; ++w) {
-        dst[w * n + i] = h[w];
-        slice[w * n + i] = h[w];
-      }
-    }
-    __syncthreads();
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
 grind_kernel(const uint32_t* __restrict__ digest, unsigned long long base, uint32_t count,
              uint32_t mask, uint32_t* __restrict__ best) {
   const uint32_t i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -218,6 +363,22 @@ grind_kernel(const uint32_t* __restrict__ digest, unsigned long long base, uint3
   init_state(h);
   compress(h, m, 40u, 0u, true);
   if ((h[0] & mask) == 0u) atomicMin(best, i);
+}
+
+// `chain` dependent compressions a thread of a block made from its index;
+// the xor of the chaining value is written so that none is dropped.
+__global__ void __launch_bounds__(kThreads) chain_kernel(uint32_t* __restrict__ out, uint32_t n,
+                                                         int chain) {
+  const uint32_t i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  uint32_t m[16];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) m[j] = i ^ (0x9E3779B9u * (j + 1));
+  uint32_t h[8];
+  init_state(h);
+#pragma unroll 1
+  for (int k = 0; k < chain; ++k) compress(h, m, 64u, 0u, true);
+  out[i] = h[0] ^ h[1] ^ h[2] ^ h[3] ^ h[4] ^ h[5] ^ h[6] ^ h[7];
 }
 
 unsigned int blocks_for(long long n) {
@@ -244,7 +405,56 @@ __global__ void compress_probe(uint32_t* x) {
 template __global__ void compress_probe<1>(uint32_t*);
 template __global__ void compress_probe<2>(uint32_t*);
 
-extern "C" int blake2s_tail_log() { return kTailLog; }
+extern "C" int blake2s_subtree_log() { return kSubtreeLog; }
+
+// stages: n_stages quadruples (top, bottom, cta_log, counter), as
+// tree_stages gives them; col_ptrs / col_strides / n_cols: k_top + 1
+// entries, level k at k.
+extern "C" int blake2s_tree(const void* children, long long child_stride, int k_top,
+                            const void* const* col_ptrs, const long long* col_strides,
+                            const int* n_cols, const int* stages, int n_stages, void* out,
+                            void* counters, int n_counters, void* stream) {
+  if (k_top < 0 || k_top > kMaxLevel || n_stages < 1 || n_stages > kMaxStages ||
+      child_stride < 0 || child_stride > 0xFFFFFFFFll || n_counters < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  TreeArgs a;
+  a.children = static_cast<const uint32_t*>(children);
+  a.child_stride = static_cast<uint32_t>(child_stride);
+  a.out = static_cast<uint32_t*>(out);
+  a.counters = static_cast<unsigned int*>(counters);
+  for (int k = 0; k <= kMaxLevel; ++k) a.levels[k] = Level{nullptr, 0u, 0};
+  for (int k = 0; k <= k_top; ++k) {
+    if (n_cols[k] < 0 || col_strides[k] < 0 || col_strides[k] > 0xFFFFFFFFll ||
+        (n_cols[k] > 0) != (col_ptrs[k] != nullptr)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    a.levels[k] = Level{static_cast<const uint32_t*>(col_ptrs[k]),
+                        static_cast<uint32_t>(col_strides[k]), n_cols[k]};
+  }
+  // the deepest level needs a message: children below it or columns
+  if (children == nullptr && n_cols[k_top] == 0) return static_cast<int>(cudaErrorInvalidValue);
+  for (int j = 0; j < n_stages; ++j) {
+    const Stage s{stages[4 * j], stages[4 * j + 1], stages[4 * j + 2], stages[4 * j + 3]};
+    const int want_top = j == 0 ? k_top : a.stages[j - 1].bottom - 1;
+    const bool final_stage = j == n_stages - 1;
+    if (s.top != want_top || s.cta_log < 0 || s.bottom < s.cta_log || s.top < s.bottom ||
+        s.top - s.cta_log > kSubtreeLog || (s.top - s.cta_log < kSubtreeLog && s.cta_log != 0) ||
+        (s.cta_log == 0) != final_stage || (final_stage && s.bottom != 0) ||
+        (j > 0 && (s.cta_log >= a.stages[j - 1].cta_log || s.counter < 0 ||
+                   s.counter + (1 << s.cta_log) > n_counters))) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    a.stages[j] = s;
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n_counters > 0) {
+    const cudaError_t rc = cudaMemsetAsync(counters, 0, sizeof(unsigned int) * n_counters, st);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+  }
+  tree_kernel<<<1u << a.stages[0].cta_log, kThreads, 0, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // n_bytes < 0: the message's word count times 4.
 extern "C" int blake2s_level(const void* children, long long child_stride, const void* columns,
@@ -264,20 +474,17 @@ extern "C" int blake2s_level(const void* children, long long child_stride, const
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int blake2s_tail(const void* children, long long child_stride, int k_top,
-                            int k_bottom, void* out, void* stream) {
-  if (k_top > kTailLog || k_bottom < 0 || k_bottom > k_top) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  tail_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(children), child_stride, k_top, k_bottom,
-      static_cast<uint32_t*>(out));
-  return static_cast<int>(cudaGetLastError());
-}
-
 extern "C" int blake2s_grind(const void* digest, unsigned long long base, unsigned int count,
                              unsigned int mask, void* best, void* stream) {
   grind_kernel<<<blocks_for(count), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(digest), base, count, mask, static_cast<uint32_t*>(best));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int blake2s_chain(void* out, unsigned int n, int chain, void* stream) {
+  if (n == 0 || chain < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned int threads = n < kThreads ? n : kThreads;
+  chain_kernel<<<(n + threads - 1) / threads, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint32_t*>(out), n, chain);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,5 @@
 """Blake2s hashing kernels: the hand-written Hopper kernels
-(``csrc/blake2s.cu``) behind the Merkle levels, the small top of a tree and
+(``csrc/blake2s.cu``) behind the Merkle trees, one level of messages and
 the proof-of-work grind.
 
 Counterpart of how the JAX package runs ``stwo_brainfuck_tpu/core/
@@ -9,30 +9,40 @@ blake2s.py``'s ``_compress_t``: one fused device program per Merkle level
 (``core/channel.py`` ``_pow_batch``). Digests are bit-identical to the
 plain torch version, ``core/blake2s.hash_parts``.
 
-- ``KERNELS.level(children, columns)``: one level's (8, m) int32 digests,
-  node i = H(child 2i || child 2i+1 || columns[:, i]);
-- ``KERNELS.tail(children, k_top, k_bottom)``: a run of digest-only levels
-  with at most 2^TAIL_LOG nodes in one launch, each level a (8, 2^k) view
-  of one buffer;
+- ``KERNELS.tree(children, columns_by_log, k_top)``: levels k_top .. 0 of
+  a tree in one launch, level k a (8, 2^k) int32 view of one buffer (word
+  offset 8 * (2^k - 1)); columns at any level of the run, a row slice
+  keeping its stride; ``children`` the digests below k_top or None;
+- ``KERNELS.level(children, columns, n_bytes)``: one level's (8, m) int32
+  digests, node i = H(child 2i || child 2i+1 || columns[:, i]), with a
+  byte-length override (``blake2s.hash_words`` on CUDA);
 - ``KERNELS.grind(digest, pow_bits)``: the smallest nonce whose hash has
-  pow_bits low zero bits, scanned GRIND_BATCH nonces a launch.
+  pow_bits low zero bits, scanned GRIND_BATCH nonces a launch;
+- ``KERNELS.chain(n, chain, device)``: a timing probe off every path
+  (``chain`` dependent compressions on each of n threads; not counted).
 
-``level_plain`` and ``tail_plain`` are the kernels' plain versions (the
-plain ``hash_parts``; the tail's levels as views of one buffer, laid out as
-the kernel writes them). ``launch_plan`` is the schedule of one tree
-(levels and tails), and ``walk_plan`` runs it with given level and tail
-functions: the kernels on CUDA tensors (``core/merkle.commit``), or the
-plain versions (``emulate_commit``, on any device), so the CPU tests check
-the plan.
+The tree kernel runs the stages of ``tree_stages``: a CTA of 2^SUBTREE_LOG
+threads hashes 2^SUBTREE_LOG nodes of its stage's first level and carries
+them up in shared memory to one node; the last CTA to arrive at its
+group's counter goes on as a CTA of the next stage, and the one CTA of
+the last stage writes the root. ``tree_plain`` is its plain version (level
+by level with ``level_plain``, written into the kernel's buffer layout)
+and ``emulate_tree`` replays its CTAs, shared levels, counters and writes
+with the plain hash on any device, so the CPU tests check the stage
+table, the column table and the layout. ``launch_plan`` gives one launch a
+tree and ``walk_plan`` runs it with the kernel (``core/merkle`` on CUDA
+tensors) or a plain version (``emulate_commit``, and ``core/merkle`` on the
+CPU).
 
-Every wrapper checks what it is given (CUDA, int32, last stride 1, shapes)
-before it loads the library, and raises on what the kernel does not take.
-The library is built with nvcc at first use (``ops/nvcc.py``).
+Every wrapper checks what it is given (CUDA, int32, last stride 1, shapes,
+alignment) before it loads the library, and raises on what the kernel does
+not take. The library is built with nvcc at first use (``ops/nvcc.py``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -41,25 +51,38 @@ import torch
 from ..core import blake2s
 from . import nvcc
 
-ENTRIES = ("level", "tail", "grind")
-# The tail's first level has at most 2^TAIL_LOG nodes (kTailLog in
-# csrc/blake2s.cu, checked when the library loads).
-TAIL_LOG = 10
+ENTRIES = ("tree", "level", "grind")
+# a tree CTA owns 2^SUBTREE_LOG nodes of its stage's first level
+# (kSubtreeLog in csrc/blake2s.cu, checked when the library loads)
+SUBTREE_LOG = 8
+# in a tree whose first stage has more CTAs than the card holds at once, a
+# CTA of a stage before the last stops at 2^KEEP_LOG nodes (a full warp), so
+# that narrow levels do not idle SMs that have CTAs waiting; in a smaller
+# tree it carries its nodes up to one (fewer stages: a shorter root chain)
+KEEP_LOG = 5
+CTAS_A_SM = 4  # tree_kernel's __launch_bounds__(256, 4)
+H100_SMS = 132
+MAX_LEVEL = 28  # kMaxLevel: a tree's level offsets stay in 32 bits
+MAX_STAGES = 12  # kMaxStages
 GRIND_BATCH_LOG = 20
 _NO_HIT = 0xFFFFFFFF
+
+Stage = Tuple[int, int, int, int]  # (top, bottom, cta_log, counter)
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     ptr, i64, i32, u64, u32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                                ctypes.c_ulonglong, ctypes.c_uint)
+    lib.blake2s_tree.argtypes = [ptr, i64, i32, ptr, ptr, ptr, ptr, i32, ptr, ptr, i32, ptr]
     lib.blake2s_level.argtypes = [ptr, i64, ptr, i64, i32, i64, i64, ptr, ptr]
-    lib.blake2s_tail.argtypes = [ptr, i64, i32, i32, ptr, ptr]
     lib.blake2s_grind.argtypes = [ptr, u64, u32, u32, ptr, ptr]
-    for fn in (lib.blake2s_level, lib.blake2s_tail, lib.blake2s_grind, lib.blake2s_tail_log):
+    lib.blake2s_chain.argtypes = [ptr, u32, i32, ptr]
+    for fn in (lib.blake2s_tree, lib.blake2s_level, lib.blake2s_grind, lib.blake2s_chain,
+               lib.blake2s_subtree_log):
         fn.restype = ctypes.c_int
-    if lib.blake2s_tail_log() != TAIL_LOG:
-        raise RuntimeError(f"csrc/blake2s.cu has kTailLog {lib.blake2s_tail_log()}, "
-                           f"the wrapper {TAIL_LOG}")
+    if lib.blake2s_subtree_log() != SUBTREE_LOG:
+        raise RuntimeError(f"csrc/blake2s.cu has kSubtreeLog {lib.blake2s_subtree_log()}, "
+                           f"the wrapper {SUBTREE_LOG}")
 
 
 def _check(x: torch.Tensor, what: str, rows: Optional[int] = None,
@@ -85,12 +108,122 @@ def _rc(rc: int, what: str) -> None:
         raise RuntimeError(f"Blake2s {what} launch failed: CUDA error {rc}")
 
 
+# ---------------------------------------------------------------------------
+# A tree's stages and buffer
+# ---------------------------------------------------------------------------
+
+def tree_stages(k_top: int, wave: int, subtree_log: int = SUBTREE_LOG,
+                keep_log: int = KEEP_LOG) -> Tuple[Tuple[Stage, ...], int]:
+    """The tree kernel's stages for levels k_top .. 0 on a card that holds
+    `wave` tree CTAs at once, and the length of their counter area. Stage
+    (top, bottom, cta_log, counter): 2^cta_log CTAs, each hashing 2^(k -
+    cta_log) nodes of levels top .. bottom, 2^subtree_log at the top
+    (children from device memory), carried up in shared memory to
+    2^keep_log nodes if the first stage has more CTAs than `wave`, else to
+    one; the last stage has one CTA and ends at the root. A stage after the
+    first starts one level below the stage before: the last of the
+    2^(cta_log' - cta_log) CTAs there to arrive at counter `counter + c`
+    goes on as its CTA c."""
+    if not 0 <= k_top <= MAX_LEVEL:
+        raise ValueError(f"a Blake2s tree of levels {k_top} .. 0: outside {MAX_LEVEL} .. 0")
+    if not 0 <= keep_log < subtree_log:
+        raise ValueError(f"tree stages: keep 2^{keep_log} of 2^{subtree_log} nodes")
+    keep = keep_log if 1 << max(k_top - subtree_log, 0) > wave else 0
+    stages: List[Stage] = []
+    top, counters = k_top, 0
+    while True:
+        cta_log = max(top - subtree_log, 0)
+        bottom = cta_log + keep if cta_log else 0
+        stages.append((top, bottom, cta_log, counters if stages else 0))
+        if len(stages) > 1:
+            counters += 1 << cta_log
+        if cta_log == 0:
+            return tuple(stages), counters
+        top = bottom - 1
+
+
+@functools.lru_cache(maxsize=None)
+def _wave(device: torch.device) -> int:
+    """The tree CTAs the card holds at once."""
+    return torch.cuda.get_device_properties(device).multi_processor_count * CTAS_A_SM
+
+
+def _tree_buffer(k_top: int, n_counters: int, device) -> Tuple[torch.Tensor, Dict[int, torch.Tensor]]:
+    """One int32 buffer for levels k_top .. 0 (level k at word offset
+    8 * (2^k - 1), as the kernel writes it) and the counters behind them;
+    returns it and the levels' (8, 2^k) views."""
+    words = 8 * ((2 << k_top) - 1)
+    buf = torch.empty(words + n_counters, dtype=torch.int32, device=device)
+    views = {k: buf.as_strided((8, 1 << k), (1 << k, 1), 8 * ((1 << k) - 1))
+             for k in range(k_top, -1, -1)}
+    return buf, views
+
+
+def _check_tree(children: Optional[torch.Tensor], columns_by_log: Dict[int, torch.Tensor],
+                k_top: int) -> None:
+    """The shapes a tree of levels k_top .. 0 takes, on any device."""
+    if not 0 <= k_top <= MAX_LEVEL:
+        raise ValueError(f"Blake2s tree: levels {k_top} .. 0 outside {MAX_LEVEL} .. 0")
+    if any(not 0 <= k <= k_top for k in columns_by_log):
+        raise ValueError(f"Blake2s tree: column levels {sorted(columns_by_log)} outside "
+                         f"{k_top} .. 0")
+    for k, mat in columns_by_log.items():
+        if mat.dim() != 2 or mat.shape[1] != 1 << k or mat.shape[0] == 0:
+            raise ValueError(f"Blake2s tree: level {k} columns of shape {tuple(mat.shape)}")
+    if children is None and k_top not in columns_by_log:
+        raise ValueError(f"Blake2s tree: level {k_top} has no children and no columns")
+    if children is not None and tuple(children.shape) != (8, 2 << k_top):
+        raise ValueError(f"Blake2s tree: children of shape {tuple(children.shape)} below "
+                         f"level {k_top}")
+
+
 class Blake2sKernels:
     """The built kernel library and one launch count per entry point."""
 
     def __init__(self):
         self.lib = nvcc.CudaLibrary("blake2s", _bind)
         self.launches = dict.fromkeys(ENTRIES, 0)
+
+    def tree(self, children: Optional[torch.Tensor], columns_by_log: Dict[int, torch.Tensor],
+             k_top: int) -> Dict[int, torch.Tensor]:
+        """Levels k_top .. 0 in one launch: level k -> (8, 2^k) int32, views
+        of one buffer. children: the (8, 2^(k_top+1)) digests below k_top or
+        None (then k_top carries columns); columns_by_log: level -> (C,
+        2^level) int32 matrix (rows may be a slice of a larger matrix)."""
+        _check_tree(children, columns_by_log, k_top)
+        devices = set()
+        if children is not None:
+            _check(children, "children", rows=8)
+            if children.data_ptr() % 8 or children.stride(0) % 2:
+                raise ValueError("Blake2s tree: children rows must be 8-byte aligned "
+                                 f"(stride {children.stride(0)})")
+            devices.add(children.device)
+        for k, mat in columns_by_log.items():
+            _check(mat, f"level {k} columns")
+            if mat.stride(0) * (mat.shape[0] - 1) + (1 << k) > 1 << 32:
+                raise ValueError(f"Blake2s tree: level {k} columns span more than 2^32 words")
+            devices.add(mat.device)
+        if len(devices) != 1:
+            raise ValueError(f"Blake2s tree: tensors on several devices: {devices}")
+        dev = devices.pop()
+        lib = self.lib.load()
+        stages, n_counters = tree_stages(k_top, _wave(dev))
+        buf, views = _tree_buffer(k_top, n_counters, dev)
+        n = k_top + 1
+        mats = [columns_by_log.get(k) for k in range(n)]
+        ptrs = (ctypes.c_void_p * n)(*[None if m is None else m.data_ptr() for m in mats])
+        strides = (ctypes.c_longlong * n)(*[0 if m is None else m.stride(0) for m in mats])
+        counts = (ctypes.c_int * n)(*[0 if m is None else m.shape[0] for m in mats])
+        table = (ctypes.c_int * (4 * len(stages)))(*[v for s in stages for v in s])
+        with torch.cuda.device(dev):
+            rc = lib.blake2s_tree(
+                None if children is None else children.data_ptr(),
+                0 if children is None else children.stride(0), k_top, ptrs, strides, counts,
+                table, len(stages), buf.data_ptr(), buf[8 * ((2 << k_top) - 1):].data_ptr(),
+                n_counters, torch.cuda.current_stream(dev).cuda_stream)
+        _rc(rc, "tree")
+        self.launches["tree"] += 1
+        return views
 
     def level(self, children: Optional[torch.Tensor], columns: Optional[torch.Tensor],
               n_bytes: Optional[int] = None) -> torch.Tensor:
@@ -130,24 +263,6 @@ class Blake2sKernels:
         self.launches["level"] += 1
         return out
 
-    def tail(self, children: torch.Tensor, k_top: int, k_bottom: int) -> Dict[int, torch.Tensor]:
-        """Levels k_top .. k_bottom (digest-only, 2^k_top <= 2^TAIL_LOG) from
-        the (8, 2^(k_top+1)) digests below them, in one launch: level k ->
-        (8, 2^k) int32, views of one buffer."""
-        if not 0 <= k_bottom <= k_top <= TAIL_LOG:
-            raise ValueError(f"Blake2s tail: levels {k_top} .. {k_bottom} outside "
-                             f"{TAIL_LOG} .. 0")
-        _check(children, "children", rows=8, cols=2 << k_top)
-        lib = self.lib.load()
-        buf, views = _tail_buffer(k_top, k_bottom, children.device)
-        with torch.cuda.device(children.device):
-            rc = lib.blake2s_tail(children.data_ptr(), children.stride(0), k_top, k_bottom,
-                                  buf.data_ptr(),
-                                  torch.cuda.current_stream(children.device).cuda_stream)
-        _rc(rc, "tail")
-        self.launches["tail"] += 1
-        return views
-
     def grind(self, digest: bytes, pow_bits: int, device) -> int:
         """The smallest nonce whose Blake2s(digest || nonce_le8) has pow_bits
         low zero bits in its first word: 2^GRIND_BATCH_LOG nonces a launch,
@@ -180,18 +295,23 @@ class Blake2sKernels:
                 base += batch
         raise RuntimeError("PoW grind exhausted")
 
+    def chain(self, n: int, chain: int, device) -> torch.Tensor:
+        """The timing probe: `chain` dependent compressions on each of n
+        threads (256 a CTA, or n if fewer); (n,) int32 out. Off every path,
+        so not counted."""
+        dev = torch.device(device)
+        if dev.type != "cuda" or n <= 0 or chain < 0:
+            raise ValueError(f"Blake2s chain probe: {n} threads, chain {chain} on {dev}")
+        lib = self.lib.load()
+        out = torch.empty(n, dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            rc = lib.blake2s_chain(out.data_ptr(), n, chain,
+                                   torch.cuda.current_stream(dev).cuda_stream)
+        _rc(rc, "chain")
+        return out
+
 
 KERNELS = Blake2sKernels()
-
-
-def _tail_buffer(k_top: int, k_bottom: int, device) -> Tuple[torch.Tensor, Dict[int, torch.Tensor]]:
-    """One int32 buffer for levels k_top .. k_bottom and its (8, 2^k) views:
-    level k at word offset 8 * (2^k - 2^k_bottom), as the kernel writes it."""
-    lo = 1 << k_bottom
-    buf = torch.empty(8 * ((2 << k_top) - lo), dtype=torch.int32, device=device)
-    views = {k: buf[8 * ((1 << k) - lo): 8 * ((2 << k) - lo)].view(8, 1 << k)
-             for k in range(k_top, k_bottom - 1, -1)}
-    return buf, views
 
 
 # ---------------------------------------------------------------------------
@@ -201,11 +321,8 @@ def _tail_buffer(k_top: int, k_bottom: int, device) -> Tuple[torch.Tensor, Dict[
 def launch_plan(sig: Sequence[Tuple[int, int]], max_log: Optional[int] = None) -> List[tuple]:
     """The launches that hash levels max_log .. 0 of a tree whose columns
     sit at the levels of `sig` [(level, n_cols), ...] (max_log: the deepest
-    level hashed, max(sig) by default; deeper digests may feed it):
-    ("level", k, C) for a level with C columns, or a digest-only level with
-    more than 2^TAIL_LOG nodes (C = 0); ("tail", k_top, k_bottom) for each
-    run of digest-only levels below that. Every level appears once, deepest
-    first."""
+    level hashed, max(sig) by default; deeper digests may feed it): one
+    ("tree", max_log) step, whatever levels carry columns."""
     by = dict(sig)
     if max_log is None:
         if not by:
@@ -213,50 +330,36 @@ def launch_plan(sig: Sequence[Tuple[int, int]], max_log: Optional[int] = None) -
         max_log = max(by)
     if any(k > max_log or k < 0 for k in by):
         raise ValueError(f"launch_plan: column levels {sorted(by)} outside {max_log} .. 0")
-    steps: List[tuple] = []
-    k = max_log
-    while k >= 0:
-        if k in by or k > TAIL_LOG:
-            steps.append(("level", k, by.get(k, 0)))
-            k -= 1
-            continue
-        bottom = k
-        while bottom - 1 >= 0 and bottom - 1 not in by:
-            bottom -= 1
-        steps.append(("tail", k, bottom))
-        k = bottom - 1
-    return steps
+    if not max_log <= MAX_LEVEL:
+        raise ValueError(f"launch_plan: level {max_log} above {MAX_LEVEL}")
+    return [("tree", max_log)]
 
 
-LevelFn = Callable[[Optional[torch.Tensor], Optional[torch.Tensor]], torch.Tensor]
-TailFn = Callable[[torch.Tensor, int, int], Dict[int, torch.Tensor]]
+TreeFn = Callable[[Optional[torch.Tensor], Dict[int, torch.Tensor], int], Dict[int, torch.Tensor]]
 
 
 def walk_plan(plan: List[tuple], columns_by_log: Dict[int, torch.Tensor],
-              prev: Optional[torch.Tensor], level: LevelFn, tail: TailFn) -> Dict[int, torch.Tensor]:
+              prev: Optional[torch.Tensor], tree: TreeFn) -> Dict[int, torch.Tensor]:
     """Run `plan` from the digests `prev` below its first level (None at a
-    tree's deepest level): level k -> (8, 2^k) digests."""
+    tree's deepest level) with `tree` (the kernel or a plain version):
+    level k -> (8, 2^k) digests."""
     layers: Dict[int, torch.Tensor] = {}
-    for step in plan:
-        if step[0] == "level":
-            prev = level(prev, columns_by_log.get(step[1]))
-            layers[step[1]] = prev
-        else:
-            if prev is None:
-                raise ValueError(f"a tail at level {step[1]} has no digests below it")
-            layers.update(tail(prev, step[1], step[2]))
-            prev = layers[step[2]]
+    for kind, k_top in plan:
+        if kind != "tree":
+            raise ValueError(f"walk_plan: unknown step {kind}")
+        layers.update(tree(prev, columns_by_log, k_top))
+        prev = layers[0]
     return layers
 
 
 # ---------------------------------------------------------------------------
-# Plain versions (hash_parts, the kernels' layout) and the plan replayed
+# Plain versions (hash_parts, the kernels' layout) and the kernel replayed
 # ---------------------------------------------------------------------------
 
 def level_plain(children: Optional[torch.Tensor], columns: Optional[torch.Tensor],
                 n_bytes: Optional[int] = None) -> torch.Tensor:
-    """What the level kernel computes (core/merkle.hash_level on the CPU):
-    each node's message read word by word as the kernel reads it
+    """What the level kernel computes, and each level of a tree: each
+    node's message read word by word as the kernels read it
     (children[w][2i], children[w][2i+1], then columns[c][i]), hashed with
     the plain hash_parts."""
     parts = []
@@ -267,23 +370,88 @@ def level_plain(children: Optional[torch.Tensor], columns: Optional[torch.Tensor
     return blake2s.words_to_int32(blake2s.hash_parts(parts, n_bytes))
 
 
-def tail_plain(children: torch.Tensor, k_top: int, k_bottom: int) -> Dict[int, torch.Tensor]:
-    """What the tail kernel computes: levels k_top .. k_bottom, each hashed
-    from the one below and written to its slice of one buffer."""
-    if not 0 <= k_bottom <= k_top <= TAIL_LOG:
-        raise ValueError(f"tail levels {k_top} .. {k_bottom} outside {TAIL_LOG} .. 0")
-    buf, views = _tail_buffer(k_top, k_bottom, children.device)
+def tree_plain(children: Optional[torch.Tensor], columns_by_log: Dict[int, torch.Tensor],
+               k_top: int) -> Dict[int, torch.Tensor]:
+    """What the tree kernel computes: levels k_top .. 0, each hashed from
+    the one below with level_plain and written to its slice of one buffer
+    (on the inputs' device)."""
+    _check_tree(children, columns_by_log, k_top)
+    device = (children if children is not None else columns_by_log[k_top]).device
+    _, views = _tree_buffer(k_top, 0, device)
     prev = children
-    for k in range(k_top, k_bottom - 1, -1):
-        views[k].copy_(level_plain(prev, None))
+    for k in range(k_top, -1, -1):
+        views[k].copy_(level_plain(prev, columns_by_log.get(k)))
         prev = views[k]
     return views
 
 
-def emulate_commit(columns_by_log: Dict[int, torch.Tensor]) -> Tuple[bytes, Dict[int, torch.Tensor]]:
-    """The root and layers of merkle.commit as the kernels compute them:
-    launch_plan's steps replayed with level_plain / tail_plain (on the
-    columns' device)."""
+def emulate_tree(children: Optional[torch.Tensor], columns_by_log: Dict[int, torch.Tensor],
+                 k_top: int, wave: int = H100_SMS * CTAS_A_SM, subtree_log: int = SUBTREE_LOG,
+                 keep_log: int = KEEP_LOG, seed: int = 0) -> Dict[int, torch.Tensor]:
+    """The tree kernel replayed with the plain hash, stage by stage: the
+    stage's CTAs in a random arrival order (from seed), CTA c hashing nodes
+    c * n .. c * n + n - 1 of each level it carries (n halving a level),
+    its top's children read from device memory (the caller's, or the
+    buffer the stage before wrote), the levels above from its own "shared"
+    level; every level written to its buffer slice; arrivals counted as
+    the kernel counts them, the last of a group going on. (A stage's CTAs
+    are hashed together, one plain call a level: they own disjoint nodes.)
+    Raises if a node is written other than once, a CTA's shared level
+    outgrows the kernel's buffers, or the carriers are not exactly the next
+    stage's CTAs."""
+    _check_tree(children, columns_by_log, k_top)
+    device = (children if children is not None else columns_by_log[k_top]).device
+    stages, n_counters = tree_stages(k_top, wave, subtree_log, keep_log)
+    _, views = _tree_buffer(k_top, 0, device)
+    written = {k: np.zeros(1 << k, dtype=np.int64) for k in views}
+    counters = [0] * n_counters
+    rng = np.random.default_rng(seed)
+    ctas = list(range(1 << stages[0][2]))
+    for j, (top, bottom, cta_log, _) in enumerate(stages):
+        if sorted(ctas) != list(range(1 << cta_log)):
+            raise AssertionError(f"stage {j}: CTAs {sorted(ctas)} carried, not 2^{cta_log}")
+        order = rng.permutation(ctas)
+        shared = None
+        for k in range(top, bottom - 1, -1):
+            n = 1 << (k - cta_log)
+            if n > (1 << SUBTREE_LOG) >> min(top - k, 1):
+                raise AssertionError(f"level {k}: {n} nodes a CTA outgrow shared memory")
+            nodes = (order[:, None] * n + np.arange(n)).reshape(-1)  # CTA by CTA
+            idx = torch.as_tensor(nodes, device=device)
+            if k == top:
+                src = children if j == 0 else views[k + 1]
+                kids = None if src is None else src[:, torch.stack([2 * idx, 2 * idx + 1], 1).reshape(-1)]
+            else:
+                kids = shared
+            cols = columns_by_log.get(k)
+            shared = level_plain(kids, None if cols is None else cols[:, idx])
+            views[k][:, idx] = shared
+            np.add.at(written[k], nodes, 1)
+        if cta_log == 0:
+            continue
+        nxt = stages[j + 1]
+        g = cta_log - nxt[2]
+        carried = []
+        for cta in order.tolist():
+            slot = nxt[3] + (cta >> g)
+            counters[slot] += 1
+            if counters[slot] == 1 << g:
+                carried.append(cta >> g)
+        ctas = carried
+    for k, w in written.items():
+        if not (w == 1).all():
+            raise AssertionError(f"level {k}: nodes written {sorted(set(w.tolist()))} times")
+    return views
+
+
+def emulate_commit(columns_by_log: Dict[int, torch.Tensor], wave: int = H100_SMS * CTAS_A_SM,
+                   subtree_log: int = SUBTREE_LOG, keep_log: int = KEEP_LOG,
+                   seed: int = 0) -> Tuple[bytes, Dict[int, torch.Tensor]]:
+    """The root and layers of merkle.commit as the tree kernel computes
+    them: launch_plan's step replayed with emulate_tree (on the columns'
+    device)."""
     plan = launch_plan([(k, m.shape[0]) for k, m in columns_by_log.items()])
-    layers = walk_plan(plan, columns_by_log, None, level_plain, tail_plain)
+    layers = walk_plan(plan, columns_by_log, None,
+                       lambda c, cols, k: emulate_tree(c, cols, k, wave, subtree_log, keep_log,
+                                                       seed))
     return blake2s.digest_to_bytes(layers[0][:, 0]), layers

@@ -2,21 +2,19 @@
 
 Counterpart of ``stwo_brainfuck_tpu/parallel/merkle_sharded.py``. Nodes are
 sharded as contiguous chunks, so the children (2i, 2i+1) of a shard's nodes
-always lie in the same shard: every level with at least D nodes hashes
-locally on each shard this process owns (``core/merkle.hash_level``) until
-one node per shard is left. One ``all_gather`` collects the D subtree roots,
-and the top log2 D levels (with any columns injected there) are hashed in
-every process, on its own device (``core/merkle.hash_levels``: on CUDA the
-digest-only run of them is one tail launch). On CUDA shards every level is
-a Blake2s kernel launch. The root is the single-device
-``core/merkle.commit`` root for any D.
+always lie in the same shard: a shard's nodes of the levels max_log ..
+split (D = 2^split shards) form a subtree whose root is its one node of
+level split. Each shard this process owns hashes that subtree as a tree of
+its own (levels relabelled k - split, ``core/merkle.hash_levels``: on CUDA
+one tree kernel launch a shard). One ``all_gather`` collects the D subtree
+roots, and the top log2 D levels (with any columns injected there) are one
+more ``merkle.hash_levels`` call in every process, on its own device. The
+root is the single-device ``core/merkle.commit`` root for any D.
 """
 
 from __future__ import annotations
 
 from typing import Dict
-
-import torch
 
 from ..core import blake2s, merkle
 from .mesh import Mesh, Sharded
@@ -39,14 +37,14 @@ def commit_sharded(mesh: Mesh, columns_by_log: Dict[int, object]) -> merkle.Merk
         return merkle.commit({k: mesh.full(m) for k, m in mats.items()})
     mats = {k: mesh.as_sharded(m) if k >= split else mesh.full(m) for k, m in mats.items()}
 
-    layers: Dict[int, object] = {}
-    prev = [None] * mesh.size
-    for k in range(max_log, split - 1, -1):
-        cols = mats[k].shards if k in mats else [None] * mesh.size
-        prev = mesh.each(lambda i: merkle.hash_level(prev[i], cols[i]))
-        layers[k] = Sharded(mesh, prev)
+    # each local shard's subtree: levels max_log .. split as max_log - split .. 0
+    runs = mesh.each(lambda i: merkle.hash_levels(
+        None, {k - split: m.shards[i] for k, m in mats.items() if k >= split}, max_log - split))
+    layers: Dict[int, object] = {
+        k: Sharded(mesh, [None if r is None else r[k - split] for r in runs])
+        for k in range(max_log, split - 1, -1)}
     # one node per shard: gather the D subtree roots into every process
-    top = mesh.all_gather(mesh.each(lambda i: prev[i][:, 0]))[mesh.local[0]].T.contiguous()
+    top = mesh.all_gather(mesh.each(lambda i: runs[i][0][:, 0]))[mesh.local[0]].T.contiguous()
     if split:
         layers.update(merkle.hash_levels(top, {k: m for k, m in mats.items() if k < split},
                                          split - 1))

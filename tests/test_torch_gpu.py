@@ -16,6 +16,7 @@ from stwo_brainfuck_tpu_torch.core import blake2s, channel, fft, merkle
 from stwo_brainfuck_tpu_torch.core.pcs import PcsConfig
 from stwo_brainfuck_tpu_torch.ops import blake2s_kernels, circle_fft, m31_kernels
 from stwo_brainfuck_tpu_torch.parallel import fft_sharded
+from stwo_brainfuck_tpu_torch.parallel.merkle_sharded import commit_sharded
 from stwo_brainfuck_tpu_torch.parallel.mesh import make_mesh
 from stwo_brainfuck_tpu_torch.vm.compiler import compile_program
 from stwo_brainfuck_tpu_torch.vm.machine import create_test_machine
@@ -72,8 +73,11 @@ def test_small_proof_on_the_card_matches_jax_reference(cuda):
                             chip_smoke.SMALL_INPUT.encode())
     m.execute()
     fft.PLAIN_CUDA_CALLS = 0
+    trees, calls = blake2s_kernels.KERNELS.launches["tree"], blake2s.PLAIN_CUDA_CALLS
     proof = air.prove_brainfuck(m, device=cuda)
     assert fft.PLAIN_CUDA_CALLS == 0
+    assert blake2s_kernels.KERNELS.launches["tree"] > trees
+    assert blake2s.PLAIN_CUDA_CALLS == calls
     assert chip_smoke.proof_sha256(proof) == chip_smoke.REFERENCE_SHA256["small"]
     air.verify_brainfuck(proof, device=cuda)
 
@@ -115,8 +119,11 @@ def test_sharded_small_proof_on_the_card_matches_jax_reference(cuda):
     m.execute()
     fft.PLAIN_CUDA_CALLS = 0
     before = circle_fft.KERNEL.launches
+    trees, calls = blake2s_kernels.KERNELS.launches["tree"], blake2s.PLAIN_CUDA_CALLS
     proof = air.prove_brainfuck(m, device=cuda, mesh=make_mesh(8, cuda))
     assert fft.PLAIN_CUDA_CALLS == 0
+    assert blake2s_kernels.KERNELS.launches["tree"] > trees
+    assert blake2s.PLAIN_CUDA_CALLS == calls
     assert circle_fft.KERNEL.launches > before
     assert chip_smoke.proof_sha256(proof) == chip_smoke.REFERENCE_SHA256["small"]
     air.verify_brainfuck(proof, device=cuda)
@@ -224,14 +231,88 @@ def test_blake2s_level_n_bytes_and_row_slices_on_the_card(cuda):
     assert torch.equal(blake2s.hash_words(words), blake2s.hash_words(words.cpu()).to(cuda))
 
 
-@pytest.mark.parametrize("k_top, k_bottom", [(0, 0), (3, 0), (10, 0), (10, 4), (6, 6)])
-def test_blake2s_tail_matches_plain_on_the_card(cuda, k_top, k_bottom):
-    kids = _words(np.random.default_rng(k_top), (8, 2 << k_top), cuda)
-    got = blake2s_kernels.KERNELS.tail(kids, k_top, k_bottom)
-    want = blake2s_kernels.tail_plain(kids, k_top, k_bottom)
+def _tree_on_the_card(cols, children=None, max_log=None):
+    """hash_levels on the card (one tree launch, no plain call) and
+    tree_plain on the same tensors."""
+    max_log = max(cols) if max_log is None else max_log
+    launches = dict(blake2s_kernels.KERNELS.launches)
+    calls = blake2s.PLAIN_CUDA_CALLS
+    got = merkle.hash_levels(children, cols, max_log)
+    assert blake2s.PLAIN_CUDA_CALLS == calls
+    assert {k: blake2s_kernels.KERNELS.launches[k] - launches[k] for k in launches} == {
+        "tree": 1, "level": 0, "grind": 0}
+    return got, blake2s_kernels.tree_plain(children, cols, max_log)
+
+
+def _same_layers(got, want):
     assert sorted(got) == sorted(want)
-    for k in got:
+    for k in want:
         assert torch.equal(got[k], want[k]), f"level {k}"
+
+
+@pytest.mark.parametrize("name", list(chip_smoke.TREE_CASES))
+def test_blake2s_tree_matches_plain_on_the_card(cuda, name):
+    rng = np.random.default_rng(len(name))
+    cols = {k: _words(rng, (c, 1 << k), cuda) for k, c in chip_smoke.TREE_CASES[name].items()}
+    _same_layers(*_tree_on_the_card(cols))
+
+
+def test_blake2s_tree_row_slices_and_children_on_the_card(cuda):
+    """Columns as row slices of wider matrices, and children given below
+    the run (the sharded top), also as a slice of wider digests."""
+    rng = np.random.default_rng(3)
+    wide = {k: _words(rng, (c + 3, 2 << k), cuda) for k, c in {20: 4, 16: 9, 5: 2}.items()}
+    _same_layers(*_tree_on_the_card({k: m[3:, 1 << k:] for k, m in wide.items()}))
+    for top, sig in ((0, {}), (2, {1: 3}), (12, {12: 2, 7: 1}), (17, {})):
+        kids = _words(rng, (8, 4 << top), cuda)[:, 2 << top:]
+        cols = {k: _words(rng, (c, 1 << k), cuda) for k, c in sig.items()}
+        _same_layers(*_tree_on_the_card(cols, kids, top))
+
+
+def test_blake2s_tree_small_prove_signatures_on_the_card(cuda):
+    rng = np.random.default_rng(9)
+    for sig in chip_smoke._recorded_signatures(chip_smoke.SMALL_CODE,
+                                               chip_smoke.SMALL_INPUT.encode()):
+        cols = {k: _words(rng, (c, 1 << k), cuda) for k, c in sig}
+        got, want = _tree_on_the_card(cols)
+        _same_layers(got, want)
+        host = merkle.commit({k: m.cpu() for k, m in cols.items()})
+        assert all(torch.equal(host.layers[k], got[k].cpu()) for k in host.layers)
+
+
+def test_blake2s_two_trees_back_to_back_on_one_stream(cuda):
+    rng = np.random.default_rng(10)
+    trees = [{k: _words(rng, (c, 1 << k), cuda) for k, c in sig.items()}
+             for sig in ({20: 4}, {19: 8, 18: 57, 10: 1})]
+    got = [merkle.hash_levels(None, cols, max(cols)) for cols in trees]  # no sync between
+    for layers, cols in zip(got, trees):
+        _same_layers(layers, blake2s_kernels.tree_plain(None, cols, max(cols)))
+
+
+def test_blake2s_tree_repeated_commits_agree(cuda):
+    """The cross-CTA reads: 50 commits of one large tree back to back, each
+    equal to the plain tree."""
+    rng = np.random.default_rng(11)
+    cols = {k: _words(rng, (c, 1 << k), cuda) for k, c in {21: 8, 20: 57, 19: 4, 12: 1}.items()}
+    want = blake2s_kernels.tree_plain(None, cols, 21)
+    runs = [merkle.hash_levels(None, cols, 21) for _ in range(chip_smoke.TREE_REPEATS)]
+    for layers in runs:
+        _same_layers(layers, want)
+
+
+def test_blake2s_commit_over_four_shards_of_the_card(cuda):
+    """D = 4 shards sharing the card: one tree launch a shard and one for
+    the top, the layers and root equal to one device's."""
+    rng = np.random.default_rng(12)
+    cols = {k: _words(rng, (c, 1 << k), cuda) for k, c in {18: 3, 12: 5, 1: 2}.items()}
+    launches = blake2s_kernels.KERNELS.launches["tree"]
+    tree = commit_sharded(make_mesh(4, cuda), cols)
+    assert blake2s_kernels.KERNELS.launches["tree"] - launches == 5
+    single = merkle.commit(cols)
+    assert tree.root == single.root
+    for k, layer in single.layers.items():
+        got = tree.layers[k]
+        assert torch.equal(got if isinstance(got, torch.Tensor) else got.full(), layer)
 
 
 @pytest.mark.parametrize("tree", [{3: 4}, {12: 4}, {14: 3, 12: 17, 9: 1, 4: 2},
@@ -244,7 +325,7 @@ def test_merkle_commit_on_the_card_matches_cpu(cuda, tree):
     got = merkle.commit({k: torch.as_tensor(v, device=cuda) for k, v in cols.items()})
     want = merkle.commit({k: torch.as_tensor(v) for k, v in cols.items()})
     plan = blake2s_kernels.launch_plan([(k, v.shape[0]) for k, v in cols.items()])
-    for kind in ("level", "tail"):
+    for kind in blake2s_kernels.ENTRIES:
         assert blake2s_kernels.KERNELS.launches[kind] - launches[kind] == sum(
             s[0] == kind for s in plan)
     assert blake2s.PLAIN_CUDA_CALLS == calls

@@ -213,6 +213,6 @@ def test_distributed_cli_under_torchrun(tmp_path):
     assert res.returncode == 0, res.stderr.decode()[-3000:]
     assert res.stderr.count(b"Proof written") == 1
     assert res.stderr.count(b"Circle FFT kernel launches") == 2
-    assert res.stderr.count(b"Blake2s kernel launches: level 0, tail 0, grind 0") == 2
+    assert res.stderr.count(b"Blake2s kernel launches: tree 0, level 0, grind 0") == 2
     assert res.stderr.count(b"DEBUG PCS config") == 2
     _check_proof(tmp_path / "proof.json")
