@@ -81,7 +81,19 @@ Phases (any failure raises and the script exits non-zero):
      counts must have risen (the tree kernel once a commit on one device,
      at most once a shard and once for the top on the mesh), no plain FFT
      or Blake2s may have run on a CUDA tensor and no M31 kernel or plain
-     M31 op.
+     M31 op;
+  9. production parameters (PcsConfig(log_blowup=4, n_queries=30,
+     pow_bits=16)), counts at 0 first: the fused extend against its plain
+     version, bit for bit, at every extend shape of a production fib19_io
+     prove (input 19; up to (4, 2^24) -> 2^28); the small program's proof
+     against the JAX package's sha256 (small_production), verified;
+     fib19_io at its 2^18-table input (16) proved cold and warm, one
+     sha256, verified, the grind kernel once a prove, the tree kernel once a
+     commit;
+  10. the bench: `python -m stwo_brainfuck_tpu_torch.bench` in a process
+     (BENCH_BIG=0), sent SIGTERM after its headline and small rows: one
+     final line (printed here as the `bench` line) with the fib19_io
+     headline's JAX sha256, verified, and every suite row listed.
 The last line of stdout is the JSON result; the line before it lists the
 kernels, the one before that names the card. Needs no jax.
 
@@ -108,7 +120,9 @@ import shutil
 import socket
 import subprocess
 import sys
+import signal
 import tempfile
+import threading
 import time
 import struct
 import traceback
@@ -117,17 +131,15 @@ from unittest import mock
 import numpy as np
 import torch
 
-from stwo_brainfuck_tpu_torch import air, cli
+from stwo_brainfuck_tpu_torch import air, bench, cli
 from stwo_brainfuck_tpu_torch.components import device_build, tables
 from stwo_brainfuck_tpu_torch.components.defs import COMPONENT_CLASSES
 from stwo_brainfuck_tpu_torch.core import blake2s, fft, merkle
-from stwo_brainfuck_tpu_torch.core import fri, quotients
 from stwo_brainfuck_tpu_torch.core.channel import _plain_grind
 from stwo_brainfuck_tpu_torch.core.pcs import PcsConfig
 from stwo_brainfuck_tpu_torch.ops import blake2s_kernels, circle_fft, m31_kernels, nvcc
 from stwo_brainfuck_tpu_torch.parallel import fft_sharded
 from stwo_brainfuck_tpu_torch.parallel.merkle_sharded import commit_sharded
-from stwo_brainfuck_tpu_torch.parallel import prove as sharded_prove
 from stwo_brainfuck_tpu_torch.parallel.mesh import make_mesh
 from stwo_brainfuck_tpu_torch.vm.compiler import compile_program
 from stwo_brainfuck_tpu_torch.vm.machine import create_test_machine
@@ -135,13 +147,13 @@ from stwo_brainfuck_tpu_torch.vm.machine import create_test_machine
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # sha256 of json.dumps(proof, sort_keys=True) of the JAX package's proofs
-# (stwo_brainfuck_tpu.air.prove_brainfuck, default config, JAX on the CPU).
-REFERENCE_SHA256 = {
-    "small": "ff791b1d69f378cb26ffaba5fd7e5ef59e375e60a39e6ae89333ec77b3994b52",
-    "fib19_io": "05c19f764ada70a3d6b8bc814d24bc6baf50cf1bde7ca979242eb61de4950860",
-    # the small program at the CLI's --pow-bits 16 (the device grind's path)
-    "small_pow16": "c8343b33e0d5cdf0c6ef2fd4662bdf782403d60fcf6bf154a494de2b1a3f3e45",
-}
+# (stwo_brainfuck_tpu.air.prove_brainfuck with JAX on the CPU): "small" and
+# "fib19_io" at the default config, "small_pow16" at pow_bits 16 and
+# "small_production" at PcsConfig(log_blowup=4, n_queries=30, pow_bits=16,
+# log_max_rows=0); kept with the bench, which checks them too
+REFERENCE_SHA256 = bench.REFERENCE_SHA256
+proof_sha256 = bench.proof_sha256
+PRODUCTION = bench.CONFIGS["production"]
 SMALL_CODE = "+++>,<[>+.<-]"
 SMALL_INPUT = "\x01"
 FIB_INPUT = bytes([19])
@@ -193,10 +205,6 @@ M31_EDGES = (0, 1, 2**16 - 1, 2**16, 2**31 - 2)
 P = 2**31 - 1
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 MAX_SM_HZ = 1.98e9  # H100 SXM boost clock, for the length of a sleep kernel
-
-
-def proof_sha256(proof: dict) -> str:
-    return hashlib.sha256(json.dumps(proof, sort_keys=True).encode()).hexdigest()
 
 
 def _line(tag: str, obj) -> None:
@@ -814,13 +822,9 @@ def phase_blake2s(per_compress: float, dispatch_per_s: float, fib_code: str,
 
 
 def _clear_prover_caches() -> None:
-    """Drop every cached device tensor the provers keep (twiddle tables,
-    domain points, fold twiddles, the ladder tree, the mesh's gathers), so
-    that a cold prove builds its own and its peak counts only them."""
-    for cached in (fft.get_twiddles, circle_fft.twiddle_table, circle_fft.shard_twiddle_table,
-                   sharded_prove._permutation, air._preprocessed_tree, fri._fold_itw,
-                   quotients.domain_points_storage):
-        cached.cache_clear()
+    """Drop every cached device tensor the provers keep (air.clear_caches),
+    so that a cold prove builds its own and its peak counts only them."""
+    air.clear_caches()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -942,16 +946,22 @@ def phase_small(tag: str = "small", flags: tuple = (), reference: str = "small")
 
 
 def phase_program(name, path, inp, runs: int, expect_sha: str | None,
-                  n_shards: int = 0, fresh_verify: bool = False) -> dict:
-    """Prove (`runs` times, the first cold) and verify one program; on a
-    mesh of `n_shards` shards over the visible cards if n_shards > 0. With
-    fresh_verify, the last proof is also verified by the CLI in a new
-    process (`fresh_verify` line)."""
+                  n_shards: int = 0, fresh_verify: bool = False, config=None,
+                  tag: str | None = None) -> dict:
+    """Prove (`runs` times, the first cold) and verify one program at
+    `config` (the prover's default if None); on a mesh of `n_shards` shards
+    over the visible cards if n_shards > 0. With fresh_verify, the last
+    proof is also verified by the CLI in a new process (`fresh_verify`
+    line). Every proof of the program must have the same sha256 (expect_sha
+    if given). Above 13 pow_bits each prove must launch the grind kernel
+    exactly once (one batch of nonces)."""
     with open(path) as f:
         code = compile_program(f.read())
     mesh = make_mesh(n_shards, "cuda") if n_shards else None
-    tag = {"shards": n_shards, "devices": sorted({str(d) for d in mesh.devices})} if mesh else {}
+    where = {"shards": n_shards, "devices": sorted({str(d) for d in mesh.devices})} if mesh else {}
+    grind = config is not None and config.pow_bits > 13
     launched = 0
+    shas = set()
     for run in range(runs):
         machine = create_test_machine(code, inp)
         t0 = time.perf_counter()
@@ -962,10 +972,12 @@ def phase_program(name, path, inp, runs: int, expect_sha: str | None,
         timer = air.PhaseTimer("cuda")
         with _counting_commits() as counted:
             t1 = time.perf_counter()
-            proof = air.prove_brainfuck(machine, device="cuda", timer=timer, mesh=mesh)
+            proof = air.prove_brainfuck(machine, config, device="cuda", timer=timer, mesh=mesh)
             torch.cuda.synchronize()
             prove_s = time.perf_counter() - t1
-        launched = _check_launches(before, f"{name} prove")
+        launched = _check_launches(before, f"{name} prove", grind=grind)
+        if grind and launched["grind"] != 1:
+            raise AssertionError(f"{name} prove: {launched['grind']} grind launches, not one")
         trees = _trees_per_commit(launched, counted["commits"], len(mesh.local) if mesh else 0,
                                   f"{name} prove")
         peak = torch.cuda.max_memory_allocated()
@@ -975,8 +987,12 @@ def phase_program(name, path, inp, runs: int, expect_sha: str | None,
         sha = proof_sha256(proof)
         if expect_sha is not None and sha != expect_sha:
             raise AssertionError(f"{name} proof sha256 {sha} != JAX reference")
-        _line("sharded" if mesh else name, {
-            **({"program": name, **tag} if mesh else {}),
+        shas.add(sha)
+        if len(shas) != 1:
+            raise AssertionError(f"{name}: two proves of one execution differ: {sorted(shas)}")
+        _line(tag or ("sharded" if mesh else name), {
+            **({"program": name, **where} if mesh or tag else {}),
+            **({"pcs_config": config.to_json()} if config is not None else {}),
             "run": "cold" if run == 0 else "warm", "vm": machine.vm, "steps": steps,
             "vm_s": t1 - t0, "prove_s": prove_s, "verify_s": verify_s,
             "khz": steps / prove_s / 1e3, "proof_bytes": len(json.dumps(proof)),
@@ -1058,6 +1074,166 @@ def phase_split(name: str, path: str, inp: bytes) -> dict:
            "sync_wait_s": wait_us / 1e6, "top_device_us": dict(top)}
     _line("phase_split", out)
     return out
+
+
+def production_extends(fib_path: str) -> list:
+    """The fused extends a PRODUCTION prove of fib19_io at input 19 launches:
+    (columns, n) of each (tree, trace size) group of its main, interaction
+    and composition trees (air.build_layout of its claim), each blown up by
+    PRODUCTION.log_blowup; the composition's is (4, 2^24) -> 2^28."""
+    with open(fib_path) as f:
+        machine = create_test_machine(compile_program(f.read()), FIB_INPUT)
+    machine.execute()
+    claim = device_build.build_meta(machine.trace(), machine.program()).claim
+    layout = air.build_layout(claim, PRODUCTION)
+    groups: dict = {}
+    for ti in (1, 2, 3):
+        for meta in layout.trees[ti]:
+            groups[(ti, meta.log_size)] = groups.get((ti, meta.log_size), 0) + 1
+    return sorted({(cols, n) for (_, n), cols in groups.items()}, key=lambda s: (s[1], s[0]))
+
+
+def phase_production_fft(shapes: list) -> dict:
+    """The fused extend kernel against its plain version on the card, bit
+    for bit, at every production extend shape (blowup PRODUCTION.log_blowup),
+    each shape on fresh random values; the largest also timed after a
+    warm-up (the kernel's mean of three runs, the plain version's one)."""
+    rng = np.random.default_rng(3)
+    blowup = PRODUCTION.log_blowup
+    max_err = 0
+    times = {}
+    for cols, n in shapes:
+        x = torch.as_tensor(rng.integers(0, P, (cols, 1 << n)).astype(np.int32), device="cuda")
+        launches = circle_fft.KERNEL.launches
+        got = fft.extend_with_coeffs(x, n, blowup)
+        if circle_fft.KERNEL.launches - launches != len(
+                circle_fft.launch_plan("extend", n, cols, blowup)):
+            raise AssertionError(f"production extend ({cols}, 2^{n}): launches differ from its plan")
+        want = fft.extend_plain(x, n, blowup)
+        for g, w, what in zip(got, want, ("coefficients", "extension")):
+            err = 0 if torch.equal(g, w) else int((g.to(torch.int64) - w).abs().max())
+            max_err = max(max_err, err)
+            if err:
+                raise AssertionError(f"production extend ({cols}, 2^{n}) -> 2^{n + blowup}: "
+                                     f"kernel != plain in the {what}")
+        del got, want
+        if (cols, n) == shapes[-1]:
+            times[f"extend ({cols}, 2^{n}) blowup {blowup}"] = {
+                "kernel_ms": _time_ms(lambda: fft.extend_with_coeffs(x, n, blowup), reps=3),
+                "plain_ms": _time_ms(lambda: fft.extend_plain(x, n, blowup), reps=1)}
+        del x
+        _clear_prover_caches()
+    out = {"shapes": [[c, n] for c, n in shapes], "log_blowup": blowup,
+           "comparisons": 2 * len(shapes), "tolerance": 0, "max_abs_err": max_err,
+           "times": times}
+    _line("production_fft", out)
+    return out
+
+
+def phase_production(fib_path: str) -> dict:
+    """PRODUCTION (PcsConfig(log_blowup=4, n_queries=30, pow_bits=16)) on
+    the card, counts at 0 first: the fused extend at fib19_io's production
+    shapes against its plain version; the small program's proof against
+    the JAX package's sha256, verified; fib19_io at its 2^18-table input
+    (bench.FIB_2_18_INPUT) proved cold and warm (one sha256), verified, the
+    grind launched once a prove and the tree kernel once a commit. Returns
+    the launches of its proves."""
+    fft_check = phase_production_fft(production_extends(fib_path))
+    _reset_counts()
+    machine = create_test_machine(compile_program(SMALL_CODE), SMALL_INPUT.encode())
+    machine.execute()
+    before = _counts()
+    with _counting_commits() as counted:
+        proof = air.prove_brainfuck(machine, PRODUCTION, device="cuda")
+    torch.cuda.synchronize()
+    launched = _check_launches(before, "small production", grind=True)
+    _trees_per_commit(launched, counted["commits"], 0, "small production")
+    sha = proof_sha256(proof)
+    if sha != REFERENCE_SHA256["small_production"]:
+        raise AssertionError(f"small production proof sha256 {sha} != JAX reference")
+    air.verify_brainfuck(proof, device="cuda")
+    _line("production", {"program": "small", "pcs_config": PRODUCTION.to_json(), "sha256": sha,
+                         "matches_jax": True, "verified": True,
+                         "blake2s_launches": {k: launched[k] for k in blake2s_kernels.ENTRIES}})
+    phase_program("fib19_io", fib_path, bench.FIB_2_18_INPUT, runs=2, expect_sha=None,
+                  config=PRODUCTION, tag="production")
+    launched = _require(_counts(), fft.PLAIN_CUDA_CALLS, blake2s.PLAIN_CUDA_CALLS,
+                        "the production path", grind=True)
+    _clear_prover_caches()
+    return {"launches": launched, "max_abs_err": fft_check["max_abs_err"]}
+
+
+def phase_bench() -> dict:
+    """`python -m stwo_brainfuck_tpu_torch.bench` in a subprocess with
+    BENCH_BIG=0 (big22 is proved above), sent SIGTERM once the headline and
+    the small row are done: its one final line (printed on an earlier line
+    here as `bench`) must carry the fib19_io headline's JAX sha256, verified,
+    with three warm runs, and list every suite row (the production rows
+    "not reached: signal 15"); the process exits 0 and leaves no child.
+    Returns the headline's kernel launches (from the bench's suite file)."""
+    def bench_children() -> list:
+        found = []
+        for pid in filter(str.isdigit, os.listdir("/proc")):
+            try:
+                with open(f"/proc/{pid}/cmdline", "rb") as f:
+                    cmd = f.read().split(b"\0")
+            except OSError:
+                continue
+            if b"stwo_brainfuck_tpu_torch.bench" in cmd and b"--one" in cmd:
+                found.append(int(pid))
+        return found
+
+    with tempfile.TemporaryDirectory() as tmp:
+        suite_path = os.path.join(tmp, "suite.json")
+        env = dict(os.environ, BENCH_BIG="0", BENCH_SUITE_PATH=suite_path)
+        proc = subprocess.Popen([sys.executable, "-m", "stwo_brainfuck_tpu_torch.bench"],
+                                cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        watchdog = threading.Timer(DIST_TIMEOUT_S, proc.kill)
+        watchdog.start()
+        seen = []
+        try:
+            for line in proc.stderr:
+                seen.append(line)
+                if line.startswith("# small:"):
+                    proc.send_signal(signal.SIGTERM)
+                    break
+            out, err = proc.communicate(timeout=DIST_TIMEOUT_S)
+        finally:
+            watchdog.cancel()
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        err = "".join(seen) + err
+        lines = [ln for ln in out.splitlines() if ln.strip()]
+        if proc.returncode != 0 or len(lines) != 1:
+            raise AssertionError(f"bench exited {proc.returncode} with {len(lines)} stdout "
+                                 f"lines:\n{out[-2000:]}\n{err[-4000:]}")
+        final = json.loads(lines[0])
+        with open(suite_path) as f:
+            rows = json.load(f)["rows"]
+    head = rows["fib19_io"]
+    want_rows = {"big22": {"skipped": "BENCH_BIG=0"},
+                 "fib19_io_production": {"skipped": "not reached: signal 15"},
+                 "fib19_io_in16_production": {"skipped": "not reached: signal 15"}}
+    problems = []
+    if len(lines[0]) >= 2000:
+        problems.append(f"final line of {len(lines[0])} characters")
+    if final["sha256"] != REFERENCE_SHA256["fib19_io"] or final["verified"] is not True:
+        problems.append("headline sha256 or verified")
+    if len(final["warm_runs_s"]) < 3 or not final["partial"].startswith("signal 15"):
+        problems.append("warm runs or partial")
+    if set(final["suite"]) != set(bench.SUITE) or final["suite"]["small"].get("ok") is not True:
+        problems.append(f"suite rows {sorted(final['suite'])}")
+    problems += [f"row {k}: {rows[k]}" for k, v in want_rows.items() if rows[k] != v]
+    if bench_children():
+        problems.append(f"child processes left: {bench_children()}")
+    if problems:
+        raise AssertionError(f"bench final line: {problems}:\n{lines[0]}")
+    _line("bench", final)
+    launched = head["kernel_launches"]
+    _require(launched, 0, 0, "the bench's headline")
+    return launched
 
 
 def _free_port() -> int:
@@ -1534,6 +1710,10 @@ def main(argv) -> int:
     main_path = _require(_counts(), fft.PLAIN_CUDA_CALLS, blake2s.PLAIN_CUDA_CALLS,
                          "the main path", grind=True)
     fft_launches = main_path["fft"]
+    _clear_prover_caches()
+    # production parameters (counts at 0 inside), then the bench in a process
+    production = phase_production(fib_path)
+    bench_path = phase_bench()
 
     headline = kern["times"]["evaluate (4, 2^24)"]
     kernels = [{
@@ -1543,8 +1723,11 @@ def main(argv) -> int:
                     "stwo_brainfuck_tpu/ops/fft_pallas.py:402 (_make_pass2)",
         "launches": fft_launches,
         "launches_by_path": {"prover": fft_launches, "sharded_prover": sharded["fft"],
-                             "distributed_prover": distributed["fft"]},
-        "max_abs_err": max(kern["max_abs_err"], sharded_fft["max_abs_err"]),
+                             "distributed_prover": distributed["fft"],
+                             "production": production["launches"]["fft"],
+                             "bench": bench_path["fft"]},
+        "max_abs_err": max(kern["max_abs_err"], sharded_fft["max_abs_err"],
+                           production["max_abs_err"]),
         "ms": headline["kernel_ms"], "plain_ms": headline["plain_ms"],
         "bound_ms": headline["bound_ms"], "bound_by": headline["bound_by"],
         "library_ms": None,
@@ -1565,7 +1748,8 @@ def main(argv) -> int:
     for entry in blake2s_kernels.ENTRIES:
         t = blake["times"][headlines[entry]]
         by_path = {"prover": main_path[entry], "sharded_prover": sharded[entry],
-                   "distributed_prover": distributed[entry]}
+                   "distributed_prover": distributed[entry],
+                   "production": production["launches"][entry], "bench": bench_path[entry]}
         if entry == "level":  # on no prove path: its own, hash_words
             by_path["hash_words"] = blake["hash_words_launches"]
         kernels.append({

@@ -68,6 +68,12 @@ class VerificationError(Exception):
     pass
 
 
+# The phases prove_brainfuck marks, in order: a phase's time runs from the
+# mark before it to its own.
+PHASES = ("trace", "tables", "tree0", "tree1", "interaction", "tree2", "composition", "tree3",
+          "oods", "quotients", "fri", "pow", "decommit")
+
+
 class PhaseTimer:
     """Wall time per prover phase. On a CUDA device each mark synchronizes
     first, so a phase's time includes its device work (only when a timer is
@@ -84,6 +90,10 @@ class PhaseTimer:
         now = time.perf_counter()
         self.seconds[name] = self.seconds.get(name, 0.0) + now - self._t
         self._t = now
+
+    def current(self) -> str:
+        """The phase running now: the first of PHASES not marked yet."""
+        return next((p for p in PHASES if p not in self.seconds), "done")
 
 
 def canonical_device(device) -> torch.device:
@@ -112,6 +122,20 @@ def _preprocessed_tree(ladder: tuple, log_blowup: int, device: str) -> TreeProve
         for lg in ladder
     ]
     return TreeProver.from_records(records, cfg)
+
+
+def clear_caches() -> None:
+    """Drop every device tensor the provers keep between proves (twiddle
+    tables, domain points, fold twiddles, the ladder tree, the mesh's
+    permutations), so that the next prove builds its own and the caching
+    allocator can hand their memory back (torch.cuda.empty_cache)."""
+    from .ops import circle_fft
+    from .parallel import prove as sharded_prove
+
+    for cached in (fft.get_twiddles, circle_fft.twiddle_table, circle_fft.shard_twiddle_table,
+                   sharded_prove._permutation, _preprocessed_tree, fri._fold_itw,
+                   quotients.domain_points_storage):
+        cached.cache_clear()
 
 
 @lru_cache(maxsize=16)
@@ -491,6 +515,14 @@ def _verify_brainfuck_inner(proof: dict, min_config: Optional[PcsConfig], device
     except ProvingError as exc:
         raise VerificationError(str(exc))
     blow = config.log_blowup
+    # the proof's shape first: the recompute below hashes a ladder of up to
+    # 2^(24 + blowup) leaves, which a malformed proof must not cost
+    for tvals, metas in zip(sampled, layout.trees):
+        if len(tvals) != len(metas):
+            raise VerificationError("bad sampled value count")
+        for cvals, meta in zip(tvals, metas):
+            if len(cvals) != len(meta.shifts):
+                raise VerificationError("bad sample point count")
 
     # The preprocessed (is_first ladder) root is a deterministic function of
     # the config/claim — recomputed, never trusted from the proof.
@@ -512,12 +544,6 @@ def _verify_brainfuck_inner(proof: dict, min_config: Optional[PcsConfig], device
     channel.mix_root(roots[3])
     z = point_from_t(channel.draw_felt())
 
-    for tvals, metas in zip(sampled, layout.trees):
-        if len(tvals) != len(metas):
-            raise VerificationError("bad sampled value count")
-        for cvals, meta in zip(tvals, metas):
-            if len(cvals) != len(meta.shifts):
-                raise VerificationError("bad sample point count")
     for tvals in sampled:
         for cvals in tvals:
             channel.mix_felts([tuple(v) for v in cvals])

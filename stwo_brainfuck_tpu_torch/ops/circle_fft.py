@@ -265,15 +265,18 @@ class CircleFFTKernel:
                 tw_fwd = (twiddles if twiddles is not None
                           else twiddle_table(n + log_blowup, False, dev))
             ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-            stream = torch.cuda.current_stream(x.device).cuda_stream
-            for a in launch_plan(op, n, rows, log_blowup, scale):
-                rc = lib.circle_fft_pass(
-                    ptr(bufs[a.src]), ptr(bufs[a.dst]), ptr(bufs.get(a.ext)), ptr(tw_inv),
-                    ptr(tw_fwd), a.mode, a.n, a.copies_log, a.l0, a.s_count, a.w_log,
-                    a.radix, a.rows, a.rows_per_block, a.scale, stream)
-                if rc != 0:
-                    raise RuntimeError(f"circle FFT launch failed: CUDA error {rc}")
-                self.launches += 1
+            # x's card is the current device for the launches: a card's
+            # default stream is handle 0, which names the current device's
+            with torch.cuda.device(x.device):
+                stream = torch.cuda.current_stream(x.device).cuda_stream
+                for a in launch_plan(op, n, rows, log_blowup, scale):
+                    rc = lib.circle_fft_pass(
+                        ptr(bufs[a.src]), ptr(bufs[a.dst]), ptr(bufs.get(a.ext)), ptr(tw_inv),
+                        ptr(tw_fwd), a.mode, a.n, a.copies_log, a.l0, a.s_count, a.w_log,
+                        a.radix, a.rows, a.rows_per_block, a.scale, stream)
+                    if rc != 0:
+                        raise RuntimeError(f"circle FFT launch failed: CUDA error {rc}")
+                    self.launches += 1
         if op == "extend":
             return bufs["coeffs"], bufs["ext"]
         return bufs["out"]

@@ -66,14 +66,15 @@ class M31Kernels:
         if n == 0:
             return out
         lib = self.lib.load()
-        stream = torch.cuda.current_stream(dev).cuda_stream
         ptrs = [x.data_ptr() for x in xs]
-        if kind == "mul":
-            rc = lib.m31_mul(*ptrs, out.data_ptr(), n, stream)
-        elif kind == "mul_add":
-            rc = lib.m31_mul_add(*ptrs, out.data_ptr(), n, stream)
-        else:
-            rc = lib.m31_mul_chain(*ptrs, out.data_ptr(), n, chain, stream)
+        with torch.cuda.device(dev):  # the card's default stream is the current device's
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            if kind == "mul":
+                rc = lib.m31_mul(*ptrs, out.data_ptr(), n, stream)
+            elif kind == "mul_add":
+                rc = lib.m31_mul_add(*ptrs, out.data_ptr(), n, stream)
+            else:
+                rc = lib.m31_mul_chain(*ptrs, out.data_ptr(), n, chain, stream)
         if rc != 0:
             raise RuntimeError(f"M31 {kind} launch failed: CUDA error {rc}")
         self.launches[kind] += 1

@@ -187,7 +187,8 @@ def test_port_imports_without_jax():
             "stwo_brainfuck_tpu_torch.parallel.merkle_sharded, "
             "stwo_brainfuck_tpu_torch.parallel.sharded, "
             "stwo_brainfuck_tpu_torch.parallel.prove, "
-            "stwo_brainfuck_tpu_torch.parallel.multihost; import chip_smoke; "
+            "stwo_brainfuck_tpu_torch.parallel.multihost, stwo_brainfuck_tpu_torch.bench; "
+            "import chip_smoke; "
             "assert 'stwo_brainfuck_tpu' not in sys.modules; print('ok')")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)

@@ -129,6 +129,43 @@ def test_sharded_small_proof_on_the_card_matches_jax_reference(cuda):
     air.verify_brainfuck(proof, device=cuda)
 
 
+@pytest.fixture
+def cards(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA cards")
+    return [torch.device("cuda", k) for k in range(torch.cuda.device_count())]
+
+
+def test_kernels_on_a_card_that_is_not_the_current_device(cards):
+    """Each kernel launches on its tensor's card whichever card is current
+    (a card's default stream is the handle 0, the current device's)."""
+    rng = np.random.default_rng(5)
+    x = rng.integers(0, P, (8, 1 << 16)).astype(np.int32)
+    want = fft.evaluate_plain(torch.as_tensor(x), 16)
+    a = rng.integers(0, P, 1 << 16).astype(np.int32)
+    with torch.cuda.device(cards[0]):
+        for card in cards[1:]:
+            got = circle_fft.evaluate(torch.as_tensor(x, device=card), 16)
+            assert torch.equal(got.cpu(), want)
+            t = torch.as_tensor(a, device=card)
+            assert torch.equal(m31_kernels.mul(t, t).cpu(), m31_kernels.mul_plain(
+                torch.as_tensor(a), torch.as_tensor(a)))
+
+
+def test_mesh_over_every_card_matches_one_device(cards):
+    """The one-process mesh with a shard on each card gives the one-device
+    proof's bytes."""
+    with open(f"{chip_smoke.ROOT}/programs/fib19_io.bf") as f:
+        m = create_test_machine(compile_program(f.read()), bytes([5]))
+    m.execute()
+    want = air.prove_brainfuck(m, device=cards[0])
+    d = 1 << (len(cards).bit_length() - 1)
+    mesh = make_mesh(d, "cuda")
+    assert len({str(dev) for dev in mesh.devices}) == d
+    got = air.prove_brainfuck(m, device=cards[0], mesh=mesh)
+    assert chip_smoke.proof_sha256(got) == chip_smoke.proof_sha256(want)
+
+
 def test_one_ladder_tree_per_card(cuda):
     """The mesh names the card cuda:0 and the verifier is asked for "cuda":
     both resolve to one cache key, so the verify after a mesh prove finds
