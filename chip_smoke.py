@@ -4,7 +4,7 @@
 
 Phases (any failure raises and the script exits non-zero):
   1. device report: the card's name, power limit and clocks, CUDA version,
-     kernel build time (the three kernel libraries are built with nvcc from
+     kernel build time (the four kernel libraries are built with nvcc from
      stwo_brainfuck_tpu_torch/csrc/ into stwo_brainfuck_tpu_torch/build/,
      one nvcc per source, started together), and the SASS instruction
      counts of one M31 product, m31::mul, the FFT's m31::mul_doubled and
@@ -42,7 +42,14 @@ Phases (any failure raises and the script exits non-zero):
      rate, one warp's latency) and both versions timed at the main path's
      shapes (the 2^20-leaf FRI layer tree and every fib19_io tree as whole
      commits) beside the dispatch bound, the bound at the measured rate
-     and a tree's root-chain latency floor;
+     and a tree's root-chain latency floor; the grind's whole calls at
+     pow_bits 16 (the small_pow16 proof's digest and GRIND_TIMED more)
+     beside the work the search needs at the measured rate plus one
+     launch and read; then the quotient kernel against its plain version
+     on the card, bit for bit, at every quotient shape of a fib19_io prove
+     at the default config and at production parameters (up to (4, 2^28),
+     the plain version in 2^24-position ranges), the default shapes and
+     the 2^28 one timed beside the bounds;
   6. the mesh prover (stwo_brainfuck_tpu_torch/parallel/, D shards sharing
      the one card): the sharded evaluate, interpolate and extend (D 2, 4, 8;
      n 16, 20, 24; 1 and 8 columns) against the one-device kernel and the
@@ -50,8 +57,9 @@ Phases (any failure raises and the script exits non-zero):
      timed beside the one-device kernel's; then, counts set to 0 first, the
      small program through the CLI with --devices 8 (sha256, tamper) and
      fib19_io at D = 2 and 4 (sha256, verify), each with its per-phase
-     split, peak device memory and FFT and Blake2s launches, no plain FFT
-     or Blake2s on a CUDA tensor and no M31 kernel; the small program also
+     split, peak device memory and FFT, Blake2s and quotient launches, no
+     plain FFT, Blake2s or quotient call on a CUDA tensor and no M31
+     kernel; the small program also
      at --pow-bits 16 with --devices 8 (the grind kernel);
   7. multi-process proving over torch.distributed
      (stwo_brainfuck_tpu_torch/parallel/multihost.py, one shard a process):
@@ -77,19 +85,23 @@ Phases (any failure raises and the script exits non-zero):
      device memory, then one more warm fib19_io prove under
      torch.profiler (device busy share, host syncs and the time waiting
      in them).
-     After each prove the FFT kernel's and the Blake2s tree kernel's launch
-     counts must have risen (the tree kernel once a commit on one device,
-     at most once a shard and once for the top on the mesh), no plain FFT
-     or Blake2s may have run on a CUDA tensor and no M31 kernel or plain
-     M31 op;
+     After each prove the FFT kernel's, the Blake2s tree kernel's and the
+     quotient kernel's launch counts must have risen (the tree kernel once
+     a commit on one device, at most once a shard and once for the top on
+     the mesh), no plain FFT, Blake2s or quotient call may have run on a
+     CUDA tensor and no M31 kernel or plain M31 op;
   9. production parameters (PcsConfig(log_blowup=4, n_queries=30,
-     pow_bits=16)), counts at 0 first: the fused extend against its plain
+     pow_bits=16)): the memory reading (production_memory: one cold
+     fib19_io prove at input 19 under the allocator's history, its peak,
+     the phase at the peak and the largest blocks live then with their
+     allocation stacks); then, counts at 0 first: the fused extend against its plain
      version, bit for bit, at every extend shape of a production fib19_io
      prove (input 19; up to (4, 2^24) -> 2^28); the small program's proof
      against the JAX package's sha256 (small_production), verified;
-     fib19_io at its 2^18-table input (16) proved cold and warm, one
-     sha256, verified, the grind kernel once a prove, the tree kernel once a
-     commit;
+     fib19_io at its 2^18-table input (16) and at input 19 (the
+     composition committed at 2^28 leaves) proved cold and warm, one
+     sha256 an input, verified, with peak device memory, the grind kernel
+     once a prove, the tree kernel once a commit;
   10. the bench: `python -m stwo_brainfuck_tpu_torch.bench` in a process
      (BENCH_BIG=0), sent SIGTERM after its headline and small rows: one
      final line (printed here as the `bench` line) with the fib19_io
@@ -102,6 +114,11 @@ kernels, the one before that names the card. Needs no jax.
 runs phase 7 alone, after one one-device fib19_io prove (cold and warm) to
 hold it against: on a machine with several cards (one process a card,
 NCCL) it is the multi-card check.
+
+    python3 chip_smoke.py production_memory
+
+runs the memory reading of phase 9 alone (and exits non-zero if that
+prove runs out of memory).
 """
 
 from __future__ import annotations
@@ -134,10 +151,11 @@ import torch
 from stwo_brainfuck_tpu_torch import air, bench, cli
 from stwo_brainfuck_tpu_torch.components import device_build, tables
 from stwo_brainfuck_tpu_torch.components.defs import COMPONENT_CLASSES
-from stwo_brainfuck_tpu_torch.core import blake2s, fft, merkle
+from stwo_brainfuck_tpu_torch.core import blake2s, fft, merkle, quotients
 from stwo_brainfuck_tpu_torch.core.channel import _plain_grind
 from stwo_brainfuck_tpu_torch.core.pcs import PcsConfig
-from stwo_brainfuck_tpu_torch.ops import blake2s_kernels, circle_fft, m31_kernels, nvcc
+from stwo_brainfuck_tpu_torch.ops import (blake2s_kernels, circle_fft, m31_kernels, nvcc,
+                                           quotient_kernels)
 from stwo_brainfuck_tpu_torch.parallel import fft_sharded
 from stwo_brainfuck_tpu_torch.parallel.merkle_sharded import commit_sharded
 from stwo_brainfuck_tpu_torch.parallel.mesh import make_mesh
@@ -200,11 +218,24 @@ PROBE_WARP_CHAIN = 256
 FRI_LOG = 20
 POW_BITS = tuple(range(8, 21))
 GRIND_DIGESTS = 3
+GRIND_TIMED = 4  # random digests timed at pow_bits 16, beside the small_pow16 proof's
 M31_SIZES = (1, 127, 128, 4097, 1 << 20, 1 << 24)
 M31_EDGES = (0, 1, 2**16 - 1, 2**16, 2**31 - 2)
 P = 2**31 - 1
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 MAX_SM_HZ = 1.98e9  # H100 SXM boost clock, for the length of a sleep kernel
+# the production memory reading: the largest live blocks listed at the
+# peak, and the allocator events recorded
+MEMORY_TOP = 10
+MEMORY_EVENTS = 500_000
+# the quotient kernel's checks: the plain version runs over ranges of
+# 2^QUOTIENT_CHUNK_LOG positions; production shapes from 2^QUOTIENT_TIMED_LOG
+# positions are timed; a group's M31 products besides its members' (B * py 4,
+# the vanishing line 8, the QM31 inverse 62 with its M31 inversion's 42, the
+# QM31 product 16)
+QUOTIENT_CHUNK_LOG = 24
+QUOTIENT_TIMED_LOG = 28
+QUOTIENT_GROUP_PRODUCTS = 90
 
 
 def _line(tag: str, obj) -> None:
@@ -539,21 +570,37 @@ def _recorded_signatures(code: str, inp: bytes) -> list:
     return list(dict.fromkeys(sigs))
 
 
-def _host_grinds(digest: bytes) -> dict:
-    """pow_bits -> the smallest valid nonce for every POW_BITS, by hashlib
-    over the nonces in order (one pass: a nonce valid for b + 1 bits is
-    valid for b)."""
+def _host_grinds(digest: bytes, pow_bits=POW_BITS) -> dict:
+    """pow_bits -> the smallest valid nonce for each of the consecutive
+    pow_bits, by hashlib over the nonces in order (one pass: a nonce valid
+    for b + 1 bits is valid for b)."""
     want = {}
-    bits = POW_BITS[0]
+    bits = pow_bits[0]
     nonce = 0
-    while bits <= POW_BITS[-1]:
+    while bits <= pow_bits[-1]:
         h = int.from_bytes(hashlib.blake2s(digest + struct.pack("<Q", nonce)).digest()[:4],
                            "little")
-        while bits <= POW_BITS[-1] and h & ((1 << bits) - 1) == 0:
+        while bits <= pow_bits[-1] and h & ((1 << bits) - 1) == 0:
             want[bits] = nonce
             bits += 1
         nonce += 1
     return want
+
+
+def _small_pow16_digest(small_code: str) -> bytes:
+    """The transcript digest the small program's prove at pow_bits 16 grinds
+    on (the small_pow16 proof's PoW), from a prove on the card."""
+    seen = []
+    real = blake2s_kernels.KERNELS.grind
+    machine = create_test_machine(compile_program(small_code), SMALL_INPUT.encode())
+    machine.execute()
+    with mock.patch.object(blake2s_kernels.KERNELS, "grind",
+                           lambda digest, bits, device: seen.append(digest) or real(
+                               digest, bits, device)):
+        air.prove_brainfuck(machine, PcsConfig(log_max_rows=0, pow_bits=16), device="cuda")
+    if len(seen) != 1:
+        raise AssertionError(f"the small prove at pow_bits 16 ground {len(seen)} times")
+    return seen[0]
 
 
 def _level_work(children: bool, cols: int, m: int) -> tuple:
@@ -758,16 +805,13 @@ def phase_blake2s(per_compress: float, dispatch_per_s: float, fib_code: str,
     times = {}
 
     def timed(key, entry, k_fn, p_fn, nbytes, compressions, call_fn=None, chain=None):
-        """kernel_ms: device time (the calls queued behind a sleep; the
-        grind reads 4 bytes a batch, so its time is whole calls); call_ms:
+        """kernel_ms: device time (the calls queued behind a sleep); call_ms:
         whole calls back to back (call_fn, k_fn by default), the wrapper's
         host work included."""
-        same(entry, k_fn() if entry != "grind" else torch.tensor(k_fn()),
-             p_fn() if entry != "grind" else torch.tensor(p_fn()), f"timed {key}")
-        call_ms = _time_ms(call_fn or k_fn, reps=10)
-        times[key] = {"entry": entry,
-                      "kernel_ms": call_ms if entry == "grind" else _time_ms(k_fn, 10, queued=True),
-                      "call_ms": call_ms, "plain_ms": _time_ms(p_fn, reps=2),
+        same(entry, k_fn(), p_fn(), f"timed {key}")
+        times[key] = {"entry": entry, "kernel_ms": _time_ms(k_fn, 10, queued=True),
+                      "call_ms": _time_ms(call_fn or k_fn, reps=10),
+                      "plain_ms": _time_ms(p_fn, reps=2),
                       "compressions": compressions,
                       **bound(nbytes, compressions * per_compress, dispatch_per_s),
                       "rate_bound_ms": compressions / rate * 1e3,
@@ -800,12 +844,25 @@ def phase_blake2s(per_compress: float, dispatch_per_s: float, fib_code: str,
           "level", lambda: K.KERNELS.level(wkids, wide), lambda: K.level_plain(wkids, wide),
           *_level_work(with_kids, c, 1 << k))
     del wide, wkids, kids
-    digest = rng.integers(0, 256, 32).astype(np.uint8).tobytes()
-    nonce = K.KERNELS.grind(digest, 16, "cuda")
-    batches = nonce // (1 << K.GRIND_BATCH_LOG) + 1
-    timed(f"grind: pow_bits 16 (nonce {nonce}, {batches} batch)", "grind",
-          lambda: K.KERNELS.grind(digest, 16, "cuda"), lambda: _plain_grind(digest, 16, "cuda"),
-          batches * (32 + 4), batches << K.GRIND_BATCH_LOG)
+    # the grind at pow_bits 16: whole calls (one launch and a 4-byte read)
+    # beside the work the search needs, (nonce + 1) compressions at the
+    # measured rate, plus one launch and 4-byte read (`launch_ms`)
+    flag = torch.empty(1, dtype=torch.int32, device="cuda")
+    launch_ms = _time_ms(lambda: flag.fill_(-1).item(), reps=10)
+    digests = [("small_pow16", _small_pow16_digest(small_code))] + [
+        (f"digest {i}", rng.integers(0, 256, 32).astype(np.uint8).tobytes())
+        for i in range(GRIND_TIMED)]
+    for name, digest in digests:
+        nonce = kernel(lambda: K.KERNELS.grind(digest, 16, "cuda"))
+        same("grind", torch.tensor(nonce), torch.tensor(_host_grinds(digest, (16,))[16]),
+             f"timed grind, {name}")
+        kernel_ms = _time_ms(lambda: K.KERNELS.grind(digest, 16, "cuda"), reps=10)
+        work_ms = (nonce + 1) / rate * 1e3
+        times[f"grind: pow_bits 16, {name} (nonce {nonce})"] = {
+            "entry": "grind", "kernel_ms": kernel_ms, "call_ms": kernel_ms,
+            "plain_ms": _time_ms(lambda: _plain_grind(digest, 16, "cuda"), reps=2),
+            "compressions": nonce + 1, "rate_bound_ms": work_ms, "launch_ms": launch_ms,
+            "bound_ms": work_ms + launch_ms, "bound_by": "operations"}
     torch.cuda.empty_cache()
     _line("blake2s_times", times)
 
@@ -836,11 +893,15 @@ def _reset_counts() -> None:
     blake2s.PLAIN_CUDA_CALLS = 0
     m31_kernels.KERNELS.launches = dict.fromkeys(m31_kernels.KINDS, 0)
     m31_kernels.PLAIN_CUDA_CALLS = 0
+    quotient_kernels.KERNEL.launches = 0
+    quotients.PLAIN_CUDA_CALLS = 0
 
 
 def _counts() -> dict:
-    """The prover's kernels' launch counts: the FFT and each Blake2s entry."""
-    return {"fft": circle_fft.KERNEL.launches, **blake2s_kernels.KERNELS.launches}
+    """The prover's kernels' launch counts: the FFT, each Blake2s entry and
+    the quotient kernel."""
+    return {"fft": circle_fft.KERNEL.launches, **blake2s_kernels.KERNELS.launches,
+            "quotients": quotient_kernels.KERNEL.launches}
 
 
 def _add_counts(a: dict, b: dict) -> dict:
@@ -874,11 +935,11 @@ def _trees_per_commit(launched: dict, commits: int, shards: int, what: str) -> d
 
 
 def _require(launched: dict, plain_fft: int, plain_blake: int, what: str,
-             grind: bool = False) -> dict:
-    """A prove's launches: the FFT and the Blake2s tree kernel (and the
-    grind where pow_bits > 13) launched, no plain FFT or Blake2s call on a
-    CUDA tensor."""
-    needed = ("fft", "tree") + (("grind",) if grind else ())
+             grind: bool = False, plain_quotients: int = 0) -> dict:
+    """A prove's launches: the FFT, the Blake2s tree kernel and the
+    quotient kernel (and the grind where pow_bits > 13) launched, no plain
+    FFT, Blake2s or quotient call on a CUDA tensor."""
+    needed = ("fft", "tree", "quotients") + (("grind",) if grind else ())
     missing = [k for k in needed if launched.get(k, 0) <= 0]
     if missing:
         raise AssertionError(f"{what}: not launched: {missing} ({launched})")
@@ -886,13 +947,20 @@ def _require(launched: dict, plain_fft: int, plain_blake: int, what: str,
         raise AssertionError(f"{what}: the plain FFT ran on a CUDA tensor")
     if plain_blake:
         raise AssertionError(f"{what}: the plain Blake2s ran on a CUDA tensor")
+    if plain_quotients:
+        raise AssertionError(f"{what}: the plain quotient accumulation ran on a CUDA tensor")
     return launched
+
+
+def _require_here(launched: dict, what: str, grind: bool = False) -> dict:
+    """_require with this process's plain-call counts."""
+    return _require(launched, fft.PLAIN_CUDA_CALLS, blake2s.PLAIN_CUDA_CALLS, what, grind,
+                    quotients.PLAIN_CUDA_CALLS)
 
 
 def _check_launches(before: dict, what: str, grind: bool = False) -> dict:
     now = _counts()
-    launched = _require({k: now[k] - before[k] for k in now}, fft.PLAIN_CUDA_CALLS,
-                        blake2s.PLAIN_CUDA_CALLS, what, grind)
+    launched = _require_here({k: now[k] - before[k] for k in now}, what, grind)
     if any(m31_kernels.KERNELS.launches.values()) or m31_kernels.PLAIN_CUDA_CALLS:
         raise AssertionError(f"{what}: an M31 kernel or plain M31 op ran on the prover path")
     return launched
@@ -941,6 +1009,7 @@ def phase_small(tag: str = "small", flags: tuple = (), reference: str = "small")
     _line(tag, {"flags": list(flags), "sha256": sha, "matches_jax": True,
                 "tamper_rejected": True, "fft_launches": launched["fft"],
                 "blake2s_launches": {k: launched[k] for k in blake2s_kernels.ENTRIES},
+                "quotient_launches": launched["quotients"],
                 **({"matches_cpu_proof": True} if pow16 else {})})
     return launched
 
@@ -999,7 +1068,8 @@ def phase_program(name, path, inp, runs: int, expect_sha: str | None,
             "claim_max_log": max(proof["claim"].values()),
             "phases_s": timer.seconds, "peak_device_bytes": peak,
             "fft_launches": launched["fft"],
-            "blake2s_launches": {k: launched[k] for k in blake2s_kernels.ENTRIES}, **trees,
+            "blake2s_launches": {k: launched[k] for k in blake2s_kernels.ENTRIES},
+            "quotient_launches": launched["quotients"], **trees,
             "sha256": sha, "matches_jax": None if expect_sha is None else True,
         })
         if fresh_verify and run == runs - 1:
@@ -1130,6 +1200,82 @@ def phase_production_fft(shapes: list) -> dict:
     return out
 
 
+def quotient_work(n: int, n_cols: int, groups) -> tuple:
+    """(bytes, M31 products) of the quotient at n positions: each column
+    word read once and the (4, n) output written once; a position's circle
+    multiplication (4 products) and, a group, 4 products a member for the
+    weighted sum and QUOTIENT_GROUP_PRODUCTS for B * py, the vanishing line,
+    the QM31 inverse and the QM31 product (csrc/quotients.cu)."""
+    per_point = 4 + sum(4 * len(idxs) + QUOTIENT_GROUP_PRODUCTS for _, _, idxs in groups)
+    return n * (4 * n_cols + 16), n * per_point
+
+
+def phase_quotients(fib_path: str, per_mul: float, dispatch_per_s: float) -> dict:
+    """The quotient kernel against its plain version on the card, bit for
+    bit, at every quotient shape of a fib19_io prove (input 19) at the
+    default config and at PRODUCTION: each launch's inputs, as the prove
+    gives them, also go through the plain version (quotients.accumulate_plain,
+    in ranges of 2^QUOTIENT_CHUNK_LOG positions). Every default shape and
+    the production shapes of 2^QUOTIENT_TIMED_LOG positions are timed (the
+    kernel's mean of five calls, the plain version's one pass over the
+    ranges) beside the bounds: `ms` device time (the calls queued behind a
+    sleep), `call_ms` whole calls back to back. Both proofs verify; the
+    default one carries the JAX package's sha256."""
+    K = quotient_kernels.KERNEL
+    real = K.accumulate
+    shapes, times = [], {}
+    max_err = 0
+    config_name = None
+
+    def plain(log_size, columns, groups, offset):
+        n = columns[0].shape[0]
+        step = min(n, 1 << QUOTIENT_CHUNK_LOG)
+        return [quotients.accumulate_plain(log_size, [c[s:s + step] for c in columns], groups,
+                                           offset + s) for s in range(0, n, step)]
+
+    def checked(log_size, columns, groups, offset=0):
+        nonlocal max_err
+        out = real(log_size, columns, groups, offset)
+        n = out.shape[1]
+        step = min(n, 1 << QUOTIENT_CHUNK_LOG)
+        for s, want in zip(range(0, n, step), plain(log_size, columns, groups, offset)):
+            err = int((out[:, s:s + step].to(torch.int64) - want.to(torch.int64)).abs().max())
+            max_err = max(max_err, err)
+            if err:
+                raise AssertionError(f"quotient kernel != plain at 2^{log_size}, positions "
+                                     f"{offset + s} .. {offset + s + step - 1}")
+        key = (f"{config_name} 2^{log_size}: {len(columns)} columns, groups of "
+               f"{[len(g[2]) for g in groups]}")
+        shapes.append(key)
+        if config_name == "default" or log_size >= QUOTIENT_TIMED_LOG:
+            nbytes, products = quotient_work(n, len(columns), groups)
+            call = lambda: real(log_size, columns, groups, offset)  # noqa: E731
+            times[key] = {
+                "ms": _time_ms(call, reps=5, queued=True), "call_ms": _time_ms(call, reps=5),
+                "plain_ms": _time_ms(lambda: plain(log_size, columns, groups, offset), reps=1),
+                "positions": n, "products": products,
+                **bound(nbytes, products * per_mul, dispatch_per_s)}
+        return out
+
+    with open(fib_path) as f:
+        code = compile_program(f.read())
+    with mock.patch.object(K, "accumulate", checked):
+        for config_name, config in (("default", None), ("production", PRODUCTION)):
+            _clear_prover_caches()
+            machine = create_test_machine(code, FIB_INPUT)
+            machine.execute()
+            proof = air.prove_brainfuck(machine, config, device="cuda")
+            if config is None and proof_sha256(proof) != REFERENCE_SHA256["fib19_io"]:
+                raise AssertionError("fib19_io proof under the quotient check != JAX reference")
+            air.verify_brainfuck(proof, device="cuda")
+            del proof
+    _clear_prover_caches()
+    out = {"shapes": shapes, "comparisons": len(shapes), "tolerance": 0, "max_abs_err": max_err,
+           "chunk_log": QUOTIENT_CHUNK_LOG, "times": times}
+    _line("quotients", out)
+    return out
+
+
 def phase_production(fib_path: str) -> dict:
     """PRODUCTION (PcsConfig(log_blowup=4, n_queries=30, pow_bits=16)) on
     the card, counts at 0 first: the fused extend at fib19_io's production
@@ -1155,12 +1301,113 @@ def phase_production(fib_path: str) -> dict:
     _line("production", {"program": "small", "pcs_config": PRODUCTION.to_json(), "sha256": sha,
                          "matches_jax": True, "verified": True,
                          "blake2s_launches": {k: launched[k] for k in blake2s_kernels.ENTRIES}})
-    phase_program("fib19_io", fib_path, bench.FIB_2_18_INPUT, runs=2, expect_sha=None,
-                  config=PRODUCTION, tag="production")
-    launched = _require(_counts(), fft.PLAIN_CUDA_CALLS, blake2s.PLAIN_CUDA_CALLS,
-                        "the production path", grind=True)
+    for inp in (bench.FIB_2_18_INPUT, FIB_INPUT):
+        phase_program("fib19_io", fib_path, inp, runs=2, expect_sha=None, config=PRODUCTION,
+                      tag="production")
+    launched = _require_here(_counts(), "the production path", grind=True)
     _clear_prover_caches()
     return {"launches": launched, "max_abs_err": fft_check["max_abs_err"]}
+
+
+class _PeakTimer(air.PhaseTimer):
+    """A PhaseTimer that also keeps each phase's peak allocated bytes (the
+    peak statistics are reset at every mark)."""
+
+    def __init__(self, device):
+        super().__init__(device)
+        self.peaks: dict = {}
+        torch.cuda.reset_peak_memory_stats(self.device)
+
+    def mark(self, name: str) -> None:
+        super().mark(name)
+        self.peaks[name] = torch.cuda.max_memory_allocated(self.device)
+        torch.cuda.reset_peak_memory_stats(self.device)
+
+
+def _blocks_at_peak(trace: list) -> tuple:
+    """Replay the allocator's trace of one device: (the most bytes live at
+    once, the blocks live then, the out-of-memory request if there was one).
+    A block allocated before the recording began is not in the trace."""
+    live, total, peak, at_peak, oom = {}, 0, 0, {}, None
+    for ev in trace:
+        if ev["action"] == "alloc":
+            live[ev["addr"]] = ev
+            total += ev["size"]
+            if total > peak:
+                peak, at_peak = total, dict(live)
+        elif ev["action"] == "free_completed":
+            gone = live.pop(ev["addr"], None)
+            total -= gone["size"] if gone else 0
+        elif ev["action"] == "oom":
+            oom = ev
+            if total >= peak:
+                peak, at_peak = total, dict(live)
+    return peak, list(at_peak.values()), oom
+
+
+def _frames(ev: dict, limit: int = 5) -> list:
+    """The block's allocation stack inside this repository, innermost first."""
+    out = []
+    for fr in ev.get("frames", []):
+        name = fr.get("filename", "")
+        if "stwo_brainfuck_tpu_torch" in name or name.endswith("chip_smoke.py"):
+            out.append(f"{os.path.relpath(name, ROOT)}:{fr.get('line')} {fr.get('name')}")
+        if len(out) == limit:
+            break
+    return out
+
+
+def phase_production_memory(fib_path: str) -> dict:
+    """One cold PRODUCTION prove of fib19_io at input 19 (every prover cache
+    cleared first) under torch.cuda.memory._record_memory_history: the peak
+    allocated bytes, each phase's peak and the phase at the peak
+    (air.PhaseTimer), and the MEMORY_TOP largest blocks live at the peak
+    with their sizes and allocation stacks (the allocator's trace
+    replayed). Raises after its line if the prove ran out of memory."""
+    _clear_prover_caches()
+    with open(fib_path) as f:
+        machine = create_test_machine(compile_program(f.read()), FIB_INPUT)
+    machine.execute()
+    timer = _PeakTimer("cuda")
+    torch.cuda.memory._record_memory_history(enabled="all", context="alloc", stacks="python",
+                                             max_entries=MEMORY_EVENTS)
+    error = None
+    t0 = time.perf_counter()
+    try:
+        proof = air.prove_brainfuck(machine, PRODUCTION, device="cuda", timer=timer)
+        torch.cuda.synchronize()
+    except torch.cuda.OutOfMemoryError as exc:
+        proof, error = None, exc
+    prove_s = time.perf_counter() - t0
+    at_error = timer.current()
+    if error is not None:
+        timer.peaks[at_error] = torch.cuda.max_memory_allocated()
+    snapshot = torch.cuda.memory._snapshot()
+    torch.cuda.memory._record_memory_history(enabled=None)
+    dev = torch.cuda.current_device()
+    replay_peak, blocks, oom = _blocks_at_peak(snapshot["device_traces"][dev])
+    blocks.sort(key=lambda ev: -ev["size"])
+    phase = max(timer.peaks, key=timer.peaks.get)
+    out = {"program": "fib19_io", "input": list(FIB_INPUT), "pcs_config": PRODUCTION.to_json(),
+           "prove_s": prove_s, "phases_s": timer.seconds,
+           "peak_device_bytes": max(timer.peaks.values()), "phase_at_peak": phase,
+           "peaks_by_phase": timer.peaks, "trace_events": len(snapshot["device_traces"][dev]),
+           "trace_peak_bytes": replay_peak,
+           "largest_at_peak": [{"bytes": ev["size"], "stack": _frames(ev)}
+                               for ev in blocks[:MEMORY_TOP]]}
+    if error is not None:
+        out.update({"out_of_memory": True, "phase": at_error, "error": str(error)[:300],
+                    "oom_request_bytes": oom["size"] if oom else None})
+    else:
+        air.verify_brainfuck(proof, device="cuda")
+        out.update({"sha256": proof_sha256(proof), "verified": True})
+    _line("production_memory", out)
+    del proof, snapshot, blocks
+    error = None
+    _clear_prover_caches()
+    if "out_of_memory" in out:
+        raise AssertionError(f"the production prove of fib19_io ran out of memory in {at_error}")
+    return out
 
 
 def phase_bench() -> dict:
@@ -1243,20 +1490,24 @@ def _free_port() -> int:
 
 
 def _rank_counts(rank: int, launches: dict, plain_fft: int, plain_blake: int,
-                 grind: bool = False) -> dict:
-    """A process's kernel launches and plain FFT and Blake2s calls on CUDA
-    tensors over one prove: the FFT and tree kernels (and the grind where
-    pow_bits > 13) launched, no plain call."""
-    _require(launches, plain_fft, plain_blake, f"process {rank}", grind)
+                 plain_quotients: int, grind: bool = False) -> dict:
+    """A process's kernel launches and plain FFT, Blake2s and quotient
+    calls on CUDA tensors over one prove: the FFT, tree and quotient
+    kernels (and the grind where pow_bits > 13) launched, no plain call."""
+    _require(launches, plain_fft, plain_blake, f"process {rank}", grind, plain_quotients)
     return {"fft_launches": launches["fft"],
             "blake2s_launches": {k: launches[k] for k in blake2s_kernels.ENTRIES},
-            "plain_fft_cuda_calls": plain_fft, "plain_blake2s_cuda_calls": plain_blake}
+            "quotient_launches": launches["quotients"],
+            "plain_fft_cuda_calls": plain_fft, "plain_blake2s_cuda_calls": plain_blake,
+            "plain_quotient_cuda_calls": plain_quotients}
 
 
 _CLI_COUNTS = re.compile(r"Circle FFT kernel launches: (\d+); plain FFT calls on CUDA "
                          r"tensors: (\d+)")
 _CLI_HASHES = re.compile(r"Blake2s kernel launches: tree (\d+), level (\d+), grind (\d+); "
                          r"plain Blake2s calls on CUDA tensors: (\d+)")
+_CLI_QUOTIENTS = re.compile(r"Quotient kernel launches: (\d+); plain quotient calls on CUDA "
+                            r"tensors: (\d+)")
 
 
 def _distributed_cli(world: int, backend: str, torchrun: bool = False,
@@ -1307,16 +1558,19 @@ def _distributed_cli(world: int, backend: str, torchrun: bool = False,
         # one log a process, or torchrun's, which carries every process's
         counts = [c for _, err in outs for c in _CLI_COUNTS.findall(err)]
         hashes = [h for _, err in outs for h in _CLI_HASHES.findall(err)]
+        quots = [q for _, err in outs for q in _CLI_QUOTIENTS.findall(err)]
         times = [float(t) for _, err in outs for t in re.findall(r"proof time: ([0-9.]+) s", err)]
         written = sum(err.count("Proof written") for _, err in outs)
-        if len(counts) != world or len(hashes) != world or len(times) != world or written != 1:
+        if (len(counts) != world or len(hashes) != world or len(quots) != world
+                or len(times) != world or written != 1):
             raise AssertionError(f"distributed CLI ({world} x {backend}): {len(counts)} counts, "
-                                 f"{len(hashes)} hash counts, {len(times)} times and {written} "
-                                 f"proofs written in the logs")
+                                 f"{len(hashes)} hash counts, {len(quots)} quotient counts, "
+                                 f"{len(times)} times and {written} proofs written in the logs")
         ranks = [{"prove_s": t, **_rank_counts(
-                     i, {"fft": int(c[0]), **dict(zip(("tree", "level", "grind"), map(int, h[:3])))},
-                     int(c[1]), int(h[3]), grind=bool(pow_bits and pow_bits > 13))}
-                 for i, (c, h, t) in enumerate(zip(counts, hashes, times))]
+                     i, {"fft": int(c[0]), **dict(zip(("tree", "level", "grind"), map(int, h[:3]))),
+                         "quotients": int(q[0])},
+                     int(c[1]), int(h[3]), int(q[1]), grind=bool(pow_bits and pow_bits > 13))}
+                 for i, (c, h, q, t) in enumerate(zip(counts, hashes, quots, times))]
         files = sorted(os.listdir(tmp))
         if files != (["proof.json"] if torchrun else ["rank0.json"]):
             raise AssertionError(f"distributed CLI: wrote {files}, only the coordinator writes")
@@ -1334,7 +1588,8 @@ def _distributed_cli(world: int, backend: str, torchrun: bool = False,
                           "processes": ranks})
     total = {}
     for r in ranks:
-        total = _add_counts(total, {"fft": r["fft_launches"], **r["blake2s_launches"]})
+        total = _add_counts(total, {"fft": r["fft_launches"], **r["blake2s_launches"],
+                                    "quotients": r["quotient_launches"]})
     return total
 
 
@@ -1372,6 +1627,7 @@ def _prove_rank(rank: int, world: int, port: int, backend: str, device: str, run
                        "launches": _counts(),
                        "plain_fft_cuda_calls": fft.PLAIN_CUDA_CALLS,
                        "plain_blake2s_cuda_calls": blake2s.PLAIN_CUDA_CALLS,
+                       "plain_quotient_cuda_calls": quotients.PLAIN_CUDA_CALLS,
                        "m31_launches": sum(m31_kernels.KERNELS.launches.values()),
                        "plain_m31_cuda_calls": m31_kernels.PLAIN_CUDA_CALLS}
                 if multihost.is_coordinator():
@@ -1430,7 +1686,7 @@ def _distributed_group(world: int, backend: str, device: str, runs: int) -> int:
         ranks = sorted((r for r in got if r["run"] == run), key=lambda r: r["rank"])
         for r in ranks:
             r.update(_rank_counts(r["rank"], r["launches"], r["plain_fft_cuda_calls"],
-                                  r["plain_blake2s_cuda_calls"]))
+                                  r["plain_blake2s_cuda_calls"], r["plain_quotient_cuda_calls"]))
             r.update(_trees_per_commit(r["launches"], r["commits"], 1, f"process {r['rank']}"))
             if r["m31_launches"] or r["plain_m31_cuda_calls"]:
                 raise AssertionError(f"process {r['rank']}: an M31 kernel or plain M31 op ran")
@@ -1446,9 +1702,10 @@ def _distributed_group(world: int, backend: str, device: str, runs: int) -> int:
             "proof_bytes": ranks[0]["proof_bytes"], "sha256": sha, "matches_jax": True,
             "processes": [{k: r[k] for k in ("rank", "device", "prove_s", "phases_s",
                                          "peak_device_bytes", "fft_launches",
-                                         "blake2s_launches", "commits",
+                                         "blake2s_launches", "quotient_launches", "commits",
                                          "tree_launches_per_commit", "plain_fft_cuda_calls",
-                                         "plain_blake2s_cuda_calls")} for r in ranks]})
+                                         "plain_blake2s_cuda_calls",
+                                         "plain_quotient_cuda_calls")} for r in ranks]})
     return launched
 
 
@@ -1626,19 +1883,25 @@ def phase_m31_path(m31: dict, per_mul: float, dispatch_per_s: float) -> dict:
 
 
 def main(argv) -> int:
-    if argv not in ([], ["distributed"]):
-        print(f"usage: {sys.argv[0]} [distributed]", file=sys.stderr)
+    if argv not in ([], ["distributed"], ["production_memory"]):
+        print(f"usage: {sys.argv[0]} [distributed | production_memory]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     card = _smi("name,power.limit")
     max_mhz, sm_mhz = (float(v.split()[0]) for v in _smi("clocks.max.sm,clocks.sm").split(","))
-    libs = (circle_fft.KERNEL.lib, m31_kernels.KERNELS.lib, blake2s_kernels.KERNELS.lib)
+    libs = (circle_fft.KERNEL.lib, m31_kernels.KERNELS.lib, blake2s_kernels.KERNELS.lib,
+            quotient_kernels.KERNEL.lib)
     nvcc.build_all(libs)
     for lib in libs:
         if lib.build_log.strip():
             print(lib.build_log.strip(), file=sys.stderr)
+    if argv == ["production_memory"]:
+        # the production memory reading alone
+        phase_production_memory(os.path.join(ROOT, "programs", "fib19_io.bf"))
+        print(card)
+        return 0
     if argv == ["distributed"]:
         # phase 7 alone (on a machine with several cards, its NCCL groups
         # across them), after the one-device fib19_io prove it is held against
@@ -1677,6 +1940,8 @@ def main(argv) -> int:
     phase_tables([("small", SMALL_CODE, SMALL_INPUT.encode()),
                   ("fib19_io", fib_code, FIB_INPUT), ("big22", big_code, b"")])
     blake = phase_blake2s(sass["per_compress"], dispatch_per_s, fib_code, SMALL_CODE)
+    quot = phase_quotients(os.path.join(ROOT, "programs", "fib19_io.bf"), sass["per_mul"],
+                           dispatch_per_s)
 
     # the mesh prover: its transforms checked, then its path with the
     # counts at 0
@@ -1688,8 +1953,7 @@ def main(argv) -> int:
     for shards in (2, 4):
         phase_program("fib19_io", os.path.join(ROOT, "programs", "fib19_io.bf"), FIB_INPUT,
                       runs=2, expect_sha=REFERENCE_SHA256["fib19_io"], n_shards=shards)
-    sharded = _require(_counts(), fft.PLAIN_CUDA_CALLS, blake2s.PLAIN_CUDA_CALLS,
-                       "the mesh prover", grind=True)
+    sharded = _require_here(_counts(), "the mesh prover", grind=True)
     _clear_prover_caches()
 
     # multi-process proving: each process counts from 0 (the kernels it
@@ -1707,11 +1971,12 @@ def main(argv) -> int:
                   runs=2, expect_sha=None, fresh_verify=True)
     # last: a profiled prove (its fib19_io caches are still warm)
     phase_split("fib19_io", fib_path, FIB_INPUT)
-    main_path = _require(_counts(), fft.PLAIN_CUDA_CALLS, blake2s.PLAIN_CUDA_CALLS,
-                         "the main path", grind=True)
+    main_path = _require_here(_counts(), "the main path", grind=True)
     fft_launches = main_path["fft"]
     _clear_prover_caches()
-    # production parameters (counts at 0 inside), then the bench in a process
+    # production parameters: the memory reading of one cold fib19_io prove,
+    # then the path (counts at 0 inside), then the bench in a process
+    phase_production_memory(fib_path)
     production = phase_production(fib_path)
     bench_path = phase_bench()
 
@@ -1761,9 +2026,26 @@ def main(argv) -> int:
             "max_abs_err": blake["max_abs_err"][entry],
             "ms": t["kernel_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "rate_bound_ms": t["rate_bound_ms"],
-            **({"latency_floor_ms": t["latency_floor_ms"]} if "latency_floor_ms" in t else {}),
+            **{k: t[k] for k in ("latency_floor_ms", "launch_ms") if k in t},
             "library_ms": None,
         })
+    quot_times = quot["times"][max(quot["times"], key=lambda k: quot["times"][k]["positions"])]
+    kernels.append({
+        "name": "quotients", "route": "cuda",
+        "source": "stwo_brainfuck_tpu_torch/csrc/quotients.cu",
+        "replaces": "stwo_brainfuck_tpu/core/quotients.py:217 (_accumulate_all_jit, with :116 "
+                    "_weighted_columns and :139 _point_group_quotient)",
+        "shape": max(quot["times"], key=lambda k: quot["times"][k]["positions"]),
+        "launches": main_path["quotients"],
+        "launches_by_path": {"prover": main_path["quotients"],
+                             "sharded_prover": sharded["quotients"],
+                             "distributed_prover": distributed["quotients"],
+                             "production": production["launches"]["quotients"],
+                             "bench": bench_path["quotients"]},
+        "max_abs_err": quot["max_abs_err"], "ms": quot_times["ms"],
+        "plain_ms": quot_times["plain_ms"], "bound_ms": quot_times["bound_ms"],
+        "bound_by": quot_times["bound_by"], "library_ms": None,
+    })
     if not all(k["launches"] > 0 for k in kernels):
         raise AssertionError(f"a kernel was not launched on its path: {kernels}")
     print(card)

@@ -129,12 +129,12 @@ def clear_caches() -> None:
     tables, domain points, fold twiddles, the ladder tree, the mesh's
     permutations), so that the next prove builds its own and the caching
     allocator can hand their memory back (torch.cuda.empty_cache)."""
-    from .ops import circle_fft
+    from .ops import circle_fft, quotient_kernels
     from .parallel import prove as sharded_prove
 
     for cached in (fft.get_twiddles, circle_fft.twiddle_table, circle_fft.shard_twiddle_table,
                    sharded_prove._permutation, _preprocessed_tree, fri._fold_itw,
-                   quotients.domain_points_storage):
+                   quotients.domain_points_storage, quotient_kernels.point_tables):
         cached.cache_clear()
 
 

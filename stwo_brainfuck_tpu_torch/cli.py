@@ -38,9 +38,9 @@ import time
 import torch
 
 from . import air
-from .core import blake2s, fft
+from .core import blake2s, fft, quotients
 from .core.pcs import PcsConfig
-from .ops import blake2s_kernels, circle_fft
+from .ops import blake2s_kernels, circle_fft, quotient_kernels
 from .vm.compiler import CompileError, compile_program
 from .vm.machine import DEFAULT_RAM_SIZE, Machine, MachineError
 from .vm.registers import TRACE_COLUMNS
@@ -143,6 +143,8 @@ def cmd_prove(args) -> int:
     log.info("Blake2s kernel launches: tree %d, level %d, grind %d; plain Blake2s calls on "
              "CUDA tensors: %d", hashes["tree"], hashes["level"], hashes["grind"],
              blake2s.PLAIN_CUDA_CALLS)
+    log.info("Quotient kernel launches: %d; plain quotient calls on CUDA tensors: %d",
+             quotient_kernels.KERNEL.launches, quotients.PLAIN_CUDA_CALLS)
     if not coordinator:
         return 0  # the proof is the same in every process; process 0 writes it
 

@@ -48,9 +48,26 @@ def _fold_itw(kind: str, log: int, device) -> torch.Tensor:
     return m31.inv(2 * t % P_INT)
 
 
+# A fold's int64 temporaries are (4, chunk): a fold of more output
+# positions runs in chunks of _FOLD_CHUNK (1 GiB a temporary) into one
+# output (the first fold of a production prove folds 2^28 positions).
+_FOLD_CHUNK = 1 << 25
+
+
 def _fold(values: torch.Tensor, itw: torch.Tensor, beta: tuple) -> torch.Tensor:
     """One fold of a QM31 evaluation (4, 2N) -> (4, N) int64:
     g = (a+b)/2 + beta * (a-b) * itw over adjacent pairs."""
+    n = values.shape[1] // 2
+    if n <= _FOLD_CHUNK:
+        return _fold_chunk(values, itw, beta)
+    out = torch.empty((4, n), dtype=torch.int64, device=values.device)
+    for s in range(0, n, _FOLD_CHUNK):
+        e = min(s + _FOLD_CHUNK, n)
+        out[:, s:e] = _fold_chunk(values[:, 2 * s:2 * e], itw[s:e], beta)
+    return out
+
+
+def _fold_chunk(values: torch.Tensor, itw: torch.Tensor, beta: tuple) -> torch.Tensor:
     a = values[:, 0::2].to(torch.int64)
     b = values[:, 1::2].to(torch.int64)
     s = (a + b) % P_INT * _INV2 % P_INT

@@ -14,9 +14,12 @@ coefficient alpha; the per-size combinations feed FRI.
 
 Counterpart of ``stwo_brainfuck_tpu/core/quotients.py``: the prover's
 accumulation on a device (host-channel form) and the verifier's batched
-host reconstruction (a copy). This mirrors stwo's quotient/pair-vanishing
-machinery (internal to its prover; entry at brainfuck_air/mod.rs:732) with
-the QM31 Frobenius in place of stwo's CM31 complex conjugation.
+host reconstruction (a copy). On a CUDA device a size's accumulation is one
+launch of the quotient kernel (``ops/quotient_kernels.py``); on the CPU it
+is the plain torch version, ``accumulate_groups``. This mirrors stwo's
+quotient/pair-vanishing machinery (internal to its prover; entry at
+brainfuck_air/mod.rs:732) with the QM31 Frobenius in place of stwo's CM31
+complex conjugation.
 """
 
 from __future__ import annotations
@@ -29,9 +32,14 @@ import numpy as np
 import torch
 
 from . import qm31
-from .circle import M31_CIRCLE_LOG_ORDER, CanonicCoset, half_odds, points_at_indices
+from .circle import (M31_CIRCLE_LOG_ORDER, CanonicCoset, _gen_doublings, half_odds,
+                     points_at_indices)
 from .fft import bit_reverse_indices, coset_points
 from .m31 import P_INT
+
+# Calls of the plain accumulation on CUDA tensors. The prover never makes
+# one (CUDA tensors go to the kernel); chip_smoke.py checks that.
+PLAIN_CUDA_CALLS = 0
 
 
 @dataclass
@@ -55,6 +63,32 @@ def domain_points_storage(log_size: int, device) -> Tuple[torch.Tensor, torch.Te
     ys = torch.cat([hy, (-hy) % P_INT])
     rev = bit_reverse_indices(log_size, device)
     return xs[rev], ys[rev]
+
+
+def points_storage_range(log_size: int, offset: int, n: int, device) -> Tuple[torch.Tensor,
+                                                                             torch.Tensor]:
+    """(x, y) int64 of storage positions offset .. offset + n - 1 of the
+    canonic domain of size 2^log_size on `device`, built from those
+    positions alone (points_at_storage_batch's index arithmetic and
+    points_at_indices' doubling ladder, in torch): a range's points for the
+    plain version without the whole domain."""
+    pos = torch.arange(offset, offset + n, dtype=torch.int64, device=device)
+    rev = torch.zeros_like(pos)
+    for b in range(log_size):
+        rev |= ((pos >> b) & 1) << (log_size - 1 - b)
+    half = 1 << (log_size - 1)
+    hc = half_odds(log_size - 1)
+    order = 1 << M31_CIRCLE_LOG_ORDER
+    base = (hc.initial_index + torch.where(rev < half, rev, rev - half) * hc.step) % order
+    idx = torch.where(rev < half, base, (order - base) % order)
+    del pos, rev, base
+    x = torch.ones_like(idx)
+    y = torch.zeros_like(idx)
+    for k, (dx, dy) in enumerate(_gen_doublings()):
+        sel = ((idx >> k) & 1).bool()
+        x, y = (torch.where(sel, (x * dx - y * dy) % P_INT, x),
+                torch.where(sel, (x * dy + y * dx) % P_INT, y))
+    return x, y
 
 
 def points_at_storage_batch(log_size: int, positions) -> Tuple[np.ndarray, np.ndarray]:
@@ -149,16 +183,45 @@ def accumulate_quotients(
     groups = [_group_constants(members, alpha) for members in _group_claims(claims).values()]
     if ops is not None:
         return ops.accumulate_all(log_size, columns, groups)
+    return accumulate_range(log_size, columns, groups)
+
+
+def accumulate_range(log_size: int, columns: Sequence[torch.Tensor], groups,
+                     offset: int = 0) -> torch.Tensor:
+    """The combined quotient at storage positions offset .. offset + n - 1
+    of the domain 2^log_size ((4, n) int32; n the columns' length, a
+    shard's chunk or the whole domain): on CUDA tensors one launch of the
+    quotient kernel, on the CPU accumulate_groups at the cached domain
+    points."""
+    if columns[0].is_cuda:
+        from ..ops import quotient_kernels
+
+        return quotient_kernels.KERNEL.accumulate(log_size, columns, groups, offset)
+    n = columns[0].shape[-1]
     px, py = domain_points_storage(log_size, columns[0].device)
-    return accumulate_groups(columns, groups, px, py)
+    return accumulate_groups(columns, groups, px[offset:offset + n], py[offset:offset + n])
+
+
+def accumulate_plain(log_size: int, columns: Sequence[torch.Tensor], groups,
+                     offset: int = 0) -> torch.Tensor:
+    """What the quotient kernel computes, on any device: accumulate_groups
+    at the points of positions offset .. offset + n - 1 alone
+    (points_storage_range), so that a large domain is checked range by
+    range."""
+    n = columns[0].shape[-1]
+    return accumulate_groups(columns, groups,
+                             *points_storage_range(log_size, offset, n, columns[0].device))
 
 
 def accumulate_groups(columns: Sequence[torch.Tensor], groups, px: torch.Tensor,
                       py: torch.Tensor) -> torch.Tensor:
-    """The combined quotient at the domain points (px, py) (any run of
-    them: a shard's chunk) from the columns' values there and the point
-    groups' host constants (_group_constants). (4, n) int32."""
+    """The plain version: the combined quotient at the domain points (px,
+    py) (any run of them: a shard's chunk) from the columns' values there
+    and the point groups' host constants (_group_constants). (4, n) int32."""
+    global PLAIN_CUDA_CALLS
     dev = columns[0].device
+    if dev.type == "cuda":
+        PLAIN_CUDA_CALLS += 1
     acc = None
     for consts, weights, idxs in groups:
         w = torch.as_tensor(weights.astype(np.int64), device=dev)   # (C_g, 4)

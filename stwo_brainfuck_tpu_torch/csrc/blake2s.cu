@@ -23,10 +23,15 @@
 //   blake2s_level  one level: node i hashes child 2i || child 2i+1 || the
 //                  level's column words at i, or any (W, N) message set
 //                  with a byte-length override (blake2s.hash_words).
-//   blake2s_grind  nonces base .. base + count - 1: thread i hashes
-//                  digest || (base + i) as 8 little-endian bytes (40 bytes)
-//                  and, if the low bits `mask` of digest word 0 are zero,
-//                  atomicMin's i into *best.
+//   blake2s_grind  the smallest nonce base + i, i < count, whose hash of
+//                  digest || nonce as 8 little-endian bytes (40 bytes) has
+//                  the low bits `mask` of word 0 zero: i atomicMin'd into
+//                  *best. Persistent CTAs walk ascending tiles of 256
+//                  nonces in a fixed wave order (CTA c takes tiles c,
+//                  c + G, c + 2G, ... of a grid of G) and a thread reads
+//                  *best (acquire) before each tile, stopping once it is
+//                  below the tile's first nonce: every nonce below the
+//                  answer is hashed, few above it are.
 //   blake2s_chain  a timing probe, off every path: `chain` dependent
 //                  compressions a thread.
 //
@@ -346,23 +351,43 @@ __global__ void __launch_bounds__(kThreads) level_kernel(const LevelArgs a) {
   for (int w = 0; w < 8; ++w) a.out[w * a.m + i] = h[w];
 }
 
+__device__ __forceinline__ uint32_t load_acquire(const uint32_t* p) {
+  uint32_t v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// Tile t holds offsets t * kThreads .. t * kThreads + kThreads - 1; CTA c of
+// the grid's G takes tiles c, c + G, c + 2G, ... (all CTAs resident at once:
+// the wrapper launches a few an SM), so the nonces are hashed in ascending
+// waves, and a thread stops at the first tile that starts above *best.
+struct Digest {
+  uint32_t w[8];
+};
+
 __global__ void __launch_bounds__(kThreads)
-grind_kernel(const uint32_t* __restrict__ digest, unsigned long long base, uint32_t count,
-             uint32_t mask, uint32_t* __restrict__ best) {
-  const uint32_t i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= count) return;
-  const unsigned long long nonce = base + i;
-  uint32_t m[16];
+grind_kernel(const Digest d, unsigned long long base, uint32_t count, uint32_t mask,
+             uint32_t* best) {
+  const unsigned long long stride = static_cast<unsigned long long>(gridDim.x) * kThreads;
+#pragma unroll 1
+  for (unsigned long long start = static_cast<unsigned long long>(blockIdx.x) * kThreads;
+       start < count; start += stride) {
+    if (load_acquire(best) < start) return;
+    const unsigned long long i = start + threadIdx.x;
+    if (i >= count) return;
+    const unsigned long long nonce = base + i;
+    uint32_t m[16];
 #pragma unroll
-  for (int w = 0; w < 8; ++w) m[w] = __ldg(digest + w);
-  m[8] = static_cast<uint32_t>(nonce);
-  m[9] = static_cast<uint32_t>(nonce >> 32);
+    for (int w = 0; w < 8; ++w) m[w] = d.w[w];
+    m[8] = static_cast<uint32_t>(nonce);
+    m[9] = static_cast<uint32_t>(nonce >> 32);
 #pragma unroll
-  for (int w = 10; w < 16; ++w) m[w] = 0u;
-  uint32_t h[8];
-  init_state(h);
-  compress(h, m, 40u, 0u, true);
-  if ((h[0] & mask) == 0u) atomicMin(best, i);
+    for (int w = 10; w < 16; ++w) m[w] = 0u;
+    uint32_t h[8];
+    init_state(h);
+    compress(h, m, 40u, 0u, true);
+    if ((h[0] & mask) == 0u) atomicMin(best, static_cast<uint32_t>(i));
+  }
 }
 
 // `chain` dependent compressions a thread of a block made from its index;
@@ -474,10 +499,19 @@ extern "C" int blake2s_level(const void* children, long long child_stride, const
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int blake2s_grind(const void* digest, unsigned long long base, unsigned int count,
-                             unsigned int mask, void* best, void* stream) {
-  grind_kernel<<<blocks_for(count), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(digest), base, count, mask, static_cast<uint32_t*>(best));
+// digest: the 8 words in host memory (passed by value); ctas: the
+// persistent grid (a few an SM). *best is set to 0xFFFFFFFF on the stream
+// first: no offset below count reaches it, so it means no hit.
+extern "C" int blake2s_grind(const unsigned int* digest, unsigned long long base,
+                             unsigned int count, unsigned int mask, int ctas, void* best,
+                             void* stream) {
+  if (ctas < 1) return static_cast<int>(cudaErrorInvalidValue);
+  Digest d;
+  for (int w = 0; w < 8; ++w) d.w[w] = digest[w];
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t rc = cudaMemsetAsync(best, 0xFF, sizeof(uint32_t), st);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  grind_kernel<<<ctas, kThreads, 0, st>>>(d, base, count, mask, static_cast<uint32_t*>(best));
   return static_cast<int>(cudaGetLastError());
 }
 

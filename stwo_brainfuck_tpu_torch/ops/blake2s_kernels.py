@@ -17,7 +17,9 @@ plain torch version, ``core/blake2s.hash_parts``.
   digests, node i = H(child 2i || child 2i+1 || columns[:, i]), with a
   byte-length override (``blake2s.hash_words`` on CUDA);
 - ``KERNELS.grind(digest, pow_bits)``: the smallest nonce whose hash has
-  pow_bits low zero bits, scanned GRIND_BATCH nonces a launch;
+  pow_bits low zero bits, in one launch of persistent CTAs that walk
+  ascending tiles of nonces and stop once a smaller hit is known
+  (``grind_order`` and ``emulate_grind`` replay it);
 - ``KERNELS.chain(n, chain, device)``: a timing probe off every path
   (``chain`` dependent compressions on each of n threads; not counted).
 
@@ -43,6 +45,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import hashlib
+import struct
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -64,7 +68,11 @@ CTAS_A_SM = 4  # tree_kernel's __launch_bounds__(256, 4)
 H100_SMS = 132
 MAX_LEVEL = 28  # kMaxLevel: a tree's level offsets stay in 32 bits
 MAX_STAGES = 12  # kMaxStages
-GRIND_BATCH_LOG = 20
+# the grind: one launch covers GRIND_SPAN nonces (0xFFFFFFFF is "no hit")
+# in tiles of GRIND_TILE, GRIND_CTAS_A_SM persistent CTAs an SM
+GRIND_SPAN = 0xFFFFFFFF
+GRIND_TILE = 256
+GRIND_CTAS_A_SM = 4
 _NO_HIT = 0xFFFFFFFF
 
 Stage = Tuple[int, int, int, int]  # (top, bottom, cta_log, counter)
@@ -75,7 +83,7 @@ def _bind(lib: ctypes.CDLL) -> None:
                                ctypes.c_ulonglong, ctypes.c_uint)
     lib.blake2s_tree.argtypes = [ptr, i64, i32, ptr, ptr, ptr, ptr, i32, ptr, ptr, i32, ptr]
     lib.blake2s_level.argtypes = [ptr, i64, ptr, i64, i32, i64, i64, ptr, ptr]
-    lib.blake2s_grind.argtypes = [ptr, u64, u32, u32, ptr, ptr]
+    lib.blake2s_grind.argtypes = [ptr, u64, u32, u32, i32, ptr, ptr]
     lib.blake2s_chain.argtypes = [ptr, u32, i32, ptr]
     for fn in (lib.blake2s_tree, lib.blake2s_level, lib.blake2s_grind, lib.blake2s_chain,
                lib.blake2s_subtree_log):
@@ -143,9 +151,13 @@ def tree_stages(k_top: int, wave: int, subtree_log: int = SUBTREE_LOG,
 
 
 @functools.lru_cache(maxsize=None)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _wave(device: torch.device) -> int:
     """The tree CTAs the card holds at once."""
-    return torch.cuda.get_device_properties(device).multi_processor_count * CTAS_A_SM
+    return _sms(device) * CTAS_A_SM
 
 
 def _tree_buffer(k_top: int, n_counters: int, device) -> Tuple[torch.Tensor, Dict[int, torch.Tensor]]:
@@ -265,9 +277,9 @@ class Blake2sKernels:
 
     def grind(self, digest: bytes, pow_bits: int, device) -> int:
         """The smallest nonce whose Blake2s(digest || nonce_le8) has pow_bits
-        low zero bits in its first word: 2^GRIND_BATCH_LOG nonces a launch,
-        each launch's smallest hit kept with atomicMin; 4 bytes come back a
-        batch."""
+        low zero bits in its first word: one launch of GRIND_CTAS_A_SM
+        persistent CTAs an SM over GRIND_SPAN nonces (the digest passed by
+        value, the hit kept with atomicMin), then 4 bytes come back."""
         if len(digest) != 32 or not 0 <= pow_bits <= 32:
             raise ValueError(f"Blake2s grind: a 32-byte digest and 0..32 bits, got "
                              f"{len(digest)} bytes and {pow_bits} bits")
@@ -275,24 +287,22 @@ class Blake2sKernels:
         if dev.type != "cuda":
             raise ValueError(f"the Blake2s grind kernel runs on a CUDA device, got {dev}")
         lib = self.lib.load()
-        words = torch.as_tensor(np.frombuffer(digest, dtype="<u4").view(np.int32).copy(),
-                                device=dev)
+        words = (ctypes.c_uint * 8)(*np.frombuffer(digest, dtype="<u4").tolist())
         best = torch.empty(1, dtype=torch.int32, device=dev)
-        batch = 1 << GRIND_BATCH_LOG
         mask = (1 << pow_bits) - 1
+        ctas = _sms(dev) * GRIND_CTAS_A_SM
         base = 0
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             while base < 1 << 48:  # unreachable for sane pow_bits
-                best.fill_(-1)
-                rc = lib.blake2s_grind(words.data_ptr(), base, batch, mask, best.data_ptr(),
+                rc = lib.blake2s_grind(words, base, GRIND_SPAN, mask, ctas, best.data_ptr(),
                                        stream)
                 _rc(rc, "grind")
                 self.launches["grind"] += 1
                 hit = int(best.item()) & 0xFFFFFFFF
                 if hit != _NO_HIT:
                     return base + hit
-                base += batch
+                base += GRIND_SPAN
         raise RuntimeError("PoW grind exhausted")
 
     def chain(self, n: int, chain: int, device) -> torch.Tensor:
@@ -455,3 +465,43 @@ def emulate_commit(columns_by_log: Dict[int, torch.Tensor], wave: int = H100_SMS
                        lambda c, cols, k: emulate_tree(c, cols, k, wave, subtree_log, keep_log,
                                                        seed))
     return blake2s.digest_to_bytes(layers[0][:, 0]), layers
+
+
+def grind_order(ctas: int, span: int, tile: int = GRIND_TILE) -> List[List[int]]:
+    """The grind kernel's tiles: CTA c's first nonces (offsets), in the order
+    it takes them (c, c + ctas, c + 2 ctas, ... times `tile`, below span)."""
+    return [list(range(c * tile, span, ctas * tile)) for c in range(ctas)]
+
+
+def emulate_grind(digest: bytes, pow_bits: int, ctas: int = H100_SMS * GRIND_CTAS_A_SM,
+                  tile: int = GRIND_TILE, span: int = 1 << 20, seed: int = 0) -> Tuple[int, int]:
+    """The grind kernel replayed with hashlib: the CTAs of grind_order in a
+    random interleaving (from seed), each step one CTA either reading best
+    and taking its next tile (or stopping, if best is below the tile's
+    first nonce) or hashing the tile it took and atomicMin-ing its hits
+    into best. Returns (the nonce found, the nonces hashed); raises if no
+    nonce below span is valid."""
+    mask = (1 << pow_bits) - 1
+    queues = [iter(q) for q in grind_order(ctas, span, tile)]
+    taken: List[Optional[int]] = [None] * ctas
+    live = list(range(ctas))
+    best, hashed = _NO_HIT, 0
+    rng = np.random.default_rng(seed)
+    while live:
+        c = live[int(rng.integers(len(live)))]
+        if taken[c] is None:
+            start = next(queues[c], None)
+            if start is None or best < start:
+                live.remove(c)
+            else:
+                taken[c] = start
+            continue
+        for i in range(taken[c], min(taken[c] + tile, span)):
+            h = hashlib.blake2s(digest + struct.pack("<Q", i)).digest()
+            hashed += 1
+            if int.from_bytes(h[:4], "little") & mask == 0:
+                best = min(best, i)
+        taken[c] = None
+    if best == _NO_HIT:
+        raise RuntimeError(f"emulated grind: no valid nonce below {span}")
+    return best, hashed

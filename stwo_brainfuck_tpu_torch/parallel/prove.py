@@ -213,15 +213,15 @@ class ShardedOps:
     # -- Quotients ---------------------------------------------------------
 
     def accumulate_all(self, log_size: int, columns, groups) -> object:
-        """quotients.accumulate_groups on every shard's chunk of the
-        domain."""
-        px, py = quotients.domain_points_storage(log_size, self.mesh.home)
+        """quotients.accumulate_range on every shard's chunk of the domain
+        (on a card one kernel launch a shard, at the chunk's offset)."""
         if not self._shardable(log_size):
-            return quotients.accumulate_groups([self.mesh.full(c) for c in columns], groups, px, py)
+            return quotients.accumulate_range(log_size, [self.mesh.full(c) for c in columns],
+                                              groups)
         cols = [self.mesh.as_sharded(c) for c in columns]
-        px, py = self.mesh.shard(px), self.mesh.shard(py)
-        return Sharded(self.mesh, self.mesh.each(lambda i: quotients.accumulate_groups(
-            [c.shards[i] for c in cols], groups, px.shards[i], py.shards[i])))
+        chunk = cols[0].chunk
+        return Sharded(self.mesh, self.mesh.each(lambda i: quotients.accumulate_range(
+            log_size, [c.shards[i] for c in cols], groups, offset=i * chunk)))
 
     # -- FRI ---------------------------------------------------------------
 

@@ -180,6 +180,7 @@ def test_port_imports_without_jax():
             "import stwo_brainfuck_tpu_torch, stwo_brainfuck_tpu_torch.air, "
             "stwo_brainfuck_tpu_torch.cli, stwo_brainfuck_tpu_torch.ops.circle_fft, "
             "stwo_brainfuck_tpu_torch.ops.m31_kernels, stwo_brainfuck_tpu_torch.vm.cli, "
+            "stwo_brainfuck_tpu_torch.ops.quotient_kernels, "
             "stwo_brainfuck_tpu_torch.components.device_build, "
             "stwo_brainfuck_tpu_torch.convert, stwo_brainfuck_tpu_torch.entry, "
             "stwo_brainfuck_tpu_torch.parallel.mesh, "

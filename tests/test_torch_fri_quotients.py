@@ -139,3 +139,19 @@ def test_fri_rejects_high_degree_input():
         tfri.fri_verify_queries(
             tp.proof, (beta0, betas), 7, tqs,
             lambda log, pos: tuple(int(x) for x in inputs[log][:, pos]) if log in inputs else None)
+
+
+@pytest.mark.parametrize("chunk", [1, 3, 64, 1 << 10])
+def test_fold_in_chunks_matches_jax(monkeypatch, chunk):
+    """A fold of more than _FOLD_CHUNK output positions runs chunk by chunk
+    into one output: the same values as the JAX package's fold, for chunks
+    that divide the output or leave a ragged last one."""
+    rng = np.random.default_rng(chunk)
+    vals = rng.integers(0, P, (4, 1 << 11), dtype=np.uint32)
+    itw = tfri._fold_itw("c", 11, "cpu")
+    beta = _felt(rng)
+    want = np.asarray(jfri._fold(jnp.asarray(vals), jnp.asarray(itw.numpy().astype(np.uint32)),
+                                 beta))
+    monkeypatch.setattr(tfri, "_FOLD_CHUNK", chunk)
+    got = tfri._fold(convert.to_torch(vals), itw, beta)
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))

@@ -12,10 +12,12 @@ import chip_smoke
 from stwo_brainfuck_tpu_torch import air
 from stwo_brainfuck_tpu_torch.components import device_build, tables
 from stwo_brainfuck_tpu_torch.components.defs import COMPONENT_CLASSES
-from stwo_brainfuck_tpu_torch.core import blake2s, channel, fft, merkle
-from stwo_brainfuck_tpu_torch.core.pcs import PcsConfig
-from stwo_brainfuck_tpu_torch.ops import blake2s_kernels, circle_fft, m31_kernels
+from stwo_brainfuck_tpu_torch.core import blake2s, channel, fft, merkle, quotients
+from stwo_brainfuck_tpu_torch.core.circle import point_from_t
+from stwo_brainfuck_tpu_torch.core.pcs import PcsConfig, shifted_point
+from stwo_brainfuck_tpu_torch.ops import blake2s_kernels, circle_fft, m31_kernels, quotient_kernels
 from stwo_brainfuck_tpu_torch.parallel import fft_sharded
+from stwo_brainfuck_tpu_torch.parallel.prove import ShardedOps
 from stwo_brainfuck_tpu_torch.parallel.merkle_sharded import commit_sharded
 from stwo_brainfuck_tpu_torch.parallel.mesh import make_mesh
 from stwo_brainfuck_tpu_torch.vm.compiler import compile_program
@@ -371,7 +373,7 @@ def test_merkle_commit_on_the_card_matches_cpu(cuda, tree):
         assert torch.equal(got.layers[k].cpu(), want.layers[k]), f"level {k}"
 
 
-@pytest.mark.parametrize("pow_bits", [8, 14, 16, 20])
+@pytest.mark.parametrize("pow_bits", range(8, 21))
 def test_blake2s_grind_matches_the_host_loop(cuda, pow_bits):
     digest = np.random.default_rng(pow_bits).integers(0, 256, 32).astype(np.uint8).tobytes()
     want = 0
@@ -392,3 +394,85 @@ def test_small_proof_at_pow_bits_16_on_the_card(cuda):
     assert blake2s.PLAIN_CUDA_CALLS == calls
     assert chip_smoke.proof_sha256(proof) == chip_smoke.REFERENCE_SHA256["small_pow16"]
     air.verify_brainfuck(proof, device=cuda)
+
+
+def _quotient_case(seed, log_size, n_cols, n_groups, device):
+    """(n_cols, 2^log_size) int32 columns on `device` and the point groups
+    of claims at n_groups points (every column at z, column c also at
+    z - s g for s = c % n_groups > 0)."""
+    rng = np.random.default_rng(seed)
+    cols = torch.as_tensor(rng.integers(0, P, (n_cols, 1 << log_size)).astype(np.int32),
+                           device=device)
+    felt = lambda: tuple(int(v) for v in rng.integers(0, P, 4))  # noqa: E731
+    z = point_from_t(felt())
+    claims, aidx = [], 0
+    for c in range(n_cols):
+        cl = []
+        for shift in sorted({0, c % n_groups}):
+            cl.append(quotients.QuotientClaim(shifted_point(z, log_size - 1, shift), felt(), aidx))
+            aidx += 1
+        claims.append(cl)
+    alpha = felt()
+    return cols, [quotients._group_constants(m, alpha)
+                  for m in quotients._group_claims(claims).values()]
+
+
+@pytest.mark.parametrize("log_size, n_groups", [(lg, g) for lg in (5, 8, 13, 17, 22)
+                                                for g in (1, 2, 3)])
+def test_quotient_kernel_matches_plain_on_the_card(cuda, log_size, n_groups):
+    cols, groups = _quotient_case(log_size, log_size, 7, n_groups, cuda)
+    before, plain = quotient_kernels.KERNEL.launches, quotients.PLAIN_CUDA_CALLS
+    got = quotients.accumulate_range(log_size, list(cols), groups)
+    assert quotient_kernels.KERNEL.launches - before == 1
+    assert quotients.PLAIN_CUDA_CALLS == plain
+    assert torch.equal(got, quotients.accumulate_plain(log_size, list(cols), groups))
+    px, py = quotients.domain_points_storage(log_size, cuda)
+    assert torch.equal(got, quotients.accumulate_groups(list(cols), groups, px, py))
+
+
+@pytest.mark.parametrize("offset, n", [(1, 1000), (12345, 77777), ((1 << 20) - 3, 3),
+                                       (7, (1 << 20) - 7)])
+def test_quotient_kernel_at_odd_offsets_on_the_card(cuda, offset, n):
+    cols, groups = _quotient_case(offset, 20, 70, 3, cuda)
+    part = [c[offset:offset + n] for c in cols]
+    got = quotient_kernels.KERNEL.accumulate(20, part, groups, offset)
+    assert torch.equal(got, quotients.accumulate_plain(20, part, groups, offset))
+
+
+@pytest.mark.parametrize("d", [2, 4, 8])
+def test_quotient_kernel_on_mesh_shards(cuda, d):
+    """ShardedOps.accumulate_all: one launch a shard, at its chunk's offset,
+    equal to the one-device kernel."""
+    cols, groups = _quotient_case(d, 18, 5, 2, cuda)
+    ops = ShardedOps(make_mesh(d, "cuda"))
+    before = quotient_kernels.KERNEL.launches
+    got = ops.accumulate_all(18, list(cols), groups)
+    assert quotient_kernels.KERNEL.launches - before == d
+    assert torch.equal(got.full(), quotients.accumulate_range(18, list(cols), groups))
+
+
+def test_quotient_kernel_wrapper_refuses_what_it_cannot_take(cuda):
+    cols, groups = _quotient_case(0, 8, 3, 1, cuda)
+    with pytest.raises(TypeError):
+        quotient_kernels.KERNEL.accumulate(8, [c.to(torch.int64) for c in cols], groups)
+    with pytest.raises(ValueError):
+        quotient_kernels.KERNEL.accumulate(8, [c[::2] for c in cols], groups)
+    with pytest.raises(ValueError):
+        quotient_kernels.KERNEL.accumulate(8, list(cols), groups, offset=1)
+    with pytest.raises(ValueError):
+        quotient_kernels.KERNEL.accumulate(8, [cols[0], cols[1].cpu(), cols[2]], groups)
+
+
+def test_quotient_kernel_and_grind_on_a_card_that_is_not_the_current_device(cards):
+    cols, groups = _quotient_case(9, 16, 4, 2, "cpu")
+    want = quotients.accumulate_range(16, list(cols), groups)
+    digest = bytes(range(32))
+    nonce = 0
+    while not channel._check_pow(digest, 14, nonce):
+        nonce += 1
+    with torch.cuda.device(cards[0]):
+        for card in cards[1:]:
+            got = quotients.accumulate_range(16, [c.to(card) for c in cols], groups)
+            assert got.device == card
+            assert torch.equal(got.cpu(), want)
+            assert blake2s_kernels.KERNELS.grind(digest, 14, card) == nonce
