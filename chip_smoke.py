@@ -4,7 +4,7 @@
 
 Phases (any failure raises and the script exits non-zero):
   1. device report: the card's name, power limit and clocks, CUDA version,
-     kernel build time (the four kernel libraries are built with nvcc from
+     kernel build time (the five kernel libraries are built with nvcc from
      stwo_brainfuck_tpu_torch/csrc/ into stwo_brainfuck_tpu_torch/build/,
      one nvcc per source, started together), and the SASS instruction
      counts of one M31 product, m31::mul, the FFT's m31::mul_doubled and
@@ -49,7 +49,13 @@ Phases (any failure raises and the script exits non-zero):
      on the card, bit for bit, at every quotient shape of a fib19_io prove
      at the default config and at production parameters (up to (4, 2^28),
      the plain version in 2^24-position ranges), the default shapes and
-     the 2^28 one timed beside the bounds;
+     the 2^28 one timed beside the bounds; then the two constraint kernels
+     (composition and logup, csrc/constraints.cu) against the plain Expr
+     path, bit for bit, for every component at every shape of a default
+     fib19_io, a big22 and a production fib19_io prove: on the proves' own
+     inputs (each shape timed beside its bounds and the plain version's
+     time), on random and on edge inputs, and in 4 chunks against one
+     launch;
   6. the mesh prover (stwo_brainfuck_tpu_torch/parallel/, D shards sharing
      the one card): the sharded evaluate, interpolate and extend (D 2, 4, 8;
      n 16, 20, 24; 1 and 8 columns) against the one-device kernel and the
@@ -85,11 +91,13 @@ Phases (any failure raises and the script exits non-zero):
      device memory, then one more warm fib19_io prove under
      torch.profiler (device busy share, host syncs and the time waiting
      in them).
-     After each prove the FFT kernel's, the Blake2s tree kernel's and the
-     quotient kernel's launch counts must have risen (the tree kernel once
-     a commit on one device, at most once a shard and once for the top on
-     the mesh), no plain FFT, Blake2s or quotient call may have run on a
-     CUDA tensor and no M31 kernel or plain M31 op;
+     After each prove the FFT kernel's, the Blake2s tree kernel's, the
+     quotient kernel's and the constraint kernels' launch counts must have
+     risen (the tree kernel once a commit on one device, at most once a
+     shard and once for the top on the mesh; each constraint kernel once a
+     component on one device, once a shard above the sharded sizes), no
+     plain FFT, Blake2s, quotient or constraint call may have run on a CUDA
+     tensor and no M31 kernel or plain M31 op;
   9. production parameters (PcsConfig(log_blowup=4, n_queries=30,
      pow_bits=16)): the memory reading (production_memory: one cold
      fib19_io prove at input 19 under the allocator's history, its peak,
@@ -150,12 +158,13 @@ import torch
 
 from stwo_brainfuck_tpu_torch import air, bench, cli
 from stwo_brainfuck_tpu_torch.components import device_build, tables
-from stwo_brainfuck_tpu_torch.components.defs import COMPONENT_CLASSES
+from stwo_brainfuck_tpu_torch.components.defs import COMPONENT_CLASSES, ELEMENT_SIZES
 from stwo_brainfuck_tpu_torch.core import blake2s, fft, merkle, quotients
 from stwo_brainfuck_tpu_torch.core.channel import _plain_grind
 from stwo_brainfuck_tpu_torch.core.pcs import PcsConfig
-from stwo_brainfuck_tpu_torch.ops import (blake2s_kernels, circle_fft, m31_kernels, nvcc,
-                                           quotient_kernels)
+from stwo_brainfuck_tpu_torch.framework import component as framework
+from stwo_brainfuck_tpu_torch.ops import (blake2s_kernels, circle_fft, constraint_kernels,
+                                           m31_kernels, nvcc, quotient_kernels)
 from stwo_brainfuck_tpu_torch.parallel import fft_sharded
 from stwo_brainfuck_tpu_torch.parallel.merkle_sharded import commit_sharded
 from stwo_brainfuck_tpu_torch.parallel.mesh import make_mesh
@@ -170,6 +179,13 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # "small_production" at PcsConfig(log_blowup=4, n_queries=30, pow_bits=16,
 # log_max_rows=0); kept with the bench, which checks them too
 REFERENCE_SHA256 = bench.REFERENCE_SHA256
+# proofs the port made on an H100 before the constraint kernels (no JAX
+# sha256 exists for them: the JAX package cannot prove them on one TPU chip)
+RECORDED_SHA256 = {
+    "big22": "5c139331130d76c6b27135106e697e524db5b5d467c2ce7df4b4021abf1954f3",
+    "fib19_io_in19_production":
+        "f4a24c9b217338bb49ceaf8f84541c1b1ba5efd9402e826deddb8428c939874d",
+}
 proof_sha256 = bench.proof_sha256
 PRODUCTION = bench.CONFIGS["production"]
 SMALL_CODE = "+++>,<[>+.<-]"
@@ -236,6 +252,12 @@ MEMORY_EVENTS = 500_000
 QUOTIENT_CHUNK_LOG = 24
 QUOTIENT_TIMED_LOG = 28
 QUOTIENT_GROUP_PRODUCTS = 90
+# the constraint kernels' checks: the plain version over ranges of
+# 2^CONSTRAINT_CHUNK_LOG rows; on random and edge inputs the first and last
+# 2^CONSTRAINT_SAMPLE_LOG rows of a shape; the chunked check's chunk count
+CONSTRAINT_CHUNK_LOG = 22
+CONSTRAINT_SAMPLE_LOG = 20
+CONSTRAINT_CHUNKS = 4
 
 
 def _line(tag: str, obj) -> None:
@@ -895,13 +917,30 @@ def _reset_counts() -> None:
     m31_kernels.PLAIN_CUDA_CALLS = 0
     quotient_kernels.KERNEL.launches = 0
     quotients.PLAIN_CUDA_CALLS = 0
+    constraint_kernels.KERNELS.launches = dict.fromkeys(constraint_kernels.FAMILIES, 0)
+    framework.PLAIN_CUDA_CALLS = 0
 
 
 def _counts() -> dict:
-    """The prover's kernels' launch counts: the FFT, each Blake2s entry and
-    the quotient kernel."""
+    """The prover's kernels' launch counts: the FFT, each Blake2s entry, the
+    quotient kernel and the two constraint kernels."""
     return {"fft": circle_fft.KERNEL.launches, **blake2s_kernels.KERNELS.launches,
-            "quotients": quotient_kernels.KERNEL.launches}
+            "quotients": quotient_kernels.KERNEL.launches,
+            **constraint_kernels.KERNELS.launches}
+
+
+def _constraint_launches(launched: dict) -> dict:
+    return {k: launched[k] for k in constraint_kernels.FAMILIES}
+
+
+def _constraints_per_prove(launched: dict, shards: int, what: str) -> None:
+    """Each constraint kernel once a component on one device; on a mesh
+    once a component below the sharded sizes and once a shard above."""
+    n = len(COMPONENT_CLASSES)
+    for family in constraint_kernels.FAMILIES:
+        if not (launched[family] == n if not shards else n <= launched[family] <= n * shards):
+            raise AssertionError(f"{what}: {launched[family]} {family} launches for {n} "
+                                 f"components" + (f" on {shards} shards" if shards else ""))
 
 
 def _add_counts(a: dict, b: dict) -> dict:
@@ -935,11 +974,12 @@ def _trees_per_commit(launched: dict, commits: int, shards: int, what: str) -> d
 
 
 def _require(launched: dict, plain_fft: int, plain_blake: int, what: str,
-             grind: bool = False, plain_quotients: int = 0) -> dict:
-    """A prove's launches: the FFT, the Blake2s tree kernel and the
-    quotient kernel (and the grind where pow_bits > 13) launched, no plain
-    FFT, Blake2s or quotient call on a CUDA tensor."""
-    needed = ("fft", "tree", "quotients") + (("grind",) if grind else ())
+             grind: bool = False, plain_quotients: int = 0, plain_constraints: int = 0) -> dict:
+    """A prove's launches: the FFT, the Blake2s tree kernel, the quotient
+    kernel and both constraint kernels (and the grind where pow_bits > 13)
+    launched, no plain FFT, Blake2s, quotient or constraint call on a CUDA
+    tensor."""
+    needed = ("fft", "tree", "quotients", "composition", "logup") + (("grind",) if grind else ())
     missing = [k for k in needed if launched.get(k, 0) <= 0]
     if missing:
         raise AssertionError(f"{what}: not launched: {missing} ({launched})")
@@ -949,13 +989,16 @@ def _require(launched: dict, plain_fft: int, plain_blake: int, what: str,
         raise AssertionError(f"{what}: the plain Blake2s ran on a CUDA tensor")
     if plain_quotients:
         raise AssertionError(f"{what}: the plain quotient accumulation ran on a CUDA tensor")
+    if plain_constraints:
+        raise AssertionError(f"{what}: the plain constraint evaluation ran on a CUDA tensor "
+                             f"{plain_constraints} times")
     return launched
 
 
 def _require_here(launched: dict, what: str, grind: bool = False) -> dict:
     """_require with this process's plain-call counts."""
     return _require(launched, fft.PLAIN_CUDA_CALLS, blake2s.PLAIN_CUDA_CALLS, what, grind,
-                    quotients.PLAIN_CUDA_CALLS)
+                    quotients.PLAIN_CUDA_CALLS, framework.PLAIN_CUDA_CALLS)
 
 
 def _check_launches(before: dict, what: str, grind: bool = False) -> dict:
@@ -1010,13 +1053,14 @@ def phase_small(tag: str = "small", flags: tuple = (), reference: str = "small")
                 "tamper_rejected": True, "fft_launches": launched["fft"],
                 "blake2s_launches": {k: launched[k] for k in blake2s_kernels.ENTRIES},
                 "quotient_launches": launched["quotients"],
+                "constraint_launches": _constraint_launches(launched),
                 **({"matches_cpu_proof": True} if pow16 else {})})
     return launched
 
 
 def phase_program(name, path, inp, runs: int, expect_sha: str | None,
                   n_shards: int = 0, fresh_verify: bool = False, config=None,
-                  tag: str | None = None) -> dict:
+                  tag: str | None = None, recorded: str | None = None) -> dict:
     """Prove (`runs` times, the first cold) and verify one program at
     `config` (the prover's default if None); on a mesh of `n_shards` shards
     over the visible cards if n_shards > 0. With fresh_verify, the last
@@ -1045,6 +1089,7 @@ def phase_program(name, path, inp, runs: int, expect_sha: str | None,
             torch.cuda.synchronize()
             prove_s = time.perf_counter() - t1
         launched = _check_launches(before, f"{name} prove", grind=grind)
+        _constraints_per_prove(launched, len(mesh.local) if mesh else 0, f"{name} prove")
         if grind and launched["grind"] != 1:
             raise AssertionError(f"{name} prove: {launched['grind']} grind launches, not one")
         trees = _trees_per_commit(launched, counted["commits"], len(mesh.local) if mesh else 0,
@@ -1056,6 +1101,8 @@ def phase_program(name, path, inp, runs: int, expect_sha: str | None,
         sha = proof_sha256(proof)
         if expect_sha is not None and sha != expect_sha:
             raise AssertionError(f"{name} proof sha256 {sha} != JAX reference")
+        if recorded is not None and sha != RECORDED_SHA256[recorded]:
+            raise AssertionError(f"{name} proof sha256 {sha} != the recorded {recorded} proof")
         shas.add(sha)
         if len(shas) != 1:
             raise AssertionError(f"{name}: two proves of one execution differ: {sorted(shas)}")
@@ -1069,8 +1116,10 @@ def phase_program(name, path, inp, runs: int, expect_sha: str | None,
             "phases_s": timer.seconds, "peak_device_bytes": peak,
             "fft_launches": launched["fft"],
             "blake2s_launches": {k: launched[k] for k in blake2s_kernels.ENTRIES},
-            "quotient_launches": launched["quotients"], **trees,
+            "quotient_launches": launched["quotients"],
+            "constraint_launches": _constraint_launches(launched), **trees,
             "sha256": sha, "matches_jax": None if expect_sha is None else True,
+            **({"matches_recorded": True} if recorded else {}),
         })
         if fresh_verify and run == runs - 1:
             phase_fresh_verify(name, proof)
@@ -1120,10 +1169,11 @@ def phase_split(name: str, path: str, inp: bytes) -> dict:
         air.prove_brainfuck(machine, device="cuda")
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    spans, syncs, wait_us, by_kernel = [], {}, 0.0, {}
+    spans, syncs, wait_us, by_kernel, kernels = [], {}, 0.0, {}, 0
     for ev in prof.events():
         if ev.device_type == DeviceType.CUDA:
             spans.append((ev.time_range.start, ev.time_range.end))
+            kernels += not ev.name.startswith(("Memcpy", "Memset"))
             by_kernel[ev.name] = by_kernel.get(ev.name, 0.0) + ev.time_range.elapsed_us()
         elif "Synchronize" in ev.name:
             syncs[ev.name] = syncs.get(ev.name, 0) + 1
@@ -1140,7 +1190,8 @@ def phase_split(name: str, path: str, inp: bytes) -> dict:
     out = {"program": name, "run": "warm, profiled", "prove_s": wall_s,
            "device_busy_s": busy_us / 1e6 if spans else None,
            "device_busy_share": busy_us / 1e6 / wall_s if spans else "not measured",
-           "device_events": len(spans), "host_syncs": sum(syncs.values()), "syncs_by_call": syncs,
+           "device_events": len(spans), "device_kernels": kernels,
+           "host_syncs": sum(syncs.values()), "syncs_by_call": syncs,
            "sync_wait_s": wait_us / 1e6, "top_device_us": dict(top)}
     _line("phase_split", out)
     return out
@@ -1276,6 +1327,236 @@ def phase_quotients(fib_path: str, per_mul: float, dispatch_per_s: float) -> dic
     return out
 
 
+def _constraint_bound(component, family: str, rows: int, per_mul: float, dispatch_per_s: float,
+                      accumulate: bool = True, rotation: bool = True,
+                      log_blowup: int = 0) -> dict:
+    """A launch's bounds: bytes (each input word read once, each output word
+    written once) at the memory rate; the M31 products the function needs
+    (the program's distinct ops, the weights, V_n^-1: constraint_kernels.
+    launch_work) at per_mul instructions and its adds at 2 at the dispatch
+    rate."""
+    nbytes, products, adds = constraint_kernels.launch_work(component, family, rows, accumulate,
+                                                            rotation, log_blowup)
+    return {"products": products, "adds": adds,
+            **bound(nbytes, products * per_mul + 2 * adds, dispatch_per_s)}
+
+
+def _rows_like(gen, count: int, m: int, dev, edge: bool) -> list:
+    """`count` int32 rows of m canonical values on `dev`: uniform from the
+    generator, or edge values (0, 1, p - 2, p - 1) with 0 and p - 1 in
+    every row."""
+    if not edge:
+        return [torch.randint(0, P, (m,), generator=gen, dtype=torch.int32, device=dev)
+                for _ in range(count)]
+    values = torch.tensor([0, 1, P - 2, P - 1], dtype=torch.int32, device=dev)
+    rows = []
+    for _ in range(count):
+        r = values[torch.randint(0, 4, (m,), generator=gen, device=dev)]
+        r[0], r[-1] = 0, P - 1
+        rows.append(r)
+    return rows
+
+
+def _felt(rng) -> tuple:
+    return tuple(int(v) for v in rng.integers(0, P, 4))
+
+
+def _elements(rng) -> dict:
+    return {k: framework.LookupElements(z=_felt(rng), alpha=_felt(rng), size=size)
+            for k, size in ELEMENT_SIZES.items()}
+
+
+def phase_constraints(fib_path: str, big_path: str, per_mul: float,
+                      dispatch_per_s: float) -> dict:
+    """The two constraint kernels against their plain versions (the Expr
+    path) on the card, bit for bit, for every component:
+
+    - on the prove's own inputs, recorded from a default fib19_io prove, a
+      big22 prove and a PRODUCTION fib19_io prove at input 19 (each launch's
+      inputs also through framework.composition_plain in ranges of
+      2^CONSTRAINT_CHUNK_LOG rows, and logup_fractions_plain); every shape
+      timed (the kernel's device time behind a sleep, mean of 5, into a
+      scratch accumulator; the plain version's one pass) beside its bounds;
+    - at each of those shapes on random canonical inputs and on edge values
+      (0, 1, p - 2, p - 1, with 0 and p - 1 in every row) from a numpy
+      seed, the kernel over the whole shape and the plain version on its
+      first and last 2^CONSTRAINT_SAMPLE_LOG rows (all of a smaller shape);
+    - the default fib19_io shapes also as CONSTRAINT_CHUNKS chunks (their
+      offsets, S(p - g) given as rows as the mesh gives them and through the
+      rotation index) against the one launch.
+    The proofs carry their recorded sha256s and verify."""
+    K = constraint_kernels.KERNELS
+    real_comp, real_logup = K.composition, K.logup
+    shapes: dict = {}
+    times: dict = {}
+    max_err = 0
+    prove = None
+
+    def same(what: str, got: torch.Tensor, want: torch.Tensor) -> None:
+        nonlocal max_err
+        err = int((got.to(torch.int64) - want.to(torch.int64) % P).abs().max())
+        max_err = max(max_err, err)
+        if err:
+            raise AssertionError(f"constraint kernel != plain: {what}")
+
+    def plain_ranges(m: int, sample: bool) -> list:
+        step = 1 << (CONSTRAINT_SAMPLE_LOG if sample else CONSTRAINT_CHUNK_LOG)
+        if m <= step:
+            return [slice(0, m)]
+        if sample:
+            return [slice(0, step), slice(m - step, m)]
+        return [slice(s, s + step) for s in range(0, m, step)]
+
+    def check_composition(what, args, out, before, sample=False):
+        """out: the kernel's (4, m) result of composition(*args), before:
+        the accumulator before it (None: written). Returns the plain ms."""
+        (component, main, inter, s_rows, rot, isf, claimed, els, alpha, aoff, blow, _,
+         offset) = args
+        wants = []
+        ranges = plain_ranges(isf.shape[0], sample)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for sl in ranges:
+            want, _ = framework.composition_plain(
+                component, {k: v[sl] for k, v in main.items()}, [r[sl] for r in inter],
+                s_rows if rot is not None else [r[sl] for r in s_rows], rot, isf[sl], claimed,
+                els, alpha, aoff, blow, offset + sl.start)
+            wants.append(want)
+        end.record()
+        torch.cuda.synchronize()
+        for sl, want in zip(ranges, wants):
+            if before is not None:
+                want = (want + before[:, sl]) % P
+            same(f"{what}, rows {sl.start} .. {sl.stop - 1}", out[:, sl], want)
+        return start.elapsed_time(end)
+
+    def check_logup(what, args, q, total, sample=False):
+        component, main, isf, els = args
+        ranges = plain_ranges(isf.shape[0], sample)
+        wants = []
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for sl in ranges:
+            wants.append(framework.logup_fractions_plain(
+                component, {k: v[sl] for k, v in main.items()}, isf[sl], els))
+        end.record()
+        torch.cuda.synchronize()
+        for sl, (wq, wt) in zip(ranges, wants):
+            same(f"{what} Q, rows {sl.start} .. {sl.stop - 1}", q[:, :, sl], wq)
+            same(f"{what} total, rows {sl.start} .. {sl.stop - 1}", total[:, sl], wt)
+        return start.elapsed_time(end)
+
+    def composition(component, main_cols, inter_rows, s_rows, rotation, is_first, claimed_sum,
+                    elements, alpha, alpha_offset, log_blowup, acc, offset=0):
+        args = (component, main_cols, inter_rows, s_rows, rotation, is_first, claimed_sum,
+                elements, alpha, alpha_offset, log_blowup, acc, offset)
+        before = None if acc is None else acc.clone()
+        out, nxt = real_comp(*args)
+        key = f"{prove} composition {component.name} 2^{component.log_size} blowup {log_blowup}"
+        plain_ms = check_composition(key, args, out, before)
+        scratch = out.clone()
+        call = lambda: real_comp(*args[:11], scratch, offset)  # noqa: E731
+        shapes[key] = ("composition", component, out.shape[1], len(inter_rows), log_blowup)
+        times[key] = {"rows": out.shape[1], "ms": _time_ms(call, reps=5, queued=True),
+                      "plain_ms": plain_ms, **_constraint_bound(
+                          component, "composition", out.shape[1], per_mul, dispatch_per_s,
+                          accumulate=True, rotation=rotation is not None,
+                          log_blowup=log_blowup)}
+        return out, nxt
+
+    def logup(component, main_cols, is_first, elements):
+        args = (component, main_cols, is_first, elements)
+        q, total = real_logup(*args)
+        key = f"{prove} logup {component.name} 2^{component.log_size}"
+        plain_ms = check_logup(key, args, q, total)
+        shapes[key] = ("logup", component, total.shape[1], 0, 0)
+        times[key] = {"rows": total.shape[1],
+                      "ms": _time_ms(lambda: real_logup(*args), reps=5, queued=True),
+                      "plain_ms": plain_ms, **_constraint_bound(
+                          component, "logup", total.shape[1], per_mul, dispatch_per_s)}
+        return q, total
+
+    # the proves' own inputs, then random and edge inputs at their shapes
+    inputs_checked = 0
+    with open(fib_path) as f:
+        fib = compile_program(f.read())
+    with open(big_path) as f:
+        big = compile_program(f.read())
+    proves = (("fib19_io", fib, FIB_INPUT, None, REFERENCE_SHA256["fib19_io"]),
+              ("big22", big, b"", None, RECORDED_SHA256["big22"]),
+              ("fib19_io_in19_production", fib, FIB_INPUT, PRODUCTION,
+               RECORDED_SHA256["fib19_io_in19_production"]))
+    for prove, code, inp, config, sha in proves:
+        _clear_prover_caches()
+        shapes.clear()
+        machine = create_test_machine(code, inp)
+        machine.execute()
+        with mock.patch.object(K, "composition", composition), \
+                mock.patch.object(K, "logup", logup):
+            proof = air.prove_brainfuck(machine, config, device="cuda")
+        if proof_sha256(proof) != sha:
+            raise AssertionError(f"{prove} proof under the constraint check: sha256 "
+                                 f"{proof_sha256(proof)} != {sha}")
+        air.verify_brainfuck(proof, device="cuda")
+        del proof
+        rng = np.random.default_rng(len(times))
+        gen = torch.Generator(device="cuda")
+        dev = torch.device("cuda", torch.cuda.current_device())
+        for key, (family, component, m, n_inter_rows, blow) in list(shapes.items()):
+            for edge in (False, True):
+                gen.manual_seed(int(rng.integers(1 << 62)))
+                main = dict(zip(component.columns, _rows_like(gen, len(component.columns), m,
+                                                              dev, edge)))
+                isf = _rows_like(gen, 1, m, dev, edge)[0]
+                els = _elements(rng)
+                what = f"{key} on {'edge' if edge else 'random'} inputs"
+                if family == "logup":
+                    largs = (component, main, isf, els)
+                    q, total = real_logup(*largs)
+                    check_logup(what, largs, q, total, sample=True)
+                else:
+                    inter = _rows_like(gen, n_inter_rows, m, dev, edge)
+                    acc = torch.stack(_rows_like(gen, 4, m, dev, edge))
+                    rot = fft.rotation_index(component.log_size, blow, dev)
+                    cargs = (component, main, inter, inter[-4:], rot, isf, _felt(rng), els,
+                             _felt(rng), int(rng.integers(100)), blow, acc, 0)
+                    before = acc.clone()
+                    out, _ = real_comp(*cargs)
+                    check_composition(what, cargs, out, before, sample=True)
+                    if prove == "fib19_io" and not edge:
+                        chunks_check(what, cargs, before, out)
+                inputs_checked += 1
+        shapes.clear()
+    _clear_prover_caches()
+    out = {"shapes": len(times), "comparisons": len(times) + inputs_checked, "tolerance": 0,
+           "max_abs_err": max_err, "chunk_log": CONSTRAINT_CHUNK_LOG,
+           "sample_log": CONSTRAINT_SAMPLE_LOG, "chunks": CONSTRAINT_CHUNKS, "times": times}
+    _line("constraints", out)
+    return out
+
+
+def chunks_check(what: str, args: tuple, before: torch.Tensor, whole: torch.Tensor) -> None:
+    """The composition launch of `args` (S(p - g) through the rotation
+    index, accumulated onto `before`) as CONSTRAINT_CHUNKS launches at their
+    offsets, S(p - g) once given as rows (the mesh's form) and once through
+    the rotation index, each equal to the whole launch's rows."""
+    (component, main, inter, s_rows, rot, isf, claimed, els, alpha, aoff, blow, _, _) = args
+    m = isf.shape[0]
+    c = m // CONSTRAINT_CHUNKS
+    s_prev = torch.stack(s_rows)[:, rot.to(torch.int64)]
+    for i in range(CONSTRAINT_CHUNKS):
+        sl = slice(i * c, (i + 1) * c)
+        sub = {k: v[sl] for k, v in main.items()}
+        for given, rotation in (([r[sl] for r in s_prev], None), (s_rows, rot)):
+            acc = before[:, sl].contiguous()
+            constraint_kernels.KERNELS.composition(
+                component, sub, [r[sl] for r in inter], given, rotation, isf[sl], claimed, els,
+                alpha, aoff, blow, acc, i * c)
+            if not torch.equal(acc, whole[:, sl]):
+                raise AssertionError(f"{what}: chunk {i} of {CONSTRAINT_CHUNKS} "
+                                     f"({'rows' if rotation is None else 'rotation'}) != whole")
+
+
 def phase_production(fib_path: str) -> dict:
     """PRODUCTION (PcsConfig(log_blowup=4, n_queries=30, pow_bits=16)) on
     the card, counts at 0 first: the fused extend at fib19_io's production
@@ -1303,7 +1584,8 @@ def phase_production(fib_path: str) -> dict:
                          "blake2s_launches": {k: launched[k] for k in blake2s_kernels.ENTRIES}})
     for inp in (bench.FIB_2_18_INPUT, FIB_INPUT):
         phase_program("fib19_io", fib_path, inp, runs=2, expect_sha=None, config=PRODUCTION,
-                      tag="production")
+                      tag="production",
+                      recorded="fib19_io_in19_production" if inp == FIB_INPUT else None)
     launched = _require_here(_counts(), "the production path", grind=True)
     _clear_prover_caches()
     return {"launches": launched, "max_abs_err": fft_check["max_abs_err"]}
@@ -1479,7 +1761,9 @@ def phase_bench() -> dict:
         raise AssertionError(f"bench final line: {problems}:\n{lines[0]}")
     _line("bench", final)
     launched = head["kernel_launches"]
-    _require(launched, 0, 0, "the bench's headline")
+    plain = head["plain_cuda_calls"]
+    _require(launched, plain["fft"], plain["blake2s"], "the bench's headline",
+             plain_quotients=plain["quotients"], plain_constraints=plain["constraints"])
     return launched
 
 
@@ -1490,16 +1774,20 @@ def _free_port() -> int:
 
 
 def _rank_counts(rank: int, launches: dict, plain_fft: int, plain_blake: int,
-                 plain_quotients: int, grind: bool = False) -> dict:
-    """A process's kernel launches and plain FFT, Blake2s and quotient
-    calls on CUDA tensors over one prove: the FFT, tree and quotient
-    kernels (and the grind where pow_bits > 13) launched, no plain call."""
-    _require(launches, plain_fft, plain_blake, f"process {rank}", grind, plain_quotients)
+                 plain_quotients: int, plain_constraints: int, grind: bool = False) -> dict:
+    """A process's kernel launches and plain FFT, Blake2s, quotient and
+    constraint calls on CUDA tensors over one prove: the FFT, tree,
+    quotient and constraint kernels (and the grind where pow_bits > 13)
+    launched, no plain call."""
+    _require(launches, plain_fft, plain_blake, f"process {rank}", grind, plain_quotients,
+             plain_constraints)
     return {"fft_launches": launches["fft"],
             "blake2s_launches": {k: launches[k] for k in blake2s_kernels.ENTRIES},
             "quotient_launches": launches["quotients"],
+            "constraint_launches": _constraint_launches(launches),
             "plain_fft_cuda_calls": plain_fft, "plain_blake2s_cuda_calls": plain_blake,
-            "plain_quotient_cuda_calls": plain_quotients}
+            "plain_quotient_cuda_calls": plain_quotients,
+            "plain_constraint_cuda_calls": plain_constraints}
 
 
 _CLI_COUNTS = re.compile(r"Circle FFT kernel launches: (\d+); plain FFT calls on CUDA "
@@ -1508,6 +1796,8 @@ _CLI_HASHES = re.compile(r"Blake2s kernel launches: tree (\d+), level (\d+), gri
                          r"plain Blake2s calls on CUDA tensors: (\d+)")
 _CLI_QUOTIENTS = re.compile(r"Quotient kernel launches: (\d+); plain quotient calls on CUDA "
                             r"tensors: (\d+)")
+_CLI_CONSTRAINTS = re.compile(r"constraint kernel launches: composition (\d+), logup (\d+); "
+                              r"plain constraint calls on CUDA tensors: (\d+)")
 
 
 def _distributed_cli(world: int, backend: str, torchrun: bool = False,
@@ -1559,18 +1849,21 @@ def _distributed_cli(world: int, backend: str, torchrun: bool = False,
         counts = [c for _, err in outs for c in _CLI_COUNTS.findall(err)]
         hashes = [h for _, err in outs for h in _CLI_HASHES.findall(err)]
         quots = [q for _, err in outs for q in _CLI_QUOTIENTS.findall(err)]
+        cons = [c for _, err in outs for c in _CLI_CONSTRAINTS.findall(err)]
         times = [float(t) for _, err in outs for t in re.findall(r"proof time: ([0-9.]+) s", err)]
         written = sum(err.count("Proof written") for _, err in outs)
         if (len(counts) != world or len(hashes) != world or len(quots) != world
-                or len(times) != world or written != 1):
+                or len(cons) != world or len(times) != world or written != 1):
             raise AssertionError(f"distributed CLI ({world} x {backend}): {len(counts)} counts, "
                                  f"{len(hashes)} hash counts, {len(quots)} quotient counts, "
-                                 f"{len(times)} times and {written} proofs written in the logs")
+                                 f"{len(cons)} constraint counts, {len(times)} times and "
+                                 f"{written} proofs written in the logs")
         ranks = [{"prove_s": t, **_rank_counts(
                      i, {"fft": int(c[0]), **dict(zip(("tree", "level", "grind"), map(int, h[:3]))),
-                         "quotients": int(q[0])},
-                     int(c[1]), int(h[3]), int(q[1]), grind=bool(pow_bits and pow_bits > 13))}
-                 for i, (c, h, q, t) in enumerate(zip(counts, hashes, quots, times))]
+                         "quotients": int(q[0]), "composition": int(k[0]), "logup": int(k[1])},
+                     int(c[1]), int(h[3]), int(q[1]), int(k[2]),
+                     grind=bool(pow_bits and pow_bits > 13))}
+                 for i, (c, h, q, k, t) in enumerate(zip(counts, hashes, quots, cons, times))]
         files = sorted(os.listdir(tmp))
         if files != (["proof.json"] if torchrun else ["rank0.json"]):
             raise AssertionError(f"distributed CLI: wrote {files}, only the coordinator writes")
@@ -1589,7 +1882,8 @@ def _distributed_cli(world: int, backend: str, torchrun: bool = False,
     total = {}
     for r in ranks:
         total = _add_counts(total, {"fft": r["fft_launches"], **r["blake2s_launches"],
-                                    "quotients": r["quotient_launches"]})
+                                    "quotients": r["quotient_launches"],
+                                    **r["constraint_launches"]})
     return total
 
 
@@ -1628,6 +1922,7 @@ def _prove_rank(rank: int, world: int, port: int, backend: str, device: str, run
                        "plain_fft_cuda_calls": fft.PLAIN_CUDA_CALLS,
                        "plain_blake2s_cuda_calls": blake2s.PLAIN_CUDA_CALLS,
                        "plain_quotient_cuda_calls": quotients.PLAIN_CUDA_CALLS,
+                       "plain_constraint_cuda_calls": framework.PLAIN_CUDA_CALLS,
                        "m31_launches": sum(m31_kernels.KERNELS.launches.values()),
                        "plain_m31_cuda_calls": m31_kernels.PLAIN_CUDA_CALLS}
                 if multihost.is_coordinator():
@@ -1686,7 +1981,8 @@ def _distributed_group(world: int, backend: str, device: str, runs: int) -> int:
         ranks = sorted((r for r in got if r["run"] == run), key=lambda r: r["rank"])
         for r in ranks:
             r.update(_rank_counts(r["rank"], r["launches"], r["plain_fft_cuda_calls"],
-                                  r["plain_blake2s_cuda_calls"], r["plain_quotient_cuda_calls"]))
+                                  r["plain_blake2s_cuda_calls"], r["plain_quotient_cuda_calls"],
+                                  r["plain_constraint_cuda_calls"]))
             r.update(_trees_per_commit(r["launches"], r["commits"], 1, f"process {r['rank']}"))
             if r["m31_launches"] or r["plain_m31_cuda_calls"]:
                 raise AssertionError(f"process {r['rank']}: an M31 kernel or plain M31 op ran")
@@ -1702,10 +1998,11 @@ def _distributed_group(world: int, backend: str, device: str, runs: int) -> int:
             "proof_bytes": ranks[0]["proof_bytes"], "sha256": sha, "matches_jax": True,
             "processes": [{k: r[k] for k in ("rank", "device", "prove_s", "phases_s",
                                          "peak_device_bytes", "fft_launches",
-                                         "blake2s_launches", "quotient_launches", "commits",
+                                         "blake2s_launches", "quotient_launches",
+                                         "constraint_launches", "commits",
                                          "tree_launches_per_commit", "plain_fft_cuda_calls",
-                                         "plain_blake2s_cuda_calls",
-                                         "plain_quotient_cuda_calls")} for r in ranks]})
+                                         "plain_blake2s_cuda_calls", "plain_quotient_cuda_calls",
+                                         "plain_constraint_cuda_calls")} for r in ranks]})
     return launched
 
 
@@ -1892,7 +2189,7 @@ def main(argv) -> int:
     card = _smi("name,power.limit")
     max_mhz, sm_mhz = (float(v.split()[0]) for v in _smi("clocks.max.sm,clocks.sm").split(","))
     libs = (circle_fft.KERNEL.lib, m31_kernels.KERNELS.lib, blake2s_kernels.KERNELS.lib,
-            quotient_kernels.KERNEL.lib)
+            quotient_kernels.KERNEL.lib, constraint_kernels.KERNELS.lib)
     nvcc.build_all(libs)
     for lib in libs:
         if lib.build_log.strip():
@@ -1942,6 +2239,9 @@ def main(argv) -> int:
     blake = phase_blake2s(sass["per_compress"], dispatch_per_s, fib_code, SMALL_CODE)
     quot = phase_quotients(os.path.join(ROOT, "programs", "fib19_io.bf"), sass["per_mul"],
                            dispatch_per_s)
+    cons = phase_constraints(os.path.join(ROOT, "programs", "fib19_io.bf"),
+                             os.path.join(ROOT, "programs", "big22.bf"), sass["per_mul"],
+                             dispatch_per_s)
 
     # the mesh prover: its transforms checked, then its path with the
     # counts at 0
@@ -1968,7 +2268,7 @@ def main(argv) -> int:
     phase_program("fib19_io", fib_path, FIB_INPUT, runs=3,
                   expect_sha=REFERENCE_SHA256["fib19_io"], fresh_verify=True)
     phase_program("big22", os.path.join(ROOT, "programs", "big22.bf"), b"",
-                  runs=2, expect_sha=None, fresh_verify=True)
+                  runs=2, expect_sha=None, fresh_verify=True, recorded="big22")
     # last: a profiled prove (its fib19_io caches are still warm)
     phase_split("fib19_io", fib_path, FIB_INPUT)
     main_path = _require_here(_counts(), "the main path", grind=True)
@@ -2046,6 +2346,23 @@ def main(argv) -> int:
         "plain_ms": quot_times["plain_ms"], "bound_ms": quot_times["bound_ms"],
         "bound_by": quot_times["bound_by"], "library_ms": None,
     })
+    for family, replaces in (
+            ("composition", "stwo_brainfuck_tpu/framework/component.py:520 (_constraints_fn)"),
+            ("logup", "stwo_brainfuck_tpu/framework/component.py:372 (_build_interaction_fn)")):
+        default = [k for k in cons["times"] if k.startswith(f"fib19_io {family} ")]
+        head = max(default, key=lambda k: (cons["times"][k]["rows"], cons["times"][k]["bound_ms"]))
+        t = cons["times"][head]
+        kernels.append({
+            "name": f"constraints_{family}", "route": "cuda",
+            "source": "stwo_brainfuck_tpu_torch/csrc/constraints.cu",
+            "replaces": replaces, "shape": head, "launches": main_path[family],
+            "launches_by_path": {"prover": main_path[family], "sharded_prover": sharded[family],
+                                 "distributed_prover": distributed[family],
+                                 "production": production["launches"][family],
+                                 "bench": bench_path[family]},
+            "max_abs_err": cons["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
+        })
     if not all(k["launches"] > 0 for k in kernels):
         raise AssertionError(f"a kernel was not launched on its path: {kernels}")
     print(card)

@@ -24,7 +24,7 @@ import torch
 from .components import device_build
 from .components.defs import COMPONENT_CLASSES, ELEMENT_SIZES
 from .components.tables import MIN_LOG_SIZE
-from .core import fft, fri, m31, merkle, poly, qm31, quotients
+from .core import fft, fri, merkle, poly, qm31, quotients
 from .core.channel import Blake2sChannel
 from .core.circle import point_from_t
 from .core.m31 import P_INT
@@ -39,7 +39,7 @@ from .core.pcs import (
 from .framework.component import (
     LookupElements,
     build_interaction_trace,
-    composition_contribution,
+    composition_accumulate,
     evaluate_constraints_at_point,
 )
 
@@ -127,14 +127,16 @@ def _preprocessed_tree(ladder: tuple, log_blowup: int, device: str) -> TreeProve
 def clear_caches() -> None:
     """Drop every device tensor the provers keep between proves (twiddle
     tables, domain points, fold twiddles, the ladder tree, the mesh's
-    permutations), so that the next prove builds its own and the caching
-    allocator can hand their memory back (torch.cuda.empty_cache)."""
+    permutations, the composition's rotation indices), so that the next
+    prove builds its own and the caching allocator can hand their memory
+    back (torch.cuda.empty_cache)."""
     from .ops import circle_fft, quotient_kernels
     from .parallel import prove as sharded_prove
 
     for cached in (fft.get_twiddles, circle_fft.twiddle_table, circle_fft.shard_twiddle_table,
                    sharded_prove._permutation, _preprocessed_tree, fri._fold_itw,
-                   quotients.domain_points_storage, quotient_kernels.point_tables):
+                   quotients.domain_points_storage, quotient_kernels.point_tables,
+                   fft.rotation_index):
         cached.cache_clear()
 
 
@@ -308,7 +310,7 @@ def _prove_tables(mats: Dict[str, torch.Tensor], claim: Dict[str, int],
     log.info("Composition polynomial")
     alpha_comp = channel.draw_felt()
     tree0_index = {lg: i for i, lg in enumerate(layout.ladder)}
-    acc: Dict[int, torch.Tensor] = {}
+    acc: Dict[int, object] = {}
     alpha_idx = 0
     t1 = 0
     t2 = 0
@@ -318,28 +320,22 @@ def _prove_tables(mats: Dict[str, torch.Tensor], claim: Dict[str, int],
         for col in comp.columns:
             ext_main[col] = tree1.records[t1].extended
             t1 += 1
-        n_inter = comp.relation_count() + 1
-        coords = [[tree2.records[t2 + 4 * k + c].extended for c in range(4)]
-                  for k in range(n_inter)]
-        t2 += 4 * n_inter
+        n_rows = 4 * (comp.relation_count() + 1)
+        inter_rows = [tree2.records[t2 + i].extended for i in range(n_rows)]
+        t2 += n_rows
         isf_ext = tree0.records[tree0_index[n]].extended
-        v_inv = m31.inv(poly.vanishing_on_domain(n, n + blow, device))
         lg = n + blow
+        # acc[lg] += the component's contribution, in place (one kernel
+        # launch on the card; S(p - g) read through the rotation index)
         if ops is None:
-            ext_inter = [torch.stack(cs) for cs in coords]
-            s_prev = ext_inter[-1][:, fft.rotation_permutation(n, blow, 1, device)]
-            contrib, alpha_idx = composition_contribution(
-                comp, ext_main, ext_inter, s_prev, isf_ext, iclaim[comp.name],
-                elements, alpha_comp, alpha_idx, v_inv)
-            acc[lg] = contrib if lg not in acc else (acc[lg] + contrib) % P_INT
+            acc[lg], alpha_idx = composition_accumulate(
+                comp, ext_main, inter_rows, inter_rows[-4:], fft.rotation_index(n, blow, device),
+                isf_ext, iclaim[comp.name], elements, alpha_comp, alpha_idx, blow, acc.get(lg))
         else:
-            ext_inter = [mesh.stack(cs) for cs in coords]
-            s_prev = ops.rotate(ext_inter[-1], n, blow)
-            contrib, alpha_idx = ops.composition_contribution(
-                comp, ext_main, ext_inter, s_prev, isf_ext, iclaim[comp.name],
-                elements, alpha_comp, alpha_idx, v_inv)
-            acc.setdefault(lg, []).append(contrib)
-        del ext_inter, s_prev, v_inv, contrib
+            acc[lg], alpha_idx = ops.composition_accumulate(
+                comp, ext_main, inter_rows, isf_ext, iclaim[comp.name], elements, alpha_comp,
+                alpha_idx, blow, acc.get(lg))
+        del inter_rows
 
     comp_log = layout.composition_log
     # per-size interpolate, zero-pad + modular add, one evaluate on the
@@ -347,7 +343,7 @@ def _prove_tables(mats: Dict[str, torch.Tensor], claim: Dict[str, int],
     if ops is None:
         total = torch.zeros((4, 1 << comp_log), dtype=torch.int64, device=device)
         for lg, arr in sorted(acc.items()):
-            coeffs = fft.interpolate(arr.to(torch.int32), lg)
+            coeffs = fft.interpolate(arr, lg)
             total[:, : 1 << lg] = (total[:, : 1 << lg] + coeffs) % P_INT
         comp_evals = fft.evaluate(total.to(torch.int32), comp_log)
         del total

@@ -278,10 +278,20 @@ def _sync(devices) -> None:
 
 
 def _launch_counts() -> Dict[str, int]:
-    from .ops import blake2s_kernels, circle_fft, quotient_kernels
+    from .ops import blake2s_kernels, circle_fft, constraint_kernels, quotient_kernels
 
     return {"fft": circle_fft.KERNEL.launches, **blake2s_kernels.KERNELS.launches,
-            "quotients": quotient_kernels.KERNEL.launches}
+            "quotients": quotient_kernels.KERNEL.launches,
+            **constraint_kernels.KERNELS.launches}
+
+
+def _plain_cuda_calls() -> Dict[str, int]:
+    """The plain versions' calls on CUDA tensors (0 on a card's prove path)."""
+    from .core import blake2s, fft, quotients
+    from .framework import component
+
+    return {"fft": fft.PLAIN_CUDA_CALLS, "blake2s": blake2s.PLAIN_CUDA_CALLS,
+            "quotients": quotients.PLAIN_CUDA_CALLS, "constraints": component.PLAIN_CUDA_CALLS}
 
 
 def fresh_verify(proof: dict, device: torch.device, children: Children) -> dict:
@@ -322,7 +332,7 @@ def run_program(row: Row, device, children: Children, mesh=None, warm_runs: int 
     machine.execute()
     trace_s = time.perf_counter() - t0
     steps = len(machine.trace())
-    launches = _launch_counts()
+    launches, plain = _launch_counts(), _plain_cuda_calls()
 
     progress.stage = "cold prove"
     _reset_peaks(devices)
@@ -354,7 +364,7 @@ def run_program(row: Row, device, children: Children, mesh=None, warm_runs: int 
         if proof_sha256(again) != sha:
             raise BenchError(f"{row.name}: warm prove {run + 1} differs from the cold prove")
     warm_peaks = _peaks(devices)
-    after = _launch_counts()
+    after, plain_after = _launch_counts(), _plain_cuda_calls()
     best = min(warm) if warm else cold_s
     out = {
         "program": row.program, "input": list(row.input), "config": row.config,
@@ -368,6 +378,7 @@ def run_program(row: Row, device, children: Children, mesh=None, warm_runs: int 
         "cold_peak_bytes": max(cold_peaks) if cold_peaks else None,
         "warm_peak_bytes": max(warm_peaks) if warm_peaks else None,
         "kernel_launches": {k: after[k] - launches[k] for k in after},
+        "plain_cuda_calls": {k: plain_after[k] - plain[k] for k in plain},
         "device": str(device),
     }
     if mesh is not None:
@@ -416,10 +427,11 @@ def child_main(args, device: torch.device) -> int:
             mesh = multihost.global_mesh()
             device = mesh.home
         if cuda:
-            from .ops import blake2s_kernels, circle_fft, nvcc, quotient_kernels
+            from .ops import (blake2s_kernels, circle_fft, constraint_kernels, nvcc,
+                              quotient_kernels)
 
             nvcc.build_all([circle_fft.KERNEL.lib, blake2s_kernels.KERNELS.lib,
-                            quotient_kernels.KERNEL.lib])
+                            quotient_kernels.KERNEL.lib, constraint_kernels.KERNELS.lib])
         if fault == "oom":
             raise torch.cuda.OutOfMemoryError("simulated by BENCH_CHILD_FAULT=oom")
         result = run_program(row, device, children, mesh=mesh,
@@ -721,10 +733,10 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     if device.type == "cuda":
-        from .ops import blake2s_kernels, circle_fft, nvcc, quotient_kernels
+        from .ops import blake2s_kernels, circle_fft, constraint_kernels, nvcc, quotient_kernels
 
         nvcc.build_all([circle_fft.KERNEL.lib, blake2s_kernels.KERNELS.lib,
-                        quotient_kernels.KERNEL.lib])
+                        quotient_kernels.KERNEL.lib, constraint_kernels.KERNELS.lib])
     build_s = time.perf_counter() - t0
 
     def run_row(row: Row, mesh=None, world: int = 0) -> dict:

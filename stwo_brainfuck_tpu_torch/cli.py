@@ -40,7 +40,8 @@ import torch
 from . import air
 from .core import blake2s, fft, quotients
 from .core.pcs import PcsConfig
-from .ops import blake2s_kernels, circle_fft, quotient_kernels
+from .framework import component as framework
+from .ops import blake2s_kernels, circle_fft, constraint_kernels, quotient_kernels
 from .vm.compiler import CompileError, compile_program
 from .vm.machine import DEFAULT_RAM_SIZE, Machine, MachineError
 from .vm.registers import TRACE_COLUMNS
@@ -145,6 +146,9 @@ def cmd_prove(args) -> int:
              blake2s.PLAIN_CUDA_CALLS)
     log.info("Quotient kernel launches: %d; plain quotient calls on CUDA tensors: %d",
              quotient_kernels.KERNEL.launches, quotients.PLAIN_CUDA_CALLS)
+    cons = constraint_kernels.KERNELS.launches
+    log.info("constraint kernel launches: composition %d, logup %d; plain constraint calls on "
+             "CUDA tensors: %d", cons["composition"], cons["logup"], framework.PLAIN_CUDA_CALLS)
     if not coordinator:
         return 0  # the proof is the same in every process; process 0 writes it
 

@@ -284,3 +284,11 @@ def rotation_permutation(log_size: int, log_blowup: int, shift_steps: int,
     inv = torch.empty_like(cop)
     inv[cop] = torch.arange(n, dtype=torch.int64, device=device)
     return cop[(inv - (shift_steps << log_blowup)) % n]
+
+
+@lru_cache(maxsize=32)
+def rotation_index(log_size: int, log_blowup: int, device) -> torch.Tensor:
+    """rotation_permutation(log_size, log_blowup, 1) as int32 on `device`
+    (cached): S(p - g) at storage position i is S[index[i]], the form the
+    composition kernel reads."""
+    return rotation_permutation(log_size, log_blowup, 1, device).to(torch.int32)

@@ -8,12 +8,14 @@ device.
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import Sequence, Tuple
 
 import numpy as np
 import torch
 
 from . import qm31
+from .circle import M31_CIRCLE_LOG_ORDER, point_at_index
 from .m31 import P_INT
 from .quotients import domain_points_storage
 
@@ -89,6 +91,26 @@ def vanishing_at_point(log_size: int, point) -> tuple:
     for _ in range(log_size - 1):
         x = qm31.h_sub(qm31.h_mul(x, qm31.h_add(x, x)), qm31.ONE)
     return x
+
+
+@lru_cache(maxsize=64)
+def vanishing_inverse_blocks(log_size: int, log_blowup: int) -> Tuple[int, ...]:
+    """V_log_size^-1 on the canonic domain of size 2^(log_size + log_blowup)
+    in bit-reversed storage, as the 2^log_blowup values it takes (host
+    ints): value h at storage positions h 2^log_size .. (h + 1) 2^log_size
+    - 1. Position i holds the point G^(2^(30 - e) (1 + 4j)) or its
+    conjugate, e = log_size + log_blowup, j = bitrev_e(i) mod 2^(e - 1);
+    log_size - 1 doublings take it to G^(2^(29 - log_blowup) (1 + 4j)),
+    which depends on j mod 2^log_blowup alone: the top log_blowup bits of i."""
+    e = log_size + log_blowup
+    out = []
+    for h in range(1 << log_blowup):
+        j = int(f"{h << log_size:0{e}b}"[::-1], 2) % (1 << (e - 1))
+        x = point_at_index((1 + 4 * j) << (M31_CIRCLE_LOG_ORDER - 1 - e))[0]
+        for _ in range(log_size - 1):
+            x = (2 * x * x - 1) % P_INT
+        out.append(pow(x, P_INT - 2, P_INT))
+    return tuple(out)
 
 
 def vanishing_on_domain(log_size: int, eval_log_size: int, device) -> torch.Tensor:

@@ -31,6 +31,9 @@ from ..core import m31, qm31
 from ..core.fft import coset_order_permutation
 from ..core.m31 import P_INT
 
+# calls of the plain constraint evaluation (the Expr path) on CUDA tensors:
+# a prove on the card runs the kernels and leaves it at 0
+PLAIN_CUDA_CALLS = 0
 
 # ---------------------------------------------------------------------------
 # Lookup elements (drawn from the channel): z and alpha powers
@@ -202,18 +205,25 @@ class Evaluator:
             raise ValueError(f"{len(self._interaction)} interaction columns for {n} relations")
         q_sum: Optional[Expr] = None
         for k, rel in enumerate(self.relations):
-            els = self._elements[rel.elements_name]
-            if self.host:
-                den = Expr(els.combine_host([v.v for v in rel.values]), True)
-            else:
-                den = Expr(_device_combine(els, [v.v for v in rel.values]), False)
-            q_k = Expr(self._interaction[k], self.host)
+            den = self._denominator(rel)
+            q_k = self._value(self._interaction[k])
             self.add(q_k * den - rel.numerator)
             q_sum = q_k if q_sum is None else q_sum + q_k
-        s = Expr(self._interaction[n], self.host)
-        s_prev = Expr(self._prev_sum, self.host)
-        claimed = Expr(self._claimed_sum, self.host)
+        s = self._value(self._interaction[n])
+        s_prev = self._value(self._prev_sum)
+        claimed = self._value(self._claimed_sum)
         self.add(s - s_prev - q_sum + self.is_first() * claimed)
+
+    def _value(self, v) -> Expr:
+        """An interaction, mask or claimed-sum value as an expression."""
+        return Expr(v, self.host)
+
+    def _denominator(self, rel: RelationEntry) -> Expr:
+        """den = sum_j alpha^j v_j - z of a relation entry."""
+        els = self._elements[rel.elements_name]
+        if self.host:
+            return Expr(els.combine_host([v.v for v in rel.values]), True)
+        return Expr(_device_combine(els, [v.v for v in rel.values]), False)
 
 
 class _RelationsEvaluator(Evaluator):
@@ -279,6 +289,217 @@ def _dummy_elements() -> Dict[str, LookupElements]:
 
 
 # ---------------------------------------------------------------------------
+# Constraint programs: define_constraints recorded as straight-line code
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ConstraintProgram:
+    """A component class's define_constraints as a straight-line program
+    over one row, the source of the constraint kernels
+    (ops/constraint_codegen.py) and of their emulation (emulate).
+
+    Value v is the result of ops[v], M31 or QM31 as qm[v] says. An op is
+    a tuple (name, *args):
+      inputs    ("col", c) main column c; ("is_first",); ("inter", k)
+                interaction column k (QM31, its coordinates 0..3);
+                ("s_prev",) S(p - g); ("claimed",) the claimed sum;
+                ("const", v) an integer constant;
+      field ops ("add" | "sub" | "mul", a, b), with Expr._binary's M31 ->
+                QM31 promotion; ("combine", elements, (v_0, ..)) sum_j
+                alpha^j v_j - z with that element set's alpha powers and z;
+                ("inv", a) the QM31 inverse (0 -> 0).
+    Outputs: `constraints` (what Evaluator.constraints holds, in order),
+    `relations` ((elements, numerator, values) a LogUp entry) and
+    `fractions` (Q_k = numerator_k * den_k^-1 a relation). Structural: no
+    log_size enters it."""
+
+    component: str
+    columns: Tuple[str, ...]
+    ops: Tuple[tuple, ...]
+    qm: Tuple[bool, ...]
+    constraints: Tuple[int, ...]
+    relations: Tuple[Tuple[str, int, Tuple[int, ...]], ...]
+    fractions: Tuple[int, ...]
+
+    def live(self, outputs: Sequence[int]) -> List[int]:
+        """The ops that `outputs` need, in recorded order."""
+        need = set(outputs)
+        for v in range(len(self.ops) - 1, -1, -1):
+            if v in need:
+                need.update(_operands(self.ops[v]))
+        return sorted(need)
+
+
+def _operands(op: tuple) -> Tuple[int, ...]:
+    if op[0] in ("add", "sub", "mul"):
+        return op[1:]
+    if op[0] == "inv":
+        return (op[1],)
+    if op[0] == "combine":
+        return op[2]
+    return ()
+
+
+class _Var:
+    """A recorded value: its id in the program and its field kind."""
+
+    __slots__ = ("rec", "id", "qm")
+
+    def __init__(self, rec: "_Recorder", vid: int, qm: bool):
+        self.rec, self.id, self.qm = rec, vid, qm
+
+    def _binary(self, name: str, other) -> "_Var":
+        o = other if isinstance(other, _Var) else self.rec.op(("const", other % P_INT), False)
+        return self.rec.op((name, self.id, o.id), self.qm or o.qm)
+
+    def __add__(self, other):
+        return self._binary("add", other)
+
+    def __sub__(self, other):
+        return self._binary("sub", other)
+
+    def __rsub__(self, other):
+        return self.rec.op(("const", other % P_INT), False)._binary("sub", self)
+
+    def __mul__(self, other):
+        return self._binary("mul", other)
+
+    __radd__ = __add__
+    __rmul__ = __mul__
+
+
+class _Recorder:
+    """The ops of a program being recorded, each distinct op once (the
+    arithmetic is exact mod p, so a repeated subexpression is one value)."""
+
+    def __init__(self):
+        self.ops: List[tuple] = []
+        self.qm: List[bool] = []
+        self._seen: Dict[tuple, _Var] = {}
+
+    def op(self, op: tuple, qm: bool) -> _Var:
+        if op not in self._seen:
+            self.ops.append(op)
+            self.qm.append(qm)
+            self._seen[op] = _Var(self, len(self.ops) - 1, qm)
+        return self._seen[op]
+
+
+class _RecordingEvaluator(Evaluator):
+    """Runs define_constraints on recorded values (constraint_program)."""
+
+    def __init__(self, component):
+        self.rec = _Recorder()
+        self.dens: List[_Var] = []
+        n_inter = component.relation_count() + 1
+        inter = [self.rec.op(("inter", k), True) for k in range(n_inter)]
+        super().__init__(component, None, inter, self.rec.op(("s_prev",), True), None,
+                         self.rec.op(("claimed",), True), None, host=False)
+
+    def col(self, name: str) -> _Var:
+        return self.rec.op(("col", self.component.columns.index(name)), False)
+
+    def is_first(self) -> _Var:
+        return self.rec.op(("is_first",), False)
+
+    def _value(self, v):
+        return v
+
+    def _denominator(self, rel: RelationEntry) -> _Var:
+        if any(v.qm for v in rel.values):
+            raise TypeError(f"{self.component.name}: a QM31 value in a {rel.elements_name} "
+                            f"relation")
+        den = self.rec.op(("combine", rel.elements_name, tuple(v.id for v in rel.values)), True)
+        self.dens.append(den)
+        return den
+
+
+@lru_cache(maxsize=None)
+def constraint_program(cls) -> ConstraintProgram:
+    """The recorded program of a component class (cached per class, like
+    _counts)."""
+    comp = cls(0)
+    ev = _RecordingEvaluator(comp)
+    comp.define_constraints(ev)
+    fractions = [rel.numerator * ev.rec.op(("inv", den.id), True)
+                 for rel, den in zip(ev.relations, ev.dens)]
+    return ConstraintProgram(
+        component=cls.name, columns=tuple(cls.columns), ops=tuple(ev.rec.ops),
+        qm=tuple(ev.rec.qm), constraints=tuple(c.id for c in ev.constraints),
+        relations=tuple((r.elements_name, r.numerator.id, tuple(v.id for v in r.values))
+                        for r in ev.relations),
+        fractions=tuple(q.id for q in fractions))
+
+
+def emulate(program: ConstraintProgram, inputs: dict,
+            outputs: Sequence[int]) -> Dict[int, torch.Tensor]:
+    """The values the kernels compute for `outputs` (value ids), every op
+    they need run in recorded order with int64 torch ops on the inputs'
+    device: M31 values (n,), QM31 values (4, n), canonical. inputs: "cols"
+    (the main columns in program order), "is_first", "inter" (a (4, n)
+    array or 4 rows an interaction column), "s_prev" ((4, n) or 4 rows),
+    "claimed" (host QM31), "elements" (name -> LookupElements); only those
+    the outputs need are read."""
+    vals: Dict[int, torch.Tensor] = {}
+    dev = _device(inputs)
+
+    def qm_input(x) -> torch.Tensor:
+        return (x if isinstance(x, torch.Tensor) else torch.stack(list(x))).to(torch.int64)
+
+    for v in program.live(outputs):
+        op = program.ops[v]
+        kind = op[0]
+        if kind == "col":
+            out = inputs["cols"][op[1]].to(torch.int64)
+        elif kind == "is_first":
+            out = inputs["is_first"].to(torch.int64)
+        elif kind == "inter":
+            out = qm_input(inputs["inter"][op[1]])
+        elif kind == "s_prev":
+            out = qm_input(inputs["s_prev"])
+        elif kind == "claimed":
+            out = qm31.const(inputs["claimed"], dev)
+        elif kind == "const":
+            out = torch.tensor(op[1], dtype=torch.int64, device=dev)
+        elif kind == "combine":
+            els = inputs["elements"][op[1]]
+            out = None
+            for a, j in zip(els.alpha_powers, op[2]):
+                term = qm31.const(a, vals[j].device) * vals[j] % P_INT
+                out = term if out is None else (out + term) % P_INT
+            out = (out - qm31.const(els.z, out.device)) % P_INT
+        elif kind == "inv":
+            out = qm31.inv(vals[op[1]])
+        else:
+            a, b = vals[op[1]], vals[op[2]]
+            qa, qb = program.qm[op[1]], program.qm[op[2]]
+            if kind == "mul" and qa and qb:
+                out = qm31.mul(a, b)
+            elif kind == "mul":  # M31 x M31, or each coordinate times the M31 value
+                out = a * b % P_INT
+            else:  # an M31 operand of a QM31 sum is (v, 0, 0, 0)
+                a, b = (_as_qm(a) if qb and not qa else a), (_as_qm(b) if qa and not qb else b)
+                out = (a + b) % P_INT if kind == "add" else (a - b) % P_INT
+        vals[v] = out
+    return vals
+
+
+def _as_qm(v: torch.Tensor) -> torch.Tensor:
+    """An M31 value (n,) or constant () as a QM31 one, (4, n) or (4, 1)."""
+    z = torch.zeros_like(v)
+    return torch.stack([v, z, z, z]).reshape(4, -1)
+
+
+def _device(inputs: dict) -> torch.device:
+    for x in inputs.values():
+        while isinstance(x, (list, tuple)) and x:
+            x = x[0]
+        if isinstance(x, torch.Tensor):
+            return x.device
+    raise ValueError("emulate: no tensor among the inputs")
+
+
+# ---------------------------------------------------------------------------
 # Interaction trace (prover, device)
 # ---------------------------------------------------------------------------
 
@@ -298,10 +519,26 @@ def _device_elements(elements: Dict[str, LookupElements], device) -> Dict[str, d
 
 
 def logup_fractions(component: Component, main_cols: Dict[str, torch.Tensor],
-                    is_first: torch.Tensor, els: Dict[str, dict]):
+                    is_first: torch.Tensor, elements: Dict[str, LookupElements]):
     """The LogUp fraction columns of the component's relations, pointwise
-    over whatever rows main_cols hold: ([(4, n) int32 Q_k], (4, n) int64
-    sum of the Q_k). els: the device elements (_device_elements)."""
+    over whatever rows main_cols hold: ((K, 4, n) int32 Q_k, (4, n) sum of
+    the Q_k). On CUDA tensors one launch of the logup kernel
+    (ops/constraint_kernels.py), on the CPU logup_fractions_plain."""
+    if is_first.is_cuda:
+        from ..ops import constraint_kernels
+
+        return constraint_kernels.KERNELS.logup(component, main_cols, is_first, elements)
+    return logup_fractions_plain(component, main_cols, is_first, elements)
+
+
+def logup_fractions_plain(component: Component, main_cols: Dict[str, torch.Tensor],
+                          is_first: torch.Tensor, elements: Dict[str, LookupElements]):
+    """What the logup kernel computes, with the Expr path on any device
+    ((K, 4, n) int32, (4, n) int64)."""
+    global PLAIN_CUDA_CALLS
+    if is_first.is_cuda:
+        PLAIN_CUDA_CALLS += 1
+    els = _device_elements(elements, is_first.device)
     ev = _RelationsEvaluator(component, main_cols, [], None, is_first, None, els, host=False)
     component.define_constraints(ev)
     q_cols: List[torch.Tensor] = []
@@ -311,7 +548,7 @@ def logup_fractions(component: Component, main_cols: Dict[str, torch.Tensor],
         q = qm31.mul(rel.numerator._qm(den), qm31.inv(den))
         q_cols.append(q.to(torch.int32))
         total = q if total is None else (total + q) % P_INT
-    return q_cols, total
+    return torch.stack(q_cols), total
 
 
 def build_interaction_trace(
@@ -327,16 +564,15 @@ def build_interaction_trace(
     cumsum then % p is exact for N <= 2^32."""
     dev = next(iter(main_cols.values())).device
     n = 1 << component.log_size
-    is_first = torch.zeros(n, dtype=torch.int64, device=dev)
+    is_first = torch.zeros(n, dtype=torch.int32, device=dev)
     is_first[0] = 1
-    q_cols, total = logup_fractions(component, main_cols, is_first,
-                                    _device_elements(elements, dev))
+    q_cols, total = logup_fractions(component, main_cols, is_first, elements)
     perm = coset_order_permutation(component.log_size, dev)
-    s_lin = torch.cumsum(total[:, perm], dim=1) % P_INT
+    s_lin = torch.cumsum(total[:, perm], dim=1, dtype=torch.int64) % P_INT
     s = torch.empty_like(s_lin)
     s[:, perm] = s_lin
     claimed = tuple(int(v) for v in s_lin[:, -1].cpu())
-    return q_cols + [s.to(torch.int32)], claimed
+    return list(q_cols) + [s.to(torch.int32)], claimed
 
 
 # ---------------------------------------------------------------------------
@@ -359,8 +595,12 @@ def composition_contribution(
     main_cols: M31 (N,) tensors; interaction_cols: QM31 (4, N) tensors
     [Q_0..Q_{K-1}, S]; s_prev: S rotated by -g; is_first: (N,);
     v_inv: (N,) inverse vanishing values. Returns ((4, N) int64, next
-    alpha offset)."""
+    alpha offset). The plain version of the composition kernel
+    (composition_accumulate)."""
+    global PLAIN_CUDA_CALLS
     dev = v_inv.device
+    if dev.type == "cuda":
+        PLAIN_CUDA_CALLS += 1
     claimed = qm31.const(claimed_sum, dev)
     ev = Evaluator(component, main_cols, interaction_cols, s_prev, is_first,
                    claimed, _device_elements(elements, dev), host=False)
@@ -372,6 +612,71 @@ def composition_contribution(
         term = qm31.mul(w, c.v) if c.qm else w * m31.wide(c.v) % P_INT
         acc = term if acc is None else (acc + term) % P_INT
     return acc * m31.wide(v_inv) % P_INT, alpha_offset + n_cons
+
+
+def composition_accumulate(
+    component: Component,
+    main_cols: Dict[str, torch.Tensor],
+    inter_rows: Sequence[torch.Tensor],
+    s_rows: Sequence[torch.Tensor],
+    rotation: Optional[torch.Tensor],
+    is_first: torch.Tensor,
+    claimed_sum: tuple,
+    elements: Dict[str, LookupElements],
+    alpha: tuple,
+    alpha_offset: int,
+    log_blowup: int,
+    acc: Optional[torch.Tensor],
+    offset: int = 0,
+) -> Tuple[torch.Tensor, int]:
+    """acc += sum_i alpha^(alpha_offset+i) * C_i / V_n at storage positions
+    offset .. offset + m - 1 of the component's blown-up domain (2^(log_size
+    + log_blowup); m the rows' length: the whole domain or a shard's chunk).
+
+    main_cols: M31 (m,) rows; inter_rows: the 4 (m,) coordinate rows of
+    each interaction column [Q_0..Q_{K-1}, S]; S(p - g) is s_rows[c] at
+    rotation[offset + t] (4 rows of S over the whole domain and the int32
+    rotation index, rotation_index) or, with rotation None, s_rows[c][t];
+    acc: (4, m) int32, updated in place, or None for a new one. Returns
+    (acc, next alpha offset). On CUDA tensors one launch of the composition
+    kernel (V_n^-1's 2^log_blowup values in its constant table); on the
+    CPU the plain composition_contribution with V_n^-1 from the domain
+    points."""
+    if is_first.is_cuda:
+        from ..ops import constraint_kernels
+
+        return constraint_kernels.KERNELS.composition(
+            component, main_cols, inter_rows, s_rows, rotation, is_first, claimed_sum, elements,
+            alpha, alpha_offset, log_blowup, acc, offset)
+    contrib, nxt = composition_plain(component, main_cols, inter_rows, s_rows, rotation, is_first,
+                                     claimed_sum, elements, alpha, alpha_offset, log_blowup, offset)
+    if acc is None:
+        return contrib.to(torch.int32), nxt
+    acc.copy_((acc.to(torch.int64) + contrib) % P_INT)
+    return acc, nxt
+
+
+def composition_plain(component: Component, main_cols: Dict[str, torch.Tensor],
+                      inter_rows: Sequence[torch.Tensor], s_rows: Sequence[torch.Tensor],
+                      rotation: Optional[torch.Tensor], is_first: torch.Tensor,
+                      claimed_sum: tuple, elements: Dict[str, LookupElements], alpha: tuple,
+                      alpha_offset: int, log_blowup: int, offset: int = 0
+                      ) -> Tuple[torch.Tensor, int]:
+    """What a composition launch adds, with the plain version on any
+    device (composition_accumulate's arguments): composition_contribution
+    at V_n^-1 of the domain's points (poly.vanishing_on_domain) and S(p - g)
+    gathered; ((4, m) int64, next alpha offset)."""
+    from ..core import poly
+
+    n = component.log_size
+    m = is_first.shape[0]
+    v_inv = m31.inv(poly.vanishing_on_domain(n, n + log_blowup, is_first.device)[offset:offset + m])
+    s_prev = torch.stack(list(s_rows))
+    if rotation is not None:
+        s_prev = s_prev[:, rotation[offset:offset + m].to(torch.int64)]
+    inter = [torch.stack(list(inter_rows[4 * k:4 * k + 4])) for k in range(len(inter_rows) // 4)]
+    return composition_contribution(component, main_cols, inter, s_prev, is_first, claimed_sum,
+                                    elements, alpha, alpha_offset, v_inv)
 
 
 def evaluate_constraints_at_point(

@@ -1,0 +1,297 @@
+"""Emit ``csrc/constraints.cu``: each component's constraint program as the
+body of the hand-written constraint kernels (``csrc/constraint_kernel.cuh``).
+
+    python -m stwo_brainfuck_tpu_torch.ops.constraint_codegen           # rewrite the file
+    python -m stwo_brainfuck_tpu_torch.ops.constraint_codegen --check   # exit 1 if it is stale
+
+One definition drives everything: ``components/defs.py``'s
+``define_constraints``, recorded once per class as a straight-line
+``framework.component.ConstraintProgram``, becomes one struct per component
+with two ``__device__`` bodies, ``composition`` (the weighted sum of the
+constraints at one row) and ``logup`` (the relations' fractions Q_k), one
+statement per op and every value a canonical ``uint32_t`` or ``Qm`` in
+registers. The generated file is committed, so a build needs only the
+sources in the repository; after editing ``components/defs.py`` run the
+command above (the CPU tests fail while the committed file differs from
+what this module emits).
+
+The launch's tables, as the bodies read them (``ops/constraint_kernels.py``
+packs them):
+
+- pointers: main column c at slot c, is_first at slot C; for composition
+  also interaction column k's coordinate rows at C + 1 + 4k .. + 3 and the
+  rows S(p - g) is read from at C + 1 + 4 (K + 1) .. + 3;
+- constant words: the lookup elements, a set after another in
+  ``ELEMENT_ORDER`` (alpha^0 .. alpha^(size - 1), then z; 4 words each),
+  then the claimed sum at ``CLAIMED_WORD``, then the constraint weights
+  alpha^(offset + i) at ``WEIGHTS_WORD`` + 4 i, then the 2^log_blowup
+  words of V_n^-1 (``core/poly.py`` ``vanishing_inverse_blocks``)
+  (composition only).
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+from pathlib import Path
+from typing import Dict, List, Tuple
+
+from ..components.defs import COMPONENT_CLASSES, ELEMENT_SIZES
+from ..framework.component import ConstraintProgram, constraint_program
+
+OUTPUT = Path(__file__).resolve().parent.parent / "csrc" / "constraints.cu"
+COMMAND = "python -m stwo_brainfuck_tpu_torch.ops.constraint_codegen"
+ELEMENT_ORDER = ("memory", "instruction", "processor")
+
+
+def element_words() -> Dict[str, Tuple[int, int]]:
+    """name -> (word of alpha^0, word of z) in the constant table."""
+    out, w = {}, 0
+    for name in ELEMENT_ORDER:
+        out[name] = (w, w + 4 * ELEMENT_SIZES[name])
+        w += 4 * (ELEMENT_SIZES[name] + 1)
+    return out
+
+
+ELEMENT_WORDS = sum(4 * (ELEMENT_SIZES[k] + 1) for k in ELEMENT_ORDER)
+CLAIMED_WORD = ELEMENT_WORDS
+WEIGHTS_WORD = CLAIMED_WORD + 4
+
+
+def composition_slots(program: ConstraintProgram) -> int:
+    """Pointers a composition launch takes: C columns, is_first, 4 rows an
+    interaction column, 4 rows of S(p - g)."""
+    return len(program.columns) + 1 + 4 * (len(program.relations) + 1) + 4
+
+
+def logup_slots(program: ConstraintProgram) -> int:
+    return len(program.columns) + 1
+
+
+# ---------------------------------------------------------------------------
+# Emission
+# ---------------------------------------------------------------------------
+
+def _var(v: int) -> str:
+    return f"v{v}"
+
+
+def _expr(program: ConstraintProgram, v: int) -> str:
+    """The C++ expression of value v's op."""
+    op = program.ops[v]
+    kind = op[0]
+    n_cols = len(program.columns)
+    if kind == "col":
+        return f"r.col({op[1]})"
+    if kind == "is_first":
+        return f"r.col({n_cols})"
+    if kind == "inter":
+        return f"r.qcol({n_cols + 1 + 4 * op[1]})"
+    if kind == "s_prev":
+        return f"r.s_prev({n_cols + 1 + 4 * (len(program.relations) + 1)})"
+    if kind == "claimed":
+        return f"r.konst({CLAIMED_WORD})"
+    if kind == "const":
+        return f"{op[1]}u"
+    if kind == "inv":
+        return f"qm31::qm_inv({_var(op[1])})"
+    if kind == "combine":
+        alpha, z = element_words()[op[1]]
+        acc = None
+        for j, x in enumerate(op[2]):
+            term = f"qm31::qm_mul_m31(r.konst({alpha + 4 * j}), {_var(x)})"
+            acc = term if acc is None else f"qm31::qm_add({acc}, {term})"
+        return f"qm31::qm_sub({acc}, r.konst({z}))"
+    a, b = op[1], op[2]
+    qa, qb = program.qm[a], program.qm[b]
+    if not (qa or qb):
+        return f"m31::{kind}({_var(a)}, {_var(b)})"
+    if kind == "mul":
+        if qa and qb:
+            return f"qm31::qm_mul({_var(a)}, {_var(b)})"
+        q, s = (a, b) if qa else (b, a)
+        return f"qm31::qm_mul_m31({_var(q)}, {_var(s)})"
+    left = _var(a) if qa else f"qm31::qm_from_m31({_var(a)})"
+    right = _var(b) if qb else f"qm31::qm_from_m31({_var(b)})"
+    return f"qm31::qm_{kind}({left}, {right})"
+
+
+def _statements(program: ConstraintProgram, outputs) -> List[str]:
+    lines = []
+    for v in program.live(outputs):
+        ty = "Qm" if program.qm[v] else "uint32_t"
+        lines.append(f"    const {ty} {_var(v)} = {_expr(program, v)};")
+    return lines
+
+
+def emit_component(cls) -> str:
+    program = constraint_program(cls)
+    name = cls.__name__
+    lines = [
+        f"// {program.component} (components/defs.py {cls.__name__}): columns "
+        f"{len(program.columns)}, LogUp relations {len(program.relations)}, constraints "
+        f"{len(program.constraints)}",
+        f"struct {name} {{",
+        f"  static constexpr int kColumns = {len(program.columns)};",
+        f"  static constexpr int kRelations = {len(program.relations)};",
+        f"  static constexpr int kConstraints = {len(program.constraints)};",
+        "",
+        "  // sum_i w_i * C_i at one row (w_i the weights in the constant table)",
+        "  __device__ __forceinline__ static Qm composition(const Row& r) {",
+        *_statements(program, program.constraints),
+    ]
+    for i, c in enumerate(program.constraints):
+        w = f"r.konst({WEIGHTS_WORD + 4 * i})"
+        term = f"qm31::qm_mul({w}, {_var(c)})" if program.qm[c] else \
+            f"qm31::qm_mul_m31({w}, {_var(c)})"
+        lines.append(f"    {'Qm acc = ' if i == 0 else 'acc = qm31::qm_add(acc, '}{term}"
+                     f"{')' if i else ''};")
+    lines += [
+        "    return acc;",
+        "  }",
+        "",
+        "  // Q_k = num_k * den_k^-1 of each relation at one row",
+        "  __device__ __forceinline__ static void logup(const Row& r, Qm* q) {",
+        *_statements(program, program.fractions),
+        *[f"    q[{k}] = {_var(f)};" for k, f in enumerate(program.fractions)],
+        "  }",
+        "};",
+    ]
+    return "\n".join(lines)
+
+
+_HEAD = f"""\
+// GENERATED by stwo_brainfuck_tpu_torch/ops/constraint_codegen.py from
+// stwo_brainfuck_tpu_torch/components/defs.py; do not edit. Regenerate with
+//
+//     {COMMAND}
+//
+// The constraint kernels of the 13 components for Hopper (sm_90a): the
+// bodies below, one struct a component, plug into the hand-written
+// skeleton csrc/constraint_kernel.cuh (one thread a row, the loads, the
+// vanishing inverse, the weighted accumulation, the stores). Each body is
+// the component's recorded constraint program (framework/component.py
+// ConstraintProgram), one statement an op.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "constraint_kernel.cuh"
+
+namespace constraints {{
+namespace {{
+
+using qm31::Qm;
+"""
+
+
+def emit() -> str:
+    """The whole of csrc/constraints.cu."""
+    parts = [_HEAD]
+    for cls in COMPONENT_CLASSES:
+        parts.append(emit_component(cls) + "\n")
+    names = [c.__name__ for c in COMPONENT_CLASSES]
+    cases_c = "\n".join(f"    case {i}: return composition_entry<{n}>(ARGS);"
+                        for i, n in enumerate(names))
+    cases_l = "\n".join(f"    case {i}: return logup_entry<{n}>(ARGS);"
+                        for i, n in enumerate(names))
+    shape = "\n".join(f"    case {i}: return shape_of<{n}>(out);" for i, n in enumerate(names))
+    label = "\n".join(f'    case {i}: return "{c.name}";' for i, c in enumerate(COMPONENT_CLASSES))
+    parts.append(f"""\
+}}  // namespace
+}}  // namespace constraints
+
+using namespace constraints;
+
+extern "C" int constraints_components() {{ return {len(names)}; }}
+
+extern "C" const char* constraints_component_name(int id) {{
+  switch (id) {{
+{label}
+  }}
+  return "";
+}}
+
+// out: columns, relations, constraints, pointer slots of a composition
+// launch, constant words of a composition launch before V_n^-1's.
+extern "C" int constraints_shape(int id, int* out) {{
+  switch (id) {{
+{shape}
+  }}
+  return static_cast<int>(cudaErrorInvalidValue);
+}}
+
+#define ARGS table, n_ptrs, n_words, rot, log_size, log_blowup, offset, n, acc, accumulate, stream
+extern "C" int constraints_composition(int id, const void* table, int n_ptrs, int n_words,
+                                       const void* rot, int log_size, int log_blowup,
+                                       long long offset, long long n, void* acc, int accumulate,
+                                       void* stream) {{
+  switch (id) {{
+{cases_c}
+  }}
+  return static_cast<int>(cudaErrorInvalidValue);
+}}
+#undef ARGS
+
+#define ARGS table, n_ptrs, n_words, n, q, total, stream
+extern "C" int constraints_logup(int id, const void* table, int n_ptrs, int n_words,
+                                 long long n, void* q, void* total, void* stream) {{
+  switch (id) {{
+{cases_l}
+  }}
+  return static_cast<int>(cudaErrorInvalidValue);
+}}
+#undef ARGS
+""")
+    return "\n".join(parts)
+
+
+# ---------------------------------------------------------------------------
+# Work of a row, for the kernels' bounds
+# ---------------------------------------------------------------------------
+
+QM_INV = (62, 18)   # qm31::qm_inv: M31 products (42 of them m31_inv's chain), adds
+QM_MUL = (16, 16)   # qm31::qm_mul
+
+
+def op_work(program: ConstraintProgram, outputs) -> Tuple[int, int]:
+    """(M31 products, M31 adds and subtracts) of the emitted statements of
+    the ops `outputs` need, as csrc/qm31.cuh and csrc/m31.cuh compute them."""
+    products = adds = 0
+    for v in program.live(outputs):
+        op = program.ops[v]
+        kind = op[0]
+        if kind == "combine":
+            products += 4 * len(op[2])
+            adds += 4 * len(op[2])
+        elif kind == "inv":
+            products += QM_INV[0]
+            adds += QM_INV[1]
+        elif kind in ("add", "sub", "mul"):
+            qa, qb = program.qm[op[1]], program.qm[op[2]]
+            if kind != "mul":
+                adds += 4 if (qa or qb) else 1
+            elif qa and qb:
+                products += QM_MUL[0]
+                adds += QM_MUL[1]
+            else:
+                products += 4 if (qa or qb) else 1
+    return products, adds
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="emit csrc/constraints.cu")
+    ap.add_argument("--check", action="store_true", help="exit 1 if the committed file is stale")
+    args = ap.parse_args(argv)
+    text = emit()
+    if args.check:
+        if OUTPUT.read_text() != text:
+            print(f"{OUTPUT} is stale: run {COMMAND}", file=sys.stderr)
+            return 1
+        return 0
+    OUTPUT.write_text(text)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

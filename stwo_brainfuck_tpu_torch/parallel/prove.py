@@ -34,11 +34,11 @@ import torch
 
 from ..core import fft, fri, merkle, poly, quotients
 from ..core.m31 import P_INT
-from ..framework.component import build_interaction_trace, composition_contribution
+from ..framework.component import build_interaction_trace, composition_accumulate
 from .fft_sharded import make_sharded_evaluate, make_sharded_interpolate, sharded_extend
 from .merkle_sharded import commit_sharded
 from .mesh import Mesh, Permutation, Sharded
-from .sharded import fractions, prefix_sum, shard_elements
+from .sharded import fractions, prefix_sum
 
 
 @lru_cache(maxsize=32)
@@ -95,13 +95,14 @@ class ShardedOps:
             return fft.extend_with_coeffs(self.mesh.full(values), log_size, blow)
         return sharded_extend(self.mesh, values, log_size, blow)
 
-    def combine_eval(self, acc: Dict[int, list], comp_log: int):
-        """The composition evaluation: per size the sum of the
-        contributions, interpolated; zero-padded to 2^comp_log and added;
-        evaluated on the composition domain."""
+    def combine_eval(self, acc: Dict[int, object], comp_log: int):
+        """The composition evaluation: per size the accumulated
+        contributions (composition_accumulate), interpolated; zero-padded
+        to 2^comp_log and added; evaluated on the composition domain."""
         total = None
-        for lg, arrs in sorted(acc.items()):
-            coeffs = self.interpolate(self._sum(arrs, lg), lg)
+        for lg, arr in sorted(acc.items()):
+            coeffs = self.interpolate(self.mesh.as_sharded(arr) if self._shardable(lg) else arr,
+                                      lg)
             if self._shardable(comp_log):
                 padded = self.mesh.pad(coeffs, comp_log)
             else:
@@ -110,16 +111,6 @@ class ShardedOps:
                 padded[:, :1 << lg] = coeffs
             total = padded if total is None else self._add(total, padded)
         return self.evaluate(total, comp_log)
-
-    def _sum(self, arrs: list, log_size: int):
-        """The mod-p sum of equal-size arrays, int32: Sharded if the size
-        shards, else a tensor."""
-        if not self._shardable(log_size):
-            total = sum(self.mesh.full(a).to(torch.int64) for a in arrs) % P_INT
-            return total.to(torch.int32)
-        arrs = [self.mesh.as_sharded(a) for a in arrs]
-        return Sharded(self.mesh, _int32(self.mesh.each(
-            lambda i: sum(a.shards[i].to(torch.int64) for a in arrs) % P_INT)))
 
     def _add(self, a, b):
         if isinstance(a, torch.Tensor):
@@ -147,10 +138,9 @@ class ShardedOps:
                 component, {k: self.mesh.full(v) for k, v in main_cols.items()}, elements)
         mesh = self.mesh
         main = {k: mesh.as_sharded(v) for k, v in main_cols.items()}
-        is_first = torch.zeros(1 << log_size, dtype=torch.int64, device=mesh.home)
+        is_first = torch.zeros(1 << log_size, dtype=torch.int32, device=mesh.home)
         is_first[0] = 1
-        q_cols, totals = fractions(mesh, component, main, mesh.shard(is_first),
-                                   shard_elements(mesh, elements))
+        q_cols, totals = fractions(mesh, component, main, mesh.shard(is_first), elements)
         lin = mesh.permute(totals, _permutation(mesh, "linear", log_size))
         s_lin, claimed = prefix_sum(mesh, lin)
         s = mesh.permute(s_lin, _permutation(mesh, "storage", log_size))
@@ -169,26 +159,33 @@ class ShardedOps:
         perm = _permutation(self.mesh, "rotation", log_size, log_blowup)
         return Sharded(self.mesh, self.mesh.permute(self.mesh.as_sharded(values).shards, perm))
 
-    def composition_contribution(self, component, ext_main, ext_inter, s_prev, isf_ext,
-                                 claimed_sum, elements, alpha, alpha_offset, v_inv):
-        """framework.composition_contribution on every shard's rows of the
-        blown-up domain: ((4, N) int32, next alpha offset)."""
-        if not self._shardable(component.log_size):
+    def composition_accumulate(self, component, ext_main, inter_rows, isf_ext, claimed_sum,
+                               elements, alpha, alpha_offset, log_blowup, acc):
+        """framework.composition_accumulate on every shard's rows of the
+        blown-up domain, at the chunk's offset (one kernel launch a shard on
+        a card), S(p - g) from the rotation's global gather: (acc, next
+        alpha offset), acc a Sharded (4, N) int32 array updated in place
+        (None: a new one), or a tensor below the sharded sizes."""
+        n = component.log_size
+        args = (claimed_sum, elements, alpha, alpha_offset, log_blowup)
+        if not self._shardable(n):
             f = self.mesh.full
-            return composition_contribution(
-                component, {k: f(v) for k, v in ext_main.items()}, [f(x) for x in ext_inter],
-                f(s_prev), f(isf_ext), claimed_sum, elements, alpha, alpha_offset, f(v_inv))
+            rows = [f(r) for r in inter_rows]
+            return composition_accumulate(
+                component, {k: f(v) for k, v in ext_main.items()}, rows, rows[-4:],
+                fft.rotation_index(n, log_blowup, rows[0].device), f(isf_ext), *args, acc)
         sh = self.mesh.as_sharded
+        s_prev = self.rotate(self.mesh.stack(list(inter_rows[-4:])), n, log_blowup)
         main = {k: sh(v) for k, v in ext_main.items()}
-        inter = [sh(x) for x in ext_inter]
-        s_prev, isf_ext, v_inv = sh(s_prev), sh(isf_ext), sh(v_inv)
+        inter = [sh(r) for r in inter_rows]
+        isf = sh(isf_ext)
         outs = [None] * self.D
+        nxt = alpha_offset
         for i in self.mesh.local:
-            out, nxt = composition_contribution(
+            outs[i], nxt = composition_accumulate(
                 component, {k: v.shards[i] for k, v in main.items()},
-                [x.shards[i] for x in inter], s_prev.shards[i], isf_ext.shards[i],
-                claimed_sum, elements, alpha, alpha_offset, v_inv.shards[i])
-            outs[i] = out.to(torch.int32)
+                [r.shards[i] for r in inter], list(s_prev.shards[i]), None, isf.shards[i], *args,
+                None if acc is None else acc.shards[i], offset=i * isf.chunk)
         return Sharded(self.mesh, outs), nxt
 
     # -- OODS --------------------------------------------------------------

@@ -39,11 +39,12 @@ def shard_elements(mesh: Mesh, elements: Dict[str, LookupElements]) -> List[dict
 
 
 def fractions(mesh: Mesh, component, main: Dict[str, Sharded], is_first: Sharded,
-              els: List[dict]):
-    """LogUp fractions on every shard: ([per shard [(4, c) int32 Q_k]],
-    [per shard (4, c) int64 sum of the Q_k])."""
+              elements: Dict[str, LookupElements]):
+    """LogUp fractions on every shard (logup_fractions: one kernel launch a
+    shard on a card): ([per shard (K, 4, c) int32 Q_k], [per shard (4, c)
+    sum of the Q_k])."""
     out = mesh.each(lambda i: logup_fractions(
-        component, {k: v.shards[i] for k, v in main.items()}, is_first.shards[i], els[i]))
+        component, {k: v.shards[i] for k, v in main.items()}, is_first.shards[i], elements))
     return ([None if o is None else o[0] for o in out],
             [None if o is None else o[1] for o in out])
 
@@ -53,7 +54,7 @@ def prefix_sum(mesh: Mesh, shards: List[torch.Tensor]) -> Tuple[List[torch.Tenso
     N: each shard's local cumulative sum plus the sum of the totals of the
     shards before it. Returns (per-shard (4, c) int64 sums, the claimed
     sum = the total of all shards, as a host tuple)."""
-    local = mesh.each(lambda i: torch.cumsum(shards[i], dim=1) % P_INT)
+    local = mesh.each(lambda i: torch.cumsum(shards[i], dim=1, dtype=torch.int64) % P_INT)
     totals = mesh.all_gather(mesh.each(lambda i: local[i][:, -1]))   # (D, 4) per shard
     out = mesh.each(lambda i: (local[i] + totals[i][:i].sum(0)[:, None]) % P_INT)
     claimed = tuple(int(v) for v in (totals[mesh.local[0]].sum(0) % P_INT).cpu())
@@ -73,13 +74,13 @@ def sharded_prove_step(mesh: Mesh, component_cls, log_size: int):
         main = {k: mesh.as_sharded(v) for k, v in main_cols.items()}
         isf = mesh.as_sharded(is_first)
         els = shard_elements(mesh, elements)
-        q_cols, totals = fractions(mesh, comp, main, isf, els)
+        q_cols, totals = fractions(mesh, comp, main, isf, elements)
         s, claimed = prefix_sum(mesh, totals)
         left = mesh.shift(s)
         cons = [None] * mesh.size
         for i in mesh.local:
             s_prev = torch.cat([left[i], s[i][:, :-1]], dim=1)
-            ev = Evaluator(comp, {k: v.shards[i] for k, v in main.items()}, q_cols[i] + [s[i]],
+            ev = Evaluator(comp, {k: v.shards[i] for k, v in main.items()}, [*q_cols[i], s[i]],
                            s_prev, isf.shards[i], qm31.const(claimed, s[i].device),
                            els[i], host=False)
             comp.define_constraints(ev)

@@ -181,6 +181,8 @@ def test_port_imports_without_jax():
             "stwo_brainfuck_tpu_torch.cli, stwo_brainfuck_tpu_torch.ops.circle_fft, "
             "stwo_brainfuck_tpu_torch.ops.m31_kernels, stwo_brainfuck_tpu_torch.vm.cli, "
             "stwo_brainfuck_tpu_torch.ops.quotient_kernels, "
+            "stwo_brainfuck_tpu_torch.ops.constraint_kernels, "
+            "stwo_brainfuck_tpu_torch.ops.constraint_codegen, "
             "stwo_brainfuck_tpu_torch.components.device_build, "
             "stwo_brainfuck_tpu_torch.convert, stwo_brainfuck_tpu_torch.entry, "
             "stwo_brainfuck_tpu_torch.parallel.mesh, "

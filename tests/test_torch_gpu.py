@@ -11,11 +11,13 @@ import torch
 import chip_smoke
 from stwo_brainfuck_tpu_torch import air
 from stwo_brainfuck_tpu_torch.components import device_build, tables
-from stwo_brainfuck_tpu_torch.components.defs import COMPONENT_CLASSES
+from stwo_brainfuck_tpu_torch.components.defs import COMPONENT_CLASSES, ELEMENT_SIZES
 from stwo_brainfuck_tpu_torch.core import blake2s, channel, fft, merkle, quotients
 from stwo_brainfuck_tpu_torch.core.circle import point_from_t
 from stwo_brainfuck_tpu_torch.core.pcs import PcsConfig, shifted_point
-from stwo_brainfuck_tpu_torch.ops import blake2s_kernels, circle_fft, m31_kernels, quotient_kernels
+from stwo_brainfuck_tpu_torch.framework import component as framework
+from stwo_brainfuck_tpu_torch.ops import (blake2s_kernels, circle_fft, constraint_kernels,
+                                           m31_kernels, quotient_kernels)
 from stwo_brainfuck_tpu_torch.parallel import fft_sharded
 from stwo_brainfuck_tpu_torch.parallel.prove import ShardedOps
 from stwo_brainfuck_tpu_torch.parallel.merkle_sharded import commit_sharded
@@ -476,3 +478,93 @@ def test_quotient_kernel_and_grind_on_a_card_that_is_not_the_current_device(card
             assert got.device == card
             assert torch.equal(got.cpu(), want)
             assert blake2s_kernels.KERNELS.grind(digest, 14, card) == nonce
+
+
+def _constraint_case(cls, log, blow, seed, dev):
+    """Seeded canonical inputs of one component's composition and logup on
+    `dev`."""
+    rng = np.random.default_rng(seed)
+    m = 1 << (log + blow)
+
+    def rows(k, size):
+        return [torch.as_tensor(rng.integers(0, P, size).astype(np.int32), device=dev)
+                for _ in range(k)]
+
+    def felt():
+        return tuple(int(v) for v in rng.integers(0, P, 4))
+
+    comp = cls(log)
+    els = {k: framework.LookupElements(z=felt(), alpha=felt(), size=s)
+           for k, s in ELEMENT_SIZES.items()}
+    return comp, rows, felt, els, m
+
+
+@pytest.mark.parametrize("blow", [1, 4])
+@pytest.mark.parametrize("log", [5, 16])
+@pytest.mark.parametrize("cls", COMPONENT_CLASSES, ids=lambda c: c.name)
+def test_constraint_kernels_match_plain_on_the_card(cuda, cls, log, blow):
+    comp, rows, felt, els, m = _constraint_case(cls, log, blow, log * 10 + blow, cuda)
+    main = dict(zip(comp.columns, rows(len(comp.columns), m)))
+    inter = rows(4 * (comp.relation_count() + 1), m)
+    isf = rows(1, m)[0]
+    rot = fft.rotation_index(log, blow, cuda)
+    acc = torch.stack(rows(4, m))
+    before = acc.clone()
+    claimed, alpha = felt(), felt()
+    launches, plain = dict(constraint_kernels.KERNELS.launches), framework.PLAIN_CUDA_CALLS
+    out, nxt = framework.composition_accumulate(comp, main, inter, inter[-4:], rot, isf, claimed,
+                                                els, alpha, 9, blow, acc)
+    assert out is acc and nxt == 9 + comp.constraint_count()
+    assert framework.PLAIN_CUDA_CALLS == plain
+    want, _ = framework.composition_plain(comp, main, inter, inter[-4:], rot, isf, claimed, els,
+                                          alpha, 9, blow)
+    assert torch.equal(acc.to(torch.int64), (before.to(torch.int64) + want) % P)
+    # logup on the trace domain's rows
+    n = 1 << log
+    lmain = {k: v[:n].contiguous() for k, v in main.items()}
+    q, total = framework.logup_fractions(comp, lmain, isf[:n].contiguous(), els)
+    wq, wtotal = framework.logup_fractions_plain(comp, lmain, isf[:n].contiguous(), els)
+    assert torch.equal(q, wq) and torch.equal(total.to(torch.int64), wtotal)
+    assert constraint_kernels.KERNELS.launches == {
+        "composition": launches["composition"] + 1, "logup": launches["logup"] + 1}
+
+
+def test_constraint_kernel_chunks_and_refusals_on_the_card(cuda):
+    cls = COMPONENT_CLASSES[3]  # processor: three relations
+    comp, rows, felt, els, m = _constraint_case(cls, 10, 2, 7, cuda)
+    main = dict(zip(comp.columns, rows(len(comp.columns), m)))
+    inter = rows(4 * (comp.relation_count() + 1), m)
+    isf = rows(1, m)[0]
+    rot = fft.rotation_index(10, 2, cuda)
+    args = (felt(), els, felt(), 0, 2)
+    whole, _ = framework.composition_accumulate(comp, main, inter, inter[-4:], rot, isf, *args,
+                                                None)
+    s_prev = torch.stack(inter[-4:])[:, rot.to(torch.int64)]
+    c = m // 4
+    for i in range(4):
+        sl = slice(i * c, (i + 1) * c)
+        part, _ = framework.composition_accumulate(
+            comp, {k: v[sl] for k, v in main.items()}, [r[sl] for r in inter],
+            [r[sl] for r in s_prev], None, isf[sl], *args, None, offset=i * c)
+        assert torch.equal(part, whole[:, sl])
+    with pytest.raises(TypeError):
+        framework.composition_accumulate(comp, {**main, "clk": main["clk"].to(torch.int64)},
+                                         inter, inter[-4:], rot, isf, *args, None)
+    with pytest.raises(ValueError):
+        framework.composition_accumulate(comp, main, inter, inter[-4:], rot, isf, *args, None,
+                                         offset=1)
+    with pytest.raises(ValueError):
+        constraint_kernels.KERNELS.logup(comp, {**main, "clk": main["clk"][::2]}, isf, els)
+
+
+def test_fib19_io_prove_launches_each_constraint_kernel_once_a_component(cuda):
+    with open(chip_smoke.os.path.join(chip_smoke.ROOT, "programs", "fib19_io.bf")) as f:
+        m = create_test_machine(compile_program(f.read()), chip_smoke.FIB_INPUT)
+    m.execute()
+    launches, plain = dict(constraint_kernels.KERNELS.launches), framework.PLAIN_CUDA_CALLS
+    proof = air.prove_brainfuck(m, device=cuda)
+    assert framework.PLAIN_CUDA_CALLS == plain
+    for family in constraint_kernels.FAMILIES:
+        assert constraint_kernels.KERNELS.launches[family] - launches[family] == \
+            len(COMPONENT_CLASSES)
+    assert chip_smoke.proof_sha256(proof) == chip_smoke.REFERENCE_SHA256["fib19_io"]
