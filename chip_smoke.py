@@ -4,7 +4,7 @@
 
 Phases (any failure raises and the script exits non-zero):
   1. device report: the card's name, power limit and clocks, CUDA version,
-     kernel build time (the five kernel libraries are built with nvcc from
+     kernel build time (the six kernel libraries are built with nvcc from
      stwo_brainfuck_tpu_torch/csrc/ into stwo_brainfuck_tpu_torch/build/,
      one nvcc per source, started together), and the SASS instruction
      counts of one M31 product, m31::mul, the FFT's m31::mul_doubled and
@@ -49,13 +49,16 @@ Phases (any failure raises and the script exits non-zero):
      on the card, bit for bit, at every quotient shape of a fib19_io prove
      at the default config and at production parameters (up to (4, 2^28),
      the plain version in 2^24-position ranges), the default shapes and
-     the 2^28 one timed beside the bounds; then the two constraint kernels
-     (composition and logup, csrc/constraints.cu) against the plain Expr
-     path, bit for bit, for every component at every shape of a default
-     fib19_io, a big22 and a production fib19_io prove: on the proves' own
-     inputs (each shape timed beside its bounds and the plain version's
-     time), on random and on edge inputs, and in 4 chunks against one
-     launch;
+     the 2^28 one timed beside the bounds, each launch's schedule against
+     the wrapper's mirror; then the two constraint kernels (composition and
+     logup, csrc/constraints.cu) against the plain Expr path and the LogUp
+     scan (csrc/logup_scan.cu) against the plain prefix sum, bit for bit,
+     for every component at every shape of a default fib19_io, a big22 and
+     a production fib19_io prove: on the proves' own inputs (each shape
+     timed beside its bounds and the plain version's time; the scan also
+     beside torch.cumsum of the gathered rows), on random and on edge
+     inputs, and in 4 chunks against one launch (the scan: 4 linear chunks
+     chained by their carries);
   6. the mesh prover (stwo_brainfuck_tpu_torch/parallel/, D shards sharing
      the one card): the sharded evaluate, interpolate and extend (D 2, 4, 8;
      n 16, 20, 24; 1 and 8 columns) against the one-device kernel and the
@@ -94,10 +97,11 @@ Phases (any failure raises and the script exits non-zero):
      After each prove the FFT kernel's, the Blake2s tree kernel's, the
      quotient kernel's and the constraint kernels' launch counts must have
      risen (the tree kernel once a commit on one device, at most once a
-     shard and once for the top on the mesh; each constraint kernel once a
-     component on one device, once a shard above the sharded sizes), no
-     plain FFT, Blake2s, quotient or constraint call may have run on a CUDA
-     tensor and no M31 kernel or plain M31 op;
+     shard and once for the top on the mesh; each constraint kernel and the
+     scan once a component on one device, once a shard above the sharded
+     sizes), no plain FFT, Blake2s, quotient or constraint-path call (the
+     prefix sum included) may have run on a CUDA tensor and no M31 kernel
+     or plain M31 op;
   9. production parameters (PcsConfig(log_blowup=4, n_queries=30,
      pow_bits=16)): the memory reading (production_memory: one cold
      fib19_io prove at input 19 under the allocator's history, its peak,
@@ -133,6 +137,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import ctypes
 import hashlib
 import io
 import json
@@ -246,18 +251,23 @@ MEMORY_TOP = 10
 MEMORY_EVENTS = 500_000
 # the quotient kernel's checks: the plain version runs over ranges of
 # 2^QUOTIENT_CHUNK_LOG positions; production shapes from 2^QUOTIENT_TIMED_LOG
-# positions are timed; a group's M31 products besides its members' (B * py 4,
-# the vanishing line 8, the QM31 inverse 62 with its M31 inversion's 42, the
-# QM31 product 16)
+# positions are timed; a group's M31 products at a point besides its
+# members' and its batch's M31 inversion (B * py 4, the vanishing line 8,
+# den's two CM31 squares 4, the norm 2, num (A - Bu) 16, times conj(den) 8,
+# the batched inversion's 3, times the inverse 4: csrc/quotients.cu), and
+# the products of one M31 inversion (a batch of K points shares one)
 QUOTIENT_CHUNK_LOG = 24
 QUOTIENT_TIMED_LOG = 28
-QUOTIENT_GROUP_PRODUCTS = 90
+QUOTIENT_GROUP_PRODUCTS = 49
+M31_INV_PRODUCTS = 42
 # the constraint kernels' checks: the plain version over ranges of
 # 2^CONSTRAINT_CHUNK_LOG rows; on random and edge inputs the first and last
 # 2^CONSTRAINT_SAMPLE_LOG rows of a shape; the chunked check's chunk count
 CONSTRAINT_CHUNK_LOG = 22
 CONSTRAINT_SAMPLE_LOG = 20
 CONSTRAINT_CHUNKS = 4
+SCAN_REPLACES = ("stwo_brainfuck_tpu/framework/component.py:674 (_qm31_cumsum, the prefix "
+                 "half of :372 _build_interaction_fn)")
 
 
 def _line(tag: str, obj) -> None:
@@ -979,7 +989,8 @@ def _require(launched: dict, plain_fft: int, plain_blake: int, what: str,
     kernel and both constraint kernels (and the grind where pow_bits > 13)
     launched, no plain FFT, Blake2s, quotient or constraint call on a CUDA
     tensor."""
-    needed = ("fft", "tree", "quotients", "composition", "logup") + (("grind",) if grind else ())
+    needed = ("fft", "tree", "quotients", "composition", "logup", "scan") + (
+        ("grind",) if grind else ())
     missing = [k for k in needed if launched.get(k, 0) <= 0]
     if missing:
         raise AssertionError(f"{what}: not launched: {missing} ({launched})")
@@ -990,7 +1001,8 @@ def _require(launched: dict, plain_fft: int, plain_blake: int, what: str,
     if plain_quotients:
         raise AssertionError(f"{what}: the plain quotient accumulation ran on a CUDA tensor")
     if plain_constraints:
-        raise AssertionError(f"{what}: the plain constraint evaluation ran on a CUDA tensor "
+        raise AssertionError(f"{what}: the plain constraint path (the Expr evaluation, the "
+                             f"fractions or the prefix sum) ran on a CUDA tensor "
                              f"{plain_constraints} times")
     return launched
 
@@ -1251,13 +1263,16 @@ def phase_production_fft(shapes: list) -> dict:
     return out
 
 
-def quotient_work(n: int, n_cols: int, groups) -> tuple:
+def quotient_work(n: int, n_cols: int, groups, offset: int = 0) -> tuple:
     """(bytes, M31 products) of the quotient at n positions: each column
     word read once and the (4, n) output written once; a position's circle
-    multiplication (4 products) and, a group, 4 products a member for the
-    weighted sum and QUOTIENT_GROUP_PRODUCTS for B * py, the vanishing line,
-    the QM31 inverse and the QM31 product (csrc/quotients.cu)."""
-    per_point = 4 + sum(4 * len(idxs) + QUOTIENT_GROUP_PRODUCTS for _, _, idxs in groups)
+    step (4 products; a walk's start, two circle multiplications a thread,
+    shared by its K points) and, a group, 4 products a member for the
+    weighted sum, QUOTIENT_GROUP_PRODUCTS for the rest and one M31 inversion
+    a batch of K points (csrc/quotients.cu's schedule)."""
+    k, walk, _ = quotient_kernels.schedule(len(groups), offset, n)
+    per_point = 4 + (8 / k if walk else 0) + sum(
+        4 * len(idxs) + QUOTIENT_GROUP_PRODUCTS + M31_INV_PRODUCTS / k for _, _, idxs in groups)
     return n * (4 * n_cols + 16), n * per_point
 
 
@@ -1284,10 +1299,18 @@ def phase_quotients(fib_path: str, per_mul: float, dispatch_per_s: float) -> dic
         return [quotients.accumulate_plain(log_size, [c[s:s + step] for c in columns], groups,
                                            offset + s) for s in range(0, n, step)]
 
+    sched = (ctypes.c_longlong * 3)()
+
     def checked(log_size, columns, groups, offset=0):
         nonlocal max_err
         out = real(log_size, columns, groups, offset)
         n = out.shape[1]
+        K.lib.load().quotients_schedule(len(groups), offset, n, ctypes.addressof(sched))
+        if (sched[0], bool(sched[1]), sched[2]) != quotient_kernels.schedule(len(groups), offset,
+                                                                             n):
+            raise AssertionError(f"quotient schedule at 2^{log_size} ({offset}, {n}): kernel "
+                                 f"{tuple(sched)}, wrapper "
+                                 f"{quotient_kernels.schedule(len(groups), offset, n)}")
         step = min(n, 1 << QUOTIENT_CHUNK_LOG)
         for s, want in zip(range(0, n, step), plain(log_size, columns, groups, offset)):
             err = int((out[:, s:s + step].to(torch.int64) - want.to(torch.int64)).abs().max())
@@ -1299,12 +1322,14 @@ def phase_quotients(fib_path: str, per_mul: float, dispatch_per_s: float) -> dic
                f"{[len(g[2]) for g in groups]}")
         shapes.append(key)
         if config_name == "default" or log_size >= QUOTIENT_TIMED_LOG:
-            nbytes, products = quotient_work(n, len(columns), groups)
+            nbytes, products = quotient_work(n, len(columns), groups, offset)
             call = lambda: real(log_size, columns, groups, offset)  # noqa: E731
             times[key] = {
                 "ms": _time_ms(call, reps=5, queued=True), "call_ms": _time_ms(call, reps=5),
                 "plain_ms": _time_ms(lambda: plain(log_size, columns, groups, offset), reps=1),
                 "positions": n, "products": products,
+                "schedule": dict(zip(("k", "walk", "stride"),
+                                     quotient_kernels.schedule(len(groups), offset, n))),
                 **bound(nbytes, products * per_mul, dispatch_per_s)}
         return out
 
@@ -1369,7 +1394,9 @@ def _elements(rng) -> dict:
 def phase_constraints(fib_path: str, big_path: str, per_mul: float,
                       dispatch_per_s: float) -> dict:
     """The two constraint kernels against their plain versions (the Expr
-    path) on the card, bit for bit, for every component:
+    path) and the LogUp scan against the plain prefix sum
+    (framework.prefix_sum_plain: S and the claimed sum) on the card, bit
+    for bit, for every component:
 
     - on the prove's own inputs, recorded from a default fib19_io prove, a
       big22 prove and a PRODUCTION fib19_io prove at input 19 (each launch's
@@ -1383,10 +1410,15 @@ def phase_constraints(fib_path: str, big_path: str, per_mul: float,
       first and last 2^CONSTRAINT_SAMPLE_LOG rows (all of a smaller shape);
     - the default fib19_io shapes also as CONSTRAINT_CHUNKS chunks (their
       offsets, S(p - g) given as rows as the mesh gives them and through the
-      rotation index) against the one launch.
-    The proofs carry their recorded sha256s and verify."""
+      rotation index) against the one launch; the scan's as
+      CONSTRAINT_CHUNKS linear chunks, each launch's carry the claimed sum
+      of the one before, against the plain prefix sum in linear order.
+    The scan's shapes are also timed beside torch.cumsum (int64) of the
+    gathered rows, one PyTorch call of the same prefix sum before its % p
+    (`library_ms`). The proofs carry their recorded sha256s and verify."""
     K = constraint_kernels.KERNELS
-    real_comp, real_logup = K.composition, K.logup
+    real_comp, real_logup, real_scan = K.composition, K.logup, K.scan
+    current = {}
     shapes: dict = {}
     times: dict = {}
     max_err = 0
@@ -1464,8 +1496,37 @@ def phase_constraints(fib_path: str, big_path: str, per_mul: float,
                           log_blowup=log_blowup)}
         return out, nxt
 
+    def check_scan(what, total, s, claimed):
+        """The scan's (S, claimed) of total in coset order against the
+        plain prefix sum; returns the plain ms."""
+        perm = fft.coset_order_permutation(total.shape[1].bit_length() - 1, total.device)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        want, want_claimed = framework.prefix_sum_plain(total, perm)
+        end.record()
+        torch.cuda.synchronize()
+        same(f"{what} S", s, want)
+        same(f"{what} claimed sum", claimed, want_claimed)
+        return start.elapsed_time(end)
+
+    def scan(total, coset=True, carry=None):
+        s, claimed = real_scan(total, coset, carry)
+        component = current["component"]
+        m = total.shape[1]
+        key = f"{prove} scan {component.name} 2^{component.log_size}"
+        plain_ms = check_scan(key, total, s, claimed)
+        gathered = total[:, fft.coset_order_permutation(component.log_size, total.device)]
+        shapes[key] = ("scan", component, m, 0, 0)
+        times[key] = {"rows": m, "ms": _time_ms(lambda: real_scan(total), reps=5, queued=True),
+                      "plain_ms": plain_ms,
+                      "library_ms": _time_ms(lambda: torch.cumsum(gathered, dim=1,
+                                                                  dtype=torch.int64), reps=5),
+                      **_constraint_bound(component, "scan", m, per_mul, dispatch_per_s)}
+        return s, claimed
+
     def logup(component, main_cols, is_first, elements):
         args = (component, main_cols, is_first, elements)
+        current["component"] = component
         q, total = real_logup(*args)
         key = f"{prove} logup {component.name} 2^{component.log_size}"
         plain_ms = check_logup(key, args, q, total)
@@ -1492,7 +1553,7 @@ def phase_constraints(fib_path: str, big_path: str, per_mul: float,
         machine = create_test_machine(code, inp)
         machine.execute()
         with mock.patch.object(K, "composition", composition), \
-                mock.patch.object(K, "logup", logup):
+                mock.patch.object(K, "logup", logup), mock.patch.object(K, "scan", scan):
             proof = air.prove_brainfuck(machine, config, device="cuda")
         if proof_sha256(proof) != sha:
             raise AssertionError(f"{prove} proof under the constraint check: sha256 "
@@ -1514,6 +1575,11 @@ def phase_constraints(fib_path: str, big_path: str, per_mul: float,
                     largs = (component, main, isf, els)
                     q, total = real_logup(*largs)
                     check_logup(what, largs, q, total, sample=True)
+                elif family == "scan":
+                    total = torch.stack(_rows_like(gen, 4, m, dev, edge))
+                    check_scan(what, total, *real_scan(total))
+                    if prove == "fib19_io" and not edge:
+                        scan_chunks_check(what, total)
                 else:
                     inter = _rows_like(gen, n_inter_rows, m, dev, edge)
                     acc = torch.stack(_rows_like(gen, 4, m, dev, edge))
@@ -1533,6 +1599,24 @@ def phase_constraints(fib_path: str, big_path: str, per_mul: float,
            "sample_log": CONSTRAINT_SAMPLE_LOG, "chunks": CONSTRAINT_CHUNKS, "times": times}
     _line("constraints", out)
     return out
+
+
+def scan_chunks_check(what: str, total: torch.Tensor) -> None:
+    """The rows of `total` in coset linear order as CONSTRAINT_CHUNKS
+    linear scans (the mesh's form), each launch's carry the claimed sum of
+    the one before, against the plain prefix sum of the whole in linear
+    order: every chunk's S and the last claimed sum."""
+    lin = total[:, fft.coset_order_permutation(total.shape[1].bit_length() - 1, total.device)]
+    want, want_claimed = framework.prefix_sum_plain(lin)
+    c = lin.shape[1] // CONSTRAINT_CHUNKS
+    carry = None
+    for i in range(CONSTRAINT_CHUNKS):
+        sl = slice(i * c, (i + 1) * c)
+        s, carry = constraint_kernels.KERNELS.scan(lin[:, sl].contiguous(), False, carry)
+        if not torch.equal(s, want[:, sl]):
+            raise AssertionError(f"{what}: linear scan chunk {i} of {CONSTRAINT_CHUNKS} != plain")
+    if not torch.equal(carry, want_claimed):
+        raise AssertionError(f"{what}: the chained linear scans' claimed sum != plain")
 
 
 def chunks_check(what: str, args: tuple, before: torch.Tensor, whole: torch.Tensor) -> None:
@@ -1796,8 +1880,8 @@ _CLI_HASHES = re.compile(r"Blake2s kernel launches: tree (\d+), level (\d+), gri
                          r"plain Blake2s calls on CUDA tensors: (\d+)")
 _CLI_QUOTIENTS = re.compile(r"Quotient kernel launches: (\d+); plain quotient calls on CUDA "
                             r"tensors: (\d+)")
-_CLI_CONSTRAINTS = re.compile(r"constraint kernel launches: composition (\d+), logup (\d+); "
-                              r"plain constraint calls on CUDA tensors: (\d+)")
+_CLI_CONSTRAINTS = re.compile(r"constraint kernel launches: composition (\d+), logup (\d+), "
+                              r"scan (\d+); plain constraint calls on CUDA tensors: (\d+)")
 
 
 def _distributed_cli(world: int, backend: str, torchrun: bool = False,
@@ -1860,8 +1944,9 @@ def _distributed_cli(world: int, backend: str, torchrun: bool = False,
                                  f"{written} proofs written in the logs")
         ranks = [{"prove_s": t, **_rank_counts(
                      i, {"fft": int(c[0]), **dict(zip(("tree", "level", "grind"), map(int, h[:3]))),
-                         "quotients": int(q[0]), "composition": int(k[0]), "logup": int(k[1])},
-                     int(c[1]), int(h[3]), int(q[1]), int(k[2]),
+                         "quotients": int(q[0]), "composition": int(k[0]), "logup": int(k[1]),
+                         "scan": int(k[2])},
+                     int(c[1]), int(h[3]), int(q[1]), int(k[3]),
                      grind=bool(pow_bits and pow_bits > 13))}
                  for i, (c, h, q, k, t) in enumerate(zip(counts, hashes, quots, cons, times))]
         files = sorted(os.listdir(tmp))
@@ -2189,7 +2274,8 @@ def main(argv) -> int:
     card = _smi("name,power.limit")
     max_mhz, sm_mhz = (float(v.split()[0]) for v in _smi("clocks.max.sm,clocks.sm").split(","))
     libs = (circle_fft.KERNEL.lib, m31_kernels.KERNELS.lib, blake2s_kernels.KERNELS.lib,
-            quotient_kernels.KERNEL.lib, constraint_kernels.KERNELS.lib)
+            quotient_kernels.KERNEL.lib, constraint_kernels.KERNELS.lib,
+            constraint_kernels.KERNELS.scan_lib)
     nvcc.build_all(libs)
     for lib in libs:
         if lib.build_log.strip():
@@ -2348,20 +2434,25 @@ def main(argv) -> int:
     })
     for family, replaces in (
             ("composition", "stwo_brainfuck_tpu/framework/component.py:520 (_constraints_fn)"),
-            ("logup", "stwo_brainfuck_tpu/framework/component.py:372 (_build_interaction_fn)")):
+            ("logup", "stwo_brainfuck_tpu/framework/component.py:372 (_build_interaction_fn, "
+                      "the fractions)"),
+            ("scan", SCAN_REPLACES)):
         default = [k for k in cons["times"] if k.startswith(f"fib19_io {family} ")]
         head = max(default, key=lambda k: (cons["times"][k]["rows"], cons["times"][k]["bound_ms"]))
         t = cons["times"][head]
         kernels.append({
-            "name": f"constraints_{family}", "route": "cuda",
-            "source": "stwo_brainfuck_tpu_torch/csrc/constraints.cu",
+            "name": "logup_scan" if family == "scan" else f"constraints_{family}",
+            "route": "cuda",
+            "source": "stwo_brainfuck_tpu_torch/csrc/" + (
+                "logup_scan.cu" if family == "scan" else "constraints.cu"),
             "replaces": replaces, "shape": head, "launches": main_path[family],
             "launches_by_path": {"prover": main_path[family], "sharded_prover": sharded[family],
                                  "distributed_prover": distributed[family],
                                  "production": production["launches"][family],
                                  "bench": bench_path[family]},
             "max_abs_err": cons["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t.get("library_ms"),
         })
     if not all(k["launches"] > 0 for k in kernels):
         raise AssertionError(f"a kernel was not launched on its path: {kernels}")

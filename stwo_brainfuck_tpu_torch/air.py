@@ -38,7 +38,7 @@ from .core.pcs import (
 )
 from .framework.component import (
     LookupElements,
-    build_interaction_trace,
+    build_interaction_trace_async,
     composition_accumulate,
     evaluate_constraints_at_point,
 )
@@ -292,12 +292,17 @@ def _prove_tables(mats: Dict[str, torch.Tensor], claim: Dict[str, int],
     log.info("Phase 2: interaction trace")
     elements = draw_elements(channel)
     inter_cols: List[Tuple[int, torch.Tensor]] = []
-    iclaim: Dict[str, tuple] = {}
-    interaction = build_interaction_trace if ops is None else ops.interaction
+    claimed = []
+    interaction = build_interaction_trace_async if ops is None else ops.interaction
     for comp in comps:
-        cols, iclaim[comp.name] = interaction(comp, dev_tabs[comp.name], elements)
+        cols, comp_claimed = interaction(comp, dev_tabs[comp.name], elements)
+        claimed.append(comp_claimed)
         for q in cols:
             inter_cols += [(comp.log_size, row(q, c)) for c in range(4)]
+    # every component's claimed sum, kept on the card until here: one pull
+    pulled = torch.stack(claimed).cpu().tolist()
+    del claimed, comp_claimed  # nothing holds the device copies past it
+    iclaim: Dict[str, tuple] = {comp.name: tuple(v) for comp, v in zip(comps, pulled)}
     if not lookup_sum_valid(iclaim):
         raise ProvingError("LogUp sum does not cancel — invalid trace")
     mix_interaction_claim(channel, iclaim)

@@ -132,6 +132,9 @@ REFERENCE_SHA256 = {
     # the small program at PRODUCTION (tests/test_torch_production.py
     # recomputes it from the JAX package)
     "small_production": "ae26e0600fdf9b620e60c0c0d404cb19fe81b33db86995a58f2307e2ff24637e",
+    # fib19_io at input 10 (3,043 steps; tests/test_torch_claimed_pull.py
+    # recomputes it from the JAX package under -m slow)
+    "fib19_io_in10": "415e897e29ba78c01bf280e971682811abf9e1c6e62362ac057059daed4aa3e2",
 }
 
 WARM_RUNS = 3
@@ -431,7 +434,8 @@ def child_main(args, device: torch.device) -> int:
                               quotient_kernels)
 
             nvcc.build_all([circle_fft.KERNEL.lib, blake2s_kernels.KERNELS.lib,
-                            quotient_kernels.KERNEL.lib, constraint_kernels.KERNELS.lib])
+                            quotient_kernels.KERNEL.lib, constraint_kernels.KERNELS.lib,
+                            constraint_kernels.KERNELS.scan_lib])
         if fault == "oom":
             raise torch.cuda.OutOfMemoryError("simulated by BENCH_CHILD_FAULT=oom")
         result = run_program(row, device, children, mesh=mesh,
@@ -736,7 +740,8 @@ def main(argv=None) -> int:
         from .ops import blake2s_kernels, circle_fft, constraint_kernels, nvcc, quotient_kernels
 
         nvcc.build_all([circle_fft.KERNEL.lib, blake2s_kernels.KERNELS.lib,
-                        quotient_kernels.KERNEL.lib, constraint_kernels.KERNELS.lib])
+                        quotient_kernels.KERNEL.lib, constraint_kernels.KERNELS.lib,
+                        constraint_kernels.KERNELS.scan_lib])
     build_s = time.perf_counter() - t0
 
     def run_row(row: Row, mesh=None, world: int = 0) -> dict:

@@ -120,6 +120,16 @@ def _group_claims(claims: Sequence[Sequence[QuotientClaim]]) -> dict:
     return groups
 
 
+def alpha_powers(by_point: dict, alpha: tuple) -> list:
+    """alpha^0 .. alpha^k for the largest alpha_index k of the grouped
+    claims (_group_claims): one h_mul a power."""
+    n_pows = 1 + max((c.alpha_index for ms in by_point.values() for _ci, c in ms), default=0)
+    powers = [qm31.ONE]
+    for _ in range(n_pows - 1):
+        powers.append(qm31.h_mul(powers[-1], alpha))
+    return powers
+
+
 def _group_constants(members, alpha: tuple, powers: list = None):
     """Host constants of one point group: (consts (5, 4) = [A, B, dy, dx, vc],
     weights (C_g, 4), member column indices). `powers` optionally carries the
@@ -180,7 +190,9 @@ def accumulate_quotients(
         sum_k a^k (f_k - l_k)/V  =  (1/V) * (sum_k a^k f_k - A - B*p.y)
     with scalar A = sum a^k l0_k, B = sum a^k s_k. With `ops` (the mesh
     backend, parallel/prove.ShardedOps) the accumulation runs sharded."""
-    groups = [_group_constants(members, alpha) for members in _group_claims(claims).values()]
+    by_point = _group_claims(claims)
+    powers = alpha_powers(by_point, alpha)
+    groups = [_group_constants(members, alpha, powers) for members in by_point.values()]
     if ops is not None:
         return ops.accumulate_all(log_size, columns, groups)
     return accumulate_range(log_size, columns, groups)
@@ -241,11 +253,7 @@ def prepare_point_groups(claims: Sequence[Sequence[QuotientClaim]], alpha: tuple
         (sum a^k f_k - A - B*p.y) / V
     per group: one inverse per (group, position) instead of per claim."""
     groups = _group_claims(claims)
-    n_pows = 1 + max((c.alpha_index for ms in groups.values()
-                      for _ci, c in ms), default=0)
-    powers = [qm31.ONE]
-    for _ in range(n_pows - 1):
-        powers.append(qm31.h_mul(powers[-1], alpha))
+    powers = alpha_powers(groups, alpha)
     out = []
     for members in groups.values():
         consts, weights, idxs = _group_constants(members, alpha, powers)

@@ -31,8 +31,9 @@ from ..core import m31, qm31
 from ..core.fft import coset_order_permutation
 from ..core.m31 import P_INT
 
-# calls of the plain constraint evaluation (the Expr path) on CUDA tensors:
-# a prove on the card runs the kernels and leaves it at 0
+# calls of the plain constraint path on CUDA tensors (the Expr evaluation,
+# the LogUp fractions, the prefix sum): a prove on the card runs the
+# kernels and leaves it at 0
 PLAIN_CUDA_CALLS = 0
 
 # ---------------------------------------------------------------------------
@@ -551,28 +552,74 @@ def logup_fractions_plain(component: Component, main_cols: Dict[str, torch.Tenso
     return torch.stack(q_cols), total
 
 
-def build_interaction_trace(
+def prefix_sum(total: torch.Tensor, coset: bool = True,
+               carry: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The LogUp prefix sum of the (4, n) row sums `total`: ((4, n) int32
+    S, (4,) int32 its last linear value, the claimed sum) on total's
+    device. coset: total in bit-reversed storage order, summed in coset
+    LINEAR order (where p - g is the previous point) and S scattered back;
+    else total is already in linear order (a mesh shard's chunk) and `carry`
+    ((4,) int32, the shards before it) is added. On CUDA tensors one launch
+    of the scan kernel (ops/constraint_kernels.py), on the CPU
+    prefix_sum_plain."""
+    if total.is_cuda:
+        from ..ops import constraint_kernels
+
+        return constraint_kernels.KERNELS.scan(total, coset, carry)
+    perm = coset_order_permutation(total.shape[1].bit_length() - 1, total.device) if coset else None
+    return prefix_sum_plain(total, perm, carry)
+
+
+def prefix_sum_plain(total: torch.Tensor, perm: Optional[torch.Tensor] = None,
+                     carry: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """What the scan kernel computes, on any device: total gathered by
+    `perm` (or as it is), an int64 cumsum plus `carry`, % p (exact for
+    n <= 2^32), scattered back by `perm`; ((4, n) int32, (4,) int32 the
+    last linear value)."""
+    global PLAIN_CUDA_CALLS
+    if total.is_cuda:
+        PLAIN_CUDA_CALLS += 1
+    s_lin = torch.cumsum(total if perm is None else total[:, perm], dim=1, dtype=torch.int64)
+    if carry is not None:
+        s_lin += carry.to(torch.int64)[:, None]
+    s_lin %= P_INT
+    if perm is None:
+        s = s_lin
+    else:
+        s = torch.empty_like(s_lin)
+        s[:, perm] = s_lin
+    return s.to(torch.int32), s_lin[:, -1].to(torch.int32)
+
+
+def build_interaction_trace_async(
     component: Component,
     main_cols: Dict[str, torch.Tensor],
     elements: Dict[str, LookupElements],
-) -> Tuple[List[torch.Tensor], tuple]:
+) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """The component's interaction columns on the TRACE domain:
-    ([(4, N) int32 QM31 tensors Q_0..Q_{K-1}, S], claimed sum host tuple).
-
-    S is the prefix sum of sum_k Q_k in coset LINEAR order (where p - g is
-    the previous point), scattered back to bit-reversed storage; int64
-    cumsum then % p is exact for N <= 2^32."""
+    ([(4, N) int32 QM31 tensors Q_0..Q_{K-1}, S], the claimed sum as a (4,)
+    int32 tensor on the columns' device, so that a caller pulls every
+    component's in one copy). S is the prefix sum of sum_k Q_k in coset
+    LINEAR order, scattered back to bit-reversed storage (prefix_sum). On
+    CUDA tensors a logup launch and a scan launch."""
     dev = next(iter(main_cols.values())).device
     n = 1 << component.log_size
     is_first = torch.zeros(n, dtype=torch.int32, device=dev)
     is_first[0] = 1
     q_cols, total = logup_fractions(component, main_cols, is_first, elements)
-    perm = coset_order_permutation(component.log_size, dev)
-    s_lin = torch.cumsum(total[:, perm], dim=1, dtype=torch.int64) % P_INT
-    s = torch.empty_like(s_lin)
-    s[:, perm] = s_lin
-    claimed = tuple(int(v) for v in s_lin[:, -1].cpu())
-    return list(q_cols) + [s.to(torch.int32)], claimed
+    s, claimed = prefix_sum(total)
+    return list(q_cols) + [s], claimed
+
+
+def build_interaction_trace(
+    component: Component,
+    main_cols: Dict[str, torch.Tensor],
+    elements: Dict[str, LookupElements],
+) -> Tuple[List[torch.Tensor], tuple]:
+    """build_interaction_trace_async with the claimed sum pulled to the
+    host: ([Q_0..Q_{K-1}, S], claimed sum host tuple)."""
+    cols, claimed = build_interaction_trace_async(component, main_cols, elements)
+    return cols, tuple(int(v) for v in claimed.cpu())
 
 
 # ---------------------------------------------------------------------------

@@ -17,11 +17,18 @@ blown-up domain, in one launch; V_n^-1 takes 2^log_blowup values there
 constant table, and S(p - g) is read through the int32 rotation index
 (``core/fft.py`` ``rotation_index``) or from rows the kernel is given.
 ``KERNELS.logup(...)``: ((K, 4, n) int32 Q_k, (4, n) int32 their sum) in
-one launch.
+one launch. ``KERNELS.scan(total, coset, carry)`` (``csrc/logup_scan.cu``, a
+library of its own): the LogUp prefix sum S of that sum and its last value,
+the claimed sum, both on the card, in one launch; in coset order (gathered
+by the coset permutation and scattered back, ``build_interaction_trace``)
+or, for a mesh shard already in linear order, with a QM31 carry-in.
+``scan_geometry`` mirrors the coset scan's tiles and ``emulate_scan``
+replays a launch on any device.
 
 Each launch's column pointers and constants (the lookup elements, the
 claimed sum, the weights alpha^(offset + i), V_n^-1) go to the card as one
-small table from pinned memory with one non-blocking copy. The wrapper checks
+small table from a reused pinned buffer (``ops/staging.py``) with one
+non-blocking copy. The wrapper checks
 what it is given (CUDA, int32, 1-D rows with unit stride, one length, one
 device, the positions inside the domain) before it loads the library, and
 raises on what the kernel does not take; the C entry returns
@@ -42,10 +49,14 @@ from ..core import poly, qm31
 from ..core.m31 import P_INT
 from ..framework.component import LookupElements, constraint_program, emulate
 from . import nvcc
+from .staging import PinnedRing
 from .constraint_codegen import (CLAIMED_WORD, ELEMENT_ORDER, ELEMENT_WORDS, WEIGHTS_WORD,
                                  composition_slots, logup_slots, op_work)
 
-FAMILIES = ("composition", "logup")
+FAMILIES = ("composition", "logup", "scan")
+SCAN_WARPS = 8
+SCAN_LINEAR_TILE = 2048  # values a linear tile (8 warps of 8 rounds of 32)
+SCAN_MAX_TILES = 64  # a coset launch's tiles: its scratch stays under 1 MB
 MAX_EVAL_LOG = 30  # qm31::kMaxLogSize: the largest canonic domain the kernel takes
 COMPONENT_IDS = {cls.name: i for i, cls in enumerate(COMPONENT_CLASSES)}
 
@@ -119,15 +130,22 @@ def weights(alpha: tuple, alpha_offset: int, n: int) -> list:
     return out
 
 
+def _bind_scan(lib: ctypes.CDLL) -> None:
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.logup_scan_geometry.argtypes = [i32, ptr]
+    lib.logup_scan_geometry.restype = i32
+    lib.logup_scan_scratch.argtypes = [i32, i64, ptr]
+    lib.logup_scan_scratch.restype = i32
+    lib.logup_scan_coset.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, ptr]
+    lib.logup_scan_coset.restype = i32
+    lib.logup_scan_linear.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i64, ptr]
+    lib.logup_scan_linear.restype = i32
+
+
 def pack_table(pointers: Sequence[int], words: np.ndarray) -> np.ndarray:
     """A launch's table as uint32 words: the pointers (8 bytes each, little
     endian), then the constant words."""
     return np.concatenate([np.array(pointers, np.uint64).view(np.uint32), words])
-
-
-def _to_card(table: np.ndarray, dev) -> torch.Tensor:
-    """The table on `dev`: one non-blocking copy from pinned memory."""
-    return torch.from_numpy(table.view(np.int32)).pin_memory().to(dev, non_blocking=True)
 
 
 def emulate_composition(component, main_cols: Dict[str, torch.Tensor],
@@ -175,6 +193,98 @@ def emulate_logup(component, main_cols: Dict[str, torch.Tensor], is_first: torch
     return q.to(torch.int32), (q.sum(0) % P_INT).to(torch.int32)
 
 
+def scan_geometry(log_n: int) -> Tuple[int, int, int, int, int]:
+    """(col_log, row_log, tile_rows, tiles, rows_per_warp) of the coset
+    scan of 2^log_n rows, as csrc/logup_scan.cu's geometry: the pair index
+    j < 2^(log_n - 1) read as 2^row_log rows of 2^col_log columns (col_log =
+    min(5, log_n - 2)), a tile tile_rows rows of the chain's first half (and
+    their mirrors), rows_per_warp of them a warp."""
+    if not 2 <= log_n <= MAX_EVAL_LOG:
+        raise ValueError(f"the scan takes 2^2 .. 2^{MAX_EVAL_LOG} rows, not 2^{log_n}")
+    m = log_n - 1
+    col_log = min(5, m - 1)
+    row_log = m - col_log
+    low_rows = 1 << (row_log - 1)
+    tile_rows = min(low_rows, max(32, low_rows // SCAN_MAX_TILES))
+    return col_log, row_log, tile_rows, low_rows // tile_rows, max(1, tile_rows >> 3)
+
+
+def _bitrev(x: torch.Tensor, bits: int) -> torch.Tensor:
+    out = torch.zeros_like(x)
+    for b in range(bits):
+        out |= ((x >> b) & 1) << (bits - 1 - b)
+    return out
+
+
+def _cumsum_mod(x: torch.Tensor, dim: int) -> torch.Tensor:
+    return torch.cumsum(x, dim=dim) % P_INT
+
+
+def emulate_scan(total: torch.Tensor, coset: bool = True, carry: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """What one scan launch computes, on any device, as the kernel
+    schedules it: ((4, n) int32 S, (4,) int32 its last linear value).
+
+    coset: the pairs (2j, N - 1 - 2j) and their mirrors as the lanes read
+    them, each warp's rows and each tile's sums, the tiles' chain (the
+    look-back's result), the column totals scanned in key order (rev over
+    col_log bits), and the four words a lane writes a row. Else the linear
+    tiles of 8 warps of 8 rounds of 32 values, each warp's running sums,
+    the tiles' chain and the carry."""
+    x = total.to(torch.int64)
+    n = x.shape[1]
+    dev = x.device
+    if not coset:
+        c = (torch.zeros(4, dtype=torch.int64, device=dev) if carry is None
+             else carry.to(torch.int64))
+        tiles = -(-n // SCAN_LINEAR_TILE)
+        pad = torch.zeros((4, tiles * SCAN_LINEAR_TILE), dtype=torch.int64, device=dev)
+        pad[:, :n] = x
+        rounds = pad.reshape(4, tiles, SCAN_WARPS, 8, 32)
+        lane_scan = _cumsum_mod(rounds, 4)                             # a round's warp scan
+        round_off = _cumsum_mod(lane_scan[..., -1], 3) - lane_scan[..., -1]   # rounds before
+        warp_tot = _cumsum_mod(lane_scan[..., -1], 3)[..., -1]           # (4, tiles, warps)
+        warp_off = _cumsum_mod(warp_tot, 2) - warp_tot
+        agg = warp_tot.sum(2) % P_INT                                   # (4, tiles)
+        chain = _cumsum_mod(agg, 1) - agg
+        s = (lane_scan + round_off[..., None] + warp_off[..., None, None]
+             + chain[:, :, None, None, None] + c[:, None, None, None, None]) % P_INT
+        s = s.reshape(4, -1)[:, :n]
+        return s.to(torch.int32), s[:, -1].to(torch.int32)
+    log_n = n.bit_length() - 1
+    col_log, row_log, tile_rows, tiles, rpw = scan_geometry(log_n)
+    cols = 1 << col_log
+    kr = torch.arange(1 << (row_log - 1), dtype=torch.int64, device=dev)
+    j = (_bitrev(kr, row_log) << col_log)[:, None] + torch.arange(cols, device=dev)[None, :]
+    a0, a1, b0, b1 = x[:, 2 * j], x[:, 2 * j + 1], x[:, n - 2 - 2 * j], x[:, n - 1 - 2 * j]
+    pl, ph = (a0 + b1) % P_INT, (b0 + a1) % P_INT        # (4, rows, lanes); ph for column C-1-lane
+    warps = SCAN_WARPS if tile_rows >= SCAN_WARPS else tile_rows
+    shape = (4, tiles, warps, rpw, cols)
+    pl, ph = pl.reshape(shape), ph.reshape(shape)
+    part_l, part_h = pl.sum(3) % P_INT, ph.sum(3) % P_INT      # (4, tiles, warps, lanes)
+    agg_l, agg_h = part_l.sum(2) % P_INT, part_h.sum(2) % P_INT
+    off_l = (_cumsum_mod(agg_l, 1) - agg_l)[:, :, None] + _cumsum_mod(part_l, 2) - part_l
+    off_h = (_cumsum_mod(agg_h, 1) - agg_h)[:, :, None] + _cumsum_mod(part_h, 2) - part_h
+    lane = torch.arange(cols, device=dev)
+    col_total = (agg_l.sum(1) + agg_h.sum(1).flip(1)) % P_INT    # (4, lanes)
+    key = _bitrev(lane, col_log)
+    in_keys = col_total[:, key]
+    incl = _cumsum_mod(in_keys, 1)
+    col_excl = (incl - in_keys)[:, key]
+    mirror_incl = ((col_excl + col_total) % P_INT).flip(1)
+    lo = (off_l[:, :, :, None] + _cumsum_mod(pl, 3)) % P_INT             # inclusive
+    hi = (off_h[:, :, :, None] + _cumsum_mod(ph, 3) - ph) % P_INT        # exclusive
+    pre = (col_excl[:, None, None, None] + lo) % P_INT
+    pre_m = (mirror_incl[:, None, None, None] - hi) % P_INT
+    s = torch.empty_like(x)
+    jj = j.reshape(tiles, warps, rpw, cols)
+    s[:, 2 * jj] = (pre - b1.reshape(shape)) % P_INT
+    s[:, 2 * jj + 1] = pre_m
+    s[:, n - 2 - 2 * jj] = (pre_m - a1.reshape(shape)) % P_INT
+    s[:, n - 1 - 2 * jj] = pre
+    return s.to(torch.int32), incl[:, -1].to(torch.int32)
+
+
 # ---------------------------------------------------------------------------
 # Checks (before any library load)
 # ---------------------------------------------------------------------------
@@ -220,7 +330,9 @@ class ConstraintKernels:
 
     def __init__(self):
         self.lib = nvcc.CudaLibrary("constraints", _bind)
+        self.scan_lib = nvcc.CudaLibrary("logup_scan", _bind_scan)
         self.launches = dict.fromkeys(FAMILIES, 0)
+        self.staging = PinnedRing()
 
     def composition(self, component, main_cols: Dict[str, torch.Tensor],
                     inter_rows: Sequence[torch.Tensor], s_rows: Sequence[torch.Tensor],
@@ -265,7 +377,7 @@ class ConstraintKernels:
         host = pack_table([r.data_ptr() for r in rows + list(s_rows)], words)
         out = acc if acc is not None else torch.empty((4, m), dtype=torch.int32, device=dev)
         with torch.cuda.device(dev):
-            table = _to_card(host, dev)
+            table = self.staging.to_card(host, dev)
             rc = lib.constraints_composition(
                 COMPONENT_IDS[component.name], table.data_ptr(), len(rows) + 4, words.size,
                 None if rotation is None else rotation.data_ptr(), component.log_size, log_blowup,
@@ -291,7 +403,7 @@ class ConstraintKernels:
         q = torch.empty((len(program.relations), 4, n), dtype=torch.int32, device=dev)
         total = torch.empty((4, n), dtype=torch.int32, device=dev)
         with torch.cuda.device(dev):
-            table = _to_card(host, dev)
+            table = self.staging.to_card(host, dev)
             rc = lib.constraints_logup(COMPONENT_IDS[component.name], table.data_ptr(),
                                        logup_slots(program), words.size, n, q.data_ptr(),
                                        total.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
@@ -299,6 +411,53 @@ class ConstraintKernels:
             raise RuntimeError(f"{component.name} logup kernel launch failed: CUDA error {rc}")
         self.launches["logup"] += 1
         return q, total
+
+    def scan(self, total: torch.Tensor, coset: bool = True,
+             carry: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """framework.component.prefix_sum in one launch: ((4, n) int32 S,
+        (4,) int32 its last linear value, the claimed sum), both on the
+        card. coset: total in bit-reversed storage order (n = 2^k, k >= 2),
+        S scattered back to it; else total in linear order, S = carry (4,)
+        int32 or 0 + the inclusive sum."""
+        if not isinstance(total, torch.Tensor) or total.dtype != torch.int32:
+            raise TypeError(f"the scan takes an int32 tensor, got "
+                            f"{getattr(total, 'dtype', type(total).__name__)}")
+        if total.dim() != 2 or total.shape[0] != 4 or not total.is_contiguous():
+            raise ValueError(f"the scan takes a contiguous (4, n) tensor, got {tuple(total.shape)}")
+        n = int(total.shape[1])
+        if coset and (n & (n - 1) or not 4 <= n <= 1 << MAX_EVAL_LOG):
+            raise ValueError(f"the coset scan takes 2^2 .. 2^{MAX_EVAL_LOG} rows, not {n}")
+        if not 1 <= n <= 1 << 31:
+            raise ValueError(f"the scan takes 1 .. 2^31 rows, not {n}")
+        if carry is not None and (coset or carry.dtype != torch.int32 or carry.shape != (4,)
+                                  or carry.device != total.device
+                                  or not carry.is_contiguous()):
+            raise ValueError("the scan's carry is a contiguous (4,) int32 tensor on the rows' "
+                             "device, in linear order only")
+        dev = total.device
+        _require_cuda(dev, "the scan's rows")
+        lib = self.scan_lib.load()
+        sizes = (ctypes.c_longlong * 2)()
+        if lib.logup_scan_scratch(int(coset), n, ctypes.addressof(sizes)) != 0:
+            raise ValueError(f"the scan refused {n} rows")
+        s = torch.empty_like(total)
+        claimed = torch.empty(4, dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            head = torch.zeros(sizes[0], dtype=torch.int32, device=dev)
+            work = torch.empty(sizes[1], dtype=torch.int32, device=dev)
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            if coset:
+                rc = lib.logup_scan_coset(total.data_ptr(), s.data_ptr(), claimed.data_ptr(),
+                                          head.data_ptr(), work.data_ptr(), n.bit_length() - 1,
+                                          stream)
+            else:
+                rc = lib.logup_scan_linear(total.data_ptr(), s.data_ptr(), claimed.data_ptr(),
+                                           None if carry is None else carry.data_ptr(),
+                                           head.data_ptr(), work.data_ptr(), n, stream)
+        if rc != 0:
+            raise RuntimeError(f"scan kernel launch failed: CUDA error {rc}")
+        self.launches["scan"] += 1
+        return s, claimed
 
 
 KERNELS = ConstraintKernels()
@@ -312,11 +471,14 @@ def launch_work(component, family: str, rows: int, accumulate: bool = True,
                 rotation: bool = True, log_blowup: int = 0) -> Tuple[int, int, int]:
     """(bytes, M31 products, M31 adds) of one launch over `rows` rows, the
     work the function needs: each input word read once and each output
-    word written once; the program's distinct ops
+    word written once (the scan: 16 bytes a row in, 16 out, and the
+    claimed sum); the program's distinct ops
     (ops/constraint_codegen.op_work) and, for composition, the weights, the
     product by V_n^-1 and the accumulation at every row, and once a launch
     the 2^log_blowup values of V_n^-1 (a point, log_size - 1 doublings and
     an inversion each: core/poly.py vanishing_inverse_blocks)."""
+    if family == "scan":  # the sums in, S out, the claimed sum; n - 1 adds a coordinate
+        return rows * 32 + 16, 0, 4 * (rows - 1)
     p = constraint_program(type(component))
     if family == "logup":
         products, adds = op_work(p, p.fractions)

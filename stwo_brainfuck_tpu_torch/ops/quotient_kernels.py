@@ -13,10 +13,15 @@ domain of size 2^log_size, from M31 columns of n values each (rows of any
 tensors, read in place through a table of their pointers) and the point
 groups' host constants (``core/quotients._group_constants``, packed by
 ``pack_groups`` behind the pointers: one small table, copied to the card
-from pinned memory without a synchronization). The kernel makes each domain
-point from its position (``emulate_points`` replays that on any device,
-with the same tables), so no domain-point array exists; the output is its
-only allocation.
+from a reused pinned buffer, ``ops/staging.py``, without a
+synchronization). The kernel makes each domain point itself, so no
+domain-point array exists; the output is its only allocation.
+
+``schedule`` mirrors the launch's schedule (K positions a thread, whether
+its points are a walk, the stride) and ``emulate`` replays a launch on any
+device: the positions of each thread, the walked or looked-up points
+(``emulate_points`` replays the lookup), the K-point batched inversion with
+its zero rule, the tails.
 
 The wrapper checks what it is given (CUDA, int32, 1-D with unit stride, one
 length, one device, column indices in range) before it loads the library,
@@ -33,15 +38,18 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from ..core import m31, qm31
 from ..core.circle import points_at_indices
 from ..core.m31 import P_INT
 from . import nvcc
+from .staging import PinnedRing
 
 MAX_LOG_SIZE = 30  # kMaxLogSize: the first index of a canonic domain is 2^(30 - log_size)
 LO_LOG = 16  # the tables: G^k for k < 2^16, G^(k * 2^16) for k < 2^15
 HI_LOG = 31 - LO_LOG
 HEADER_WORDS = 21  # a group: n_members, A, B, dy, dx, vc
 MEMBER_WORDS = 5  # a member: column index, weight
+MAX_TABLE_BYTES = 48 << 10  # the table staged in shared memory
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -49,6 +57,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.quotients_accumulate.argtypes = [ptr, i32, i32, i64, ptr, ptr, i32, i64, i64, ptr, ptr]
     lib.quotients_accumulate.restype = ctypes.c_int
     lib.quotients_max_log_size.restype = ctypes.c_int
+    lib.quotients_schedule.argtypes = [i32, i64, i64, ptr]
+    lib.quotients_schedule.restype = ctypes.c_int
     if lib.quotients_max_log_size() != MAX_LOG_SIZE:
         raise RuntimeError(f"csrc/quotients.cu has kMaxLogSize {lib.quotients_max_log_size()}, "
                            f"the wrapper {MAX_LOG_SIZE}")
@@ -107,6 +117,119 @@ def emulate_points(log_size: int, positions: torch.Tensor) -> Tuple[torch.Tensor
     return x, torch.where(second, (-y) % P_INT, y)
 
 
+def schedule(n_groups: int, offset: int, n: int) -> Tuple[int, bool, int]:
+    """(K, walk, stride) of the launch of n positions from offset with
+    n_groups groups, as csrc/quotients.cu's schedule takes them: K = 8
+    positions a thread with one group, 4 with more; the points are a walk
+    when n = 2^l, l >= log2 K + 5 and offset is a multiple of n; the stride
+    S = n / K there, else ceil(n / K) (thread t0 takes t0 + i * S, i < K,
+    those below n)."""
+    k = 8 if n_groups == 1 else 4
+    k_log = k.bit_length() - 1
+    walk = n & (n - 1) == 0 and n >= 1 << (k_log + 5) and offset % n == 0
+    return k, walk, (n >> k_log) if walk else -(-n // k)
+
+
+def _rev(m: int, bits: int) -> int:
+    return int(format(m, f"0{bits}b")[::-1], 2) if bits else 0
+
+
+def _table_point(k: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor):
+    """G^k (int64 x, y) from the tables, as qm31::table_point."""
+    p, q = lo[k & ((1 << LO_LOG) - 1)], hi[k >> LO_LOG]
+    return ((p[..., 0] * q[..., 0] - p[..., 1] * q[..., 1]) % P_INT,
+            (p[..., 0] * q[..., 1] + p[..., 1] * q[..., 0]) % P_INT)
+
+
+def _walk_points(log_size: int, offset: int, n: int, k: int, stride: int, device):
+    """(x, y) int64 (S, K) of a walk launch's threads, as walk_start makes
+    them: the warp's first position's point times G^(rev4(lane / 2) * 2^27),
+    conjugated on odd lanes, then K - 1 steps by D = G^(2^(32 - log2 n))."""
+    lo, hi = (t.to(torch.int64) for t in point_tables(device))
+    t0 = torch.arange(stride, dtype=torch.int64, device=device)
+    lane = t0 & 31
+    pw = offset + t0 - lane
+    r = torch.zeros_like(pw)
+    for b in range(log_size):
+        r |= ((pw >> b) & 1) << (log_size - 1 - b)
+    x, y = _table_point((1 + 4 * r) << (MAX_LOG_SIZE - log_size), lo, hi)
+    e = hi[torch.tensor([_rev(v, 4) << 11 for v in range(16)], device=device)][lane >> 1]
+    x, y = (x * e[:, 0] - y * e[:, 1]) % P_INT, (x * e[:, 1] + y * e[:, 0]) % P_INT
+    odd = (lane & 1).bool()
+    dx, dy = _table_point(torch.tensor(1 << (32 - (n.bit_length() - 1)), device=device), lo, hi)
+    dy = torch.where(odd, (-dy) % P_INT, dy)
+    y = torch.where(odd, (-y) % P_INT, y)
+    xs, ys = [x], [y]
+    for _ in range(k - 1):
+        x, y = (x * dx - y * dy) % P_INT, (x * dy + y * dx) % P_INT
+        xs.append(x)
+        ys.append(y)
+    return torch.stack(xs, 1), torch.stack(ys, 1)
+
+
+def emulate(log_size: int, columns: Sequence[torch.Tensor], groups,
+            offset: int = 0) -> torch.Tensor:
+    """What one launch computes, on any device, as the kernel schedules it:
+    thread t0 < S takes positions t0 + i * S (i = rev(m) for the m-th walked
+    point, i = m with lookups; those at or past n are not live), a group's
+    K norms are inverted together (a zero takes 1 into the running product
+    and gets 0 out), a point's value is num (A - Bu) conj(den) times its
+    norm's inverse. (4, n) int32."""
+    dev = columns[0].device
+    n = int(columns[0].shape[0])
+    k, walk, stride = schedule(len(groups), offset, n)
+    k_log = k.bit_length() - 1
+    t0 = torch.arange(stride, dtype=torch.int64, device=dev)[:, None]
+    idx = torch.tensor([_rev(m, k_log) if walk else m for m in range(k)], device=dev)
+    rel = t0 + idx[None, :] * stride                                 # (S, K)
+    live = rel < n
+    if walk:
+        px, py = _walk_points(log_size, offset, n, k, stride, dev)
+    else:
+        px, py = emulate_points(log_size, offset + rel.clamp(max=n - 1).reshape(-1))
+        px, py = px.reshape(rel.shape), py.reshape(rel.shape)
+    safe = rel.clamp(max=n - 1)
+    acc = torch.zeros((4,) + rel.shape, dtype=torch.int64, device=dev)
+    for consts, weights, idxs in groups:
+        c = torch.as_tensor(np.asarray(consts, np.int64), device=dev)        # (5, 4)
+        w = torch.as_tensor(np.asarray(weights, np.int64), device=dev)       # (C_g, 4)
+        wf = (-c[0]).remainder(P_INT)[:, None, None].expand((4,) + rel.shape).clone()
+        for j, ci in enumerate(idxs):
+            f = torch.where(live, columns[ci].to(torch.int64)[safe], 0)
+            wf = (wf + w[j][:, None, None] * f) % P_INT
+        num = (wf - c[1][:, None, None] * py) % P_INT
+        van = (c[2][:, None, None] * px - c[3][:, None, None] * py + c[4][:, None, None]) % P_INT
+        a2r, a2i = ((van[0] + van[1]) * (van[0] - van[1])) % P_INT, 2 * van[0] * van[1] % P_INT
+        b2r, b2i = ((van[2] + van[3]) * (van[2] - van[3])) % P_INT, 2 * van[2] * van[3] % P_INT
+        den_r, den_i = (a2r - 2 * b2r + b2i) % P_INT, (a2i - b2r - 2 * b2i) % P_INT
+        z = torch.where(live, (den_r * den_r + den_i * den_i) % P_INT, 0)
+        t = qm31.mul(num, torch.stack([van[0], van[1], (-van[2]) % P_INT, (-van[3]) % P_INT]))
+        cr, ci = den_r, (-den_i) % P_INT  # conj(den)
+        y = torch.stack([(t[0] * cr - t[1] * ci) % P_INT, (t[0] * ci + t[1] * cr) % P_INT,
+                         (t[2] * cr - t[3] * ci) % P_INT, (t[2] * ci + t[3] * cr) % P_INT])
+        acc = (acc + y * batch_inv(z)[None] % P_INT) % P_INT
+    out = torch.zeros((4, n), dtype=torch.int64, device=dev)
+    out[:, rel[live]] = acc[:, live]
+    return out.to(torch.int32)
+
+
+def batch_inv(z: torch.Tensor) -> torch.Tensor:
+    """qm31::batch_inv over the last axis (K values a thread): the running
+    products with a zero taken as 1, one inversion, two products a value
+    back; a zero gets 0. int64."""
+    zs = torch.where(z == 0, 1, z)
+    run = [zs[..., 0]]
+    for m in range(1, z.shape[-1]):
+        run.append(run[-1] * zs[..., m] % P_INT)
+    t = m31.inv(run[-1])
+    inv = [None] * z.shape[-1]
+    for m in range(z.shape[-1] - 1, 0, -1):
+        inv[m] = t * run[m - 1] % P_INT
+        t = t * zs[..., m] % P_INT
+    inv[0] = t
+    return torch.where(z == 0, 0, torch.stack(inv, -1))
+
+
 def _check_columns(columns: Sequence[torch.Tensor]) -> Tuple[torch.device, int]:
     """Raise unless the columns are CUDA int32 vectors of one length with
     unit stride on one device; returns the device and the length."""
@@ -135,6 +258,7 @@ class QuotientKernel:
     def __init__(self):
         self.lib = nvcc.CudaLibrary("quotients", _bind)
         self.launches = 0
+        self.staging = PinnedRing()
 
     def accumulate(self, log_size: int, columns: Sequence[torch.Tensor], groups,
                    offset: int = 0) -> torch.Tensor:
@@ -149,14 +273,16 @@ class QuotientKernel:
         if not groups or any(not 0 <= ci < len(columns) for _, _, idxs in groups for ci in idxs):
             raise ValueError(f"quotients: groups {[g[2] for g in groups]} over "
                              f"{len(columns)} columns")
-        lib = self.lib.load()
         words = pack_groups(groups)
         ptrs = np.array([c.data_ptr() for c in columns], np.uint64).view(np.uint32)
-        host = torch.from_numpy(np.concatenate([ptrs, words]).view(np.int32)).pin_memory()
+        if 4 * (ptrs.size + words.size) > MAX_TABLE_BYTES:
+            raise ValueError(f"quotients: a table of {4 * (ptrs.size + words.size)} bytes, the "
+                             f"kernel stages at most {MAX_TABLE_BYTES}")
+        lib = self.lib.load()
         out = torch.empty((4, n), dtype=torch.int32, device=dev)
         with torch.cuda.device(dev):
             lo, hi = point_tables(dev)
-            table = host.to(dev, non_blocking=True)
+            table = self.staging.to_card(np.concatenate([ptrs, words]), dev)
             rc = lib.quotients_accumulate(
                 table.data_ptr(), len(columns), len(groups), words.size, lo.data_ptr(),
                 hi.data_ptr(), log_size, offset, n, out.data_ptr(),

@@ -34,7 +34,7 @@ import torch
 
 from ..core import fft, fri, merkle, poly, quotients
 from ..core.m31 import P_INT
-from ..framework.component import build_interaction_trace, composition_accumulate
+from ..framework.component import build_interaction_trace_async, composition_accumulate
 from .fft_sharded import make_sharded_evaluate, make_sharded_interpolate, sharded_extend
 from .merkle_sharded import commit_sharded
 from .mesh import Mesh, Permutation, Sharded
@@ -128,13 +128,14 @@ class ShardedOps:
     # -- LogUp interaction -------------------------------------------------
 
     def interaction(self, component, main_cols: Dict[str, torch.Tensor], elements):
-        """build_interaction_trace over the mesh: ([Q_0..Q_{K-1}, S], each
-        a (4, N) int32 array, claimed sum host tuple). The fractions are
-        pointwise per shard; the prefix sum runs in linear order (a global
-        gather there and back)."""
+        """build_interaction_trace_async over the mesh: ([Q_0..Q_{K-1}, S],
+        each a (4, N) int32 array, the claimed sum a (4,) int32 tensor on
+        the home device). The fractions are pointwise per shard; the prefix
+        sum runs in linear order (a global gather there and back), a scan
+        launch a shard with its carry-in."""
         log_size = component.log_size
         if not self._shardable(log_size):
-            return build_interaction_trace(
+            return build_interaction_trace_async(
                 component, {k: self.mesh.full(v) for k, v in main_cols.items()}, elements)
         mesh = self.mesh
         main = {k: mesh.as_sharded(v) for k, v in main_cols.items()}
@@ -146,7 +147,7 @@ class ShardedOps:
         s = mesh.permute(s_lin, _permutation(mesh, "storage", log_size))
         n_q = len(q_cols[mesh.local[0]])
         cols = [Sharded(mesh, mesh.each(lambda i: q_cols[i][k])) for k in range(n_q)]
-        return cols + [Sharded(mesh, _int32(s))], claimed
+        return cols + [Sharded(mesh, s)], claimed
 
     # -- Composition -------------------------------------------------------
 

@@ -5,8 +5,9 @@ every column is in coset LINEAR order (row r is the point q(1 + 2r)), so
 
 - LogUp fractions and AIR constraints are pointwise: each shard computes
   its own rows;
-- the LogUp prefix sum is a local cumulative sum plus the exclusive offset
-  from the gathered shard totals (one all_gather);
+- the LogUp prefix sum is each shard's scan with the sum of the shards
+  before it as its carry-in, from the gathered shard totals (one
+  all_gather);
 - the claimed sum is the mod-p sum of those totals;
 - S(p - g) needs only the last element of the left neighbour (one shift).
 
@@ -28,6 +29,7 @@ from ..framework.component import (
     _device_elements,
     logup_fractions,
 )
+from ..framework.component import prefix_sum as scan
 from .mesh import Mesh, Sharded
 
 
@@ -49,15 +51,19 @@ def fractions(mesh: Mesh, component, main: Dict[str, Sharded], is_first: Sharded
             [None if o is None else o[1] for o in out])
 
 
-def prefix_sum(mesh: Mesh, shards: List[torch.Tensor]) -> Tuple[List[torch.Tensor], tuple]:
+def prefix_sum(mesh: Mesh, shards: List[torch.Tensor]) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """Inclusive prefix sum of a (4, N) QM31 array sharded in order along
-    N: each shard's local cumulative sum plus the sum of the totals of the
-    shards before it. Returns (per-shard (4, c) int64 sums, the claimed
-    sum = the total of all shards, as a host tuple)."""
-    local = mesh.each(lambda i: torch.cumsum(shards[i], dim=1, dtype=torch.int64) % P_INT)
-    totals = mesh.all_gather(mesh.each(lambda i: local[i][:, -1]))   # (D, 4) per shard
-    out = mesh.each(lambda i: (local[i] + totals[i][:i].sum(0)[:, None]) % P_INT)
-    claimed = tuple(int(v) for v in (totals[mesh.local[0]].sum(0) % P_INT).cpu())
+    N: each shard's totals gathered (one all_gather), then each shard's
+    scan (framework.prefix_sum in linear order: one scan launch a shard on
+    a card) with the sum of the shards before it as its carry-in. Returns
+    (per-shard (4, c) int32 sums, the claimed sum = the total of all
+    shards, a (4,) int32 tensor on the mesh's home device)."""
+    totals = mesh.all_gather(mesh.each(
+        lambda i: shards[i].to(torch.int64).sum(1) % P_INT))          # (D, 4) per shard
+    out = mesh.each(lambda i: scan(
+        shards[i].to(torch.int32).contiguous(), coset=False,
+        carry=(totals[i][:i].sum(0) % P_INT).to(torch.int32))[0])
+    claimed = (totals[mesh.local[0]].sum(0) % P_INT).to(torch.int32).to(mesh.home)
     return out, claimed
 
 
@@ -75,7 +81,8 @@ def sharded_prove_step(mesh: Mesh, component_cls, log_size: int):
         isf = mesh.as_sharded(is_first)
         els = shard_elements(mesh, elements)
         q_cols, totals = fractions(mesh, comp, main, isf, elements)
-        s, claimed = prefix_sum(mesh, totals)
+        s, claimed_dev = prefix_sum(mesh, totals)
+        claimed = tuple(int(v) for v in claimed_dev.cpu())
         left = mesh.shift(s)
         cons = [None] * mesh.size
         for i in mesh.local:

@@ -465,6 +465,110 @@ def test_quotient_kernel_wrapper_refuses_what_it_cannot_take(cuda):
         quotient_kernels.KERNEL.accumulate(8, [cols[0], cols[1].cpu(), cols[2]], groups)
 
 
+def _zero_line_groups(groups):
+    """groups with the first group's dy, dx and vc set to 0: its vanishing
+    value is 0 at every position, so every batch of the kernel meets zero
+    norms (inv(0) = 0)."""
+    consts = groups[0][0].copy()
+    consts[2:] = 0
+    return [(consts, *groups[0][1:])] + list(groups[1:])
+
+
+@pytest.mark.parametrize("log_size, n_groups, offset, n", [
+    (10, 1, 0, 1024), (10, 2, 0, 1024), (12, 1, 1024, 1024), (12, 3, 2048, 512),
+    (9, 1, 5, 100), (9, 2, 0, 7), (8, 1, 0, 256), (8, 1, 0, 128), (20, 1, 0, 1 << 20),
+    (20, 2, 3 << 18, 1 << 18)])
+def test_quotient_kernel_equals_its_emulation_with_zero_lines(cuda, log_size, n_groups, offset,
+                                                              n):
+    cols, groups = _quotient_case(log_size + n, log_size, 5, n_groups, cuda)
+    part = [c[offset:offset + n] for c in cols]
+    for gs in (groups, _zero_line_groups(groups)):
+        got = quotient_kernels.KERNEL.accumulate(log_size, part, gs, offset)
+        assert torch.equal(got, quotients.accumulate_plain(log_size, part, gs, offset))
+        assert torch.equal(got, quotient_kernels.emulate(log_size, part, gs, offset))
+
+
+def test_quotient_schedule_mirrors_the_kernel(cuda):
+    import ctypes
+
+    lib = quotient_kernels.KERNEL.lib.load()
+    out = (ctypes.c_longlong * 3)()
+    for n_groups in (1, 2, 5):
+        for log_n in range(0, 29):
+            for n, offset in ((1 << log_n, 0), (1 << log_n, 3 << log_n), ((1 << log_n) + 3, 0),
+                              (1 << log_n, 1)):
+                lib.quotients_schedule(n_groups, offset, n, ctypes.addressof(out))
+                assert (out[0], bool(out[1]), out[2]) == quotient_kernels.schedule(
+                    n_groups, offset, n)
+
+
+def _scan_case(seed, n, dev, edge=False):
+    rng = np.random.default_rng(seed)
+    values = np.array([0, 1, P - 2, P - 1]) if edge else None
+    x = values[rng.integers(0, 4, (4, n))] if edge else rng.integers(0, P, (4, n))
+    return torch.as_tensor(x.astype(np.int32), device=dev)
+
+
+@pytest.mark.parametrize("log_n", list(range(2, 23)))
+def test_scan_matches_plain_on_the_card(cuda, log_n):
+    launches, plain = dict(constraint_kernels.KERNELS.launches), framework.PLAIN_CUDA_CALLS
+    perm = fft.coset_order_permutation(log_n, cuda)
+    for edge in (False, True):
+        total = _scan_case(log_n, 1 << log_n, cuda, edge)
+        s, claimed = framework.prefix_sum(total)
+        assert framework.PLAIN_CUDA_CALLS == plain
+        want, want_claimed = framework.prefix_sum_plain(total, perm)
+        plain = framework.PLAIN_CUDA_CALLS
+        assert torch.equal(s, want) and torch.equal(claimed, want_claimed)
+        if log_n <= 16:
+            es, ec = constraint_kernels.emulate_scan(total)
+            assert torch.equal(es, s) and torch.equal(ec, claimed)
+    assert constraint_kernels.KERNELS.launches == {**launches, "scan": launches["scan"] + 2}
+
+
+@pytest.mark.parametrize("n", [1, 5, 2047, 2048, 2049, 1 << 16, (1 << 20) + 77])
+def test_linear_scan_with_a_carry_on_the_card(cuda, n):
+    x = _scan_case(n, n, cuda)
+    carry = torch.as_tensor(np.random.default_rng(n).integers(0, P, 4).astype(np.int32),
+                            device=cuda)
+    for c in (None, carry):
+        s, last = constraint_kernels.KERNELS.scan(x, False, c)
+        want, want_last = framework.prefix_sum_plain(x, None, c)
+        assert torch.equal(s, want) and torch.equal(last, want_last)
+
+
+def test_scan_geometry_and_refusals_on_the_card(cuda):
+    import ctypes
+
+    lib = constraint_kernels.KERNELS.scan_lib.load()
+    out = (ctypes.c_int * 5)()
+    for log_n in range(2, 31):
+        assert lib.logup_scan_geometry(log_n, ctypes.addressof(out)) == 0
+        assert tuple(out) == constraint_kernels.scan_geometry(log_n)
+    x = _scan_case(0, 64, cuda)
+    with pytest.raises(TypeError):
+        constraint_kernels.KERNELS.scan(x.to(torch.int64))
+    with pytest.raises(ValueError):
+        constraint_kernels.KERNELS.scan(x[:, :48].contiguous())
+    with pytest.raises(ValueError):
+        constraint_kernels.KERNELS.scan(x[:, ::2])
+    with pytest.raises(ValueError):
+        constraint_kernels.KERNELS.scan(x, True, x[:, 0].contiguous())
+
+
+def test_mesh_prefix_sum_uses_the_scan_on_the_card(cuda):
+    from stwo_brainfuck_tpu_torch.parallel import sharded
+
+    x = _scan_case(11, 1 << 16, cuda)
+    mesh = make_mesh(4, "cuda")
+    before, plain = constraint_kernels.KERNELS.launches["scan"], framework.PLAIN_CUDA_CALLS
+    out, claimed = sharded.prefix_sum(mesh, mesh.shard(x).shards)
+    assert constraint_kernels.KERNELS.launches["scan"] - before == 4
+    assert framework.PLAIN_CUDA_CALLS == plain
+    want, want_claimed = framework.prefix_sum_plain(x)
+    assert torch.equal(torch.cat(out, 1), want) and torch.equal(claimed, want_claimed)
+
+
 def test_quotient_kernel_and_grind_on_a_card_that_is_not_the_current_device(cards):
     cols, groups = _quotient_case(9, 16, 4, 2, "cpu")
     want = quotients.accumulate_range(16, list(cols), groups)
@@ -526,7 +630,7 @@ def test_constraint_kernels_match_plain_on_the_card(cuda, cls, log, blow):
     wq, wtotal = framework.logup_fractions_plain(comp, lmain, isf[:n].contiguous(), els)
     assert torch.equal(q, wq) and torch.equal(total.to(torch.int64), wtotal)
     assert constraint_kernels.KERNELS.launches == {
-        "composition": launches["composition"] + 1, "logup": launches["logup"] + 1}
+        **launches, "composition": launches["composition"] + 1, "logup": launches["logup"] + 1}
 
 
 def test_constraint_kernel_chunks_and_refusals_on_the_card(cuda):

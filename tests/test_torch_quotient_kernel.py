@@ -209,3 +209,88 @@ def test_emulated_grind_finds_the_smallest_nonce(case):
     got, hashed = bk.emulate_grind(digest, bits, ctas, tile, seed=case)
     assert got == want
     assert want + 1 <= hashed < 1 << 20
+
+
+def _groups(cols, raw, alpha):
+    claims = [[tq.QuotientClaim(p, v, a) for p, v, a in cl] for cl in raw]
+    return [tq._group_constants(m, alpha) for m in tq._group_claims(claims).values()]
+
+
+def _zero_line(groups):
+    """The first group with dy = dx = vc = 0: its vanishing value is 0 at
+    every position, so every batch meets zero norms."""
+    consts = groups[0][0].copy()
+    consts[2:] = 0
+    return [(consts, *groups[0][1:])] + list(groups[1:])
+
+
+# (log_size, n_cols, n_groups, offset, n): walks at K = 8 and 4, lookups with
+# tails (n not a multiple of K or of a CTA's 256 threads), the first size
+# that walks, and 2-, 4- and 8-shard chunks
+SCHEDULE_CASES = [(10, 4, 1, 0, 1 << 10), (10, 5, 2, 0, 1 << 10), (9, 3, 3, 0, 1 << 9),
+                  (9, 3, 1, 5, 100), (9, 2, 2, 7, 301), (8, 2, 1, 0, 1 << 8),
+                  (8, 2, 1, 0, 1 << 7), (7, 2, 2, 0, 1 << 7), (6, 3, 3, 1, 7)] + [
+                  (12, 4, g, i << (12 - d), 1 << (12 - d)) for d, i, g in
+                  ((1, 1, 1), (2, 3, 2), (3, 5, 1), (3, 7, 3))]
+
+
+@pytest.mark.parametrize("log_size, n_cols, n_groups, offset, n", SCHEDULE_CASES)
+def test_kernel_schedule_emulation_equals_plain_and_jax(log_size, n_cols, n_groups, offset, n):
+    cols, raw, alpha = quotient_case(log_size * 7 + offset, log_size, n_cols, n_groups)
+    want = np.asarray(jq.accumulate_quotients(
+        log_size, [jnp.asarray(c) for c in cols],
+        [[jq.QuotientClaim(p, v, a) for p, v, a in cl] for cl in raw], alpha))
+    groups = _groups(cols, raw, alpha)
+    part = [c[offset:offset + n] for c in torch.as_tensor(cols.view(np.int32))]
+    got = qk.emulate(log_size, part, groups, offset)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want[:, offset:offset + n])
+    zero = _zero_line(groups)
+    assert torch.equal(qk.emulate(log_size, part, zero, offset),
+                       tq.accumulate_plain(log_size, part, zero, offset))
+
+
+def test_schedule_walks_whole_domains_and_shard_chunks_only():
+    assert qk.schedule(1, 0, 1 << 28) == (8, True, 1 << 25)
+    assert qk.schedule(2, 0, 1 << 21) == (4, True, 1 << 19)
+    assert qk.schedule(1, 3 << 20, 1 << 20) == (8, True, 1 << 17)
+    assert qk.schedule(1, 0, 1 << 7) == (8, False, 16)      # below 2^(3 + 5)
+    assert qk.schedule(2, 0, 1 << 7) == (4, True, 32)
+    assert qk.schedule(1, 1 << 10, 1 << 11) == (8, False, 256)  # offset not a multiple of n
+    assert qk.schedule(3, 0, 1000) == (4, False, 250)
+    assert qk.schedule(1, 5, 100) == (8, False, 13)
+
+
+@pytest.mark.parametrize("log_size, offset, n", [(10, 0, 1 << 10), (20, 0, 1 << 12),
+                                                 (28, 5 << 12, 1 << 12),
+                                                 (28, (1 << 28) - (1 << 9), 1 << 9)])
+def test_walked_points_are_the_domain_points(log_size, offset, n):
+    k, walk, stride = qk.schedule(1, offset, n)
+    assert walk
+    px, py = qk._walk_points(log_size, offset, n, k, stride, "cpu")
+    idx = torch.tensor([qk._rev(m, 3) for m in range(k)])
+    pos = offset + torch.arange(stride)[:, None] + idx[None, :] * stride
+    ex, ey = qk.emulate_points(log_size, pos.reshape(-1))
+    assert torch.equal(px.reshape(-1), ex) and torch.equal(py.reshape(-1), ey)
+
+
+def test_batched_inverse_keeps_zero_at_zero():
+    rng = np.random.default_rng(5)
+    z = torch.as_tensor(rng.integers(0, P, (64, 8)))
+    z[rng.random((64, 8)) < 0.2] = 0
+    z[0] = 0
+    want = torch.where(z == 0, 0, torch.as_tensor([[pow(int(v), P - 2, P) for v in row]
+                                                   for row in z.tolist()]))
+    assert torch.equal(qk.batch_inv(z), want)
+
+
+@pytest.mark.parametrize("seed, n_cols, n_groups", [(0, 5, 1), (1, 9, 2), (2, 30, 3)])
+def test_accumulate_quotients_ladder_gives_the_same_constants(seed, n_cols, n_groups):
+    _, raw, alpha = quotient_case(seed, 8, n_cols, n_groups)
+    claims = [[tq.QuotientClaim(p, v, a) for p, v, a in cl] for cl in raw]
+    by_point = tq._group_claims(claims)
+    powers = tq.alpha_powers(by_point, alpha)
+    for members in by_point.values():
+        with_ladder = tq._group_constants(members, alpha, powers)
+        without = tq._group_constants(members, alpha)
+        for a, b in zip(with_ladder, without):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
