@@ -50,15 +50,20 @@ Phases (any failure raises and the script exits non-zero):
      at the default config and at production parameters (up to (4, 2^28),
      the plain version in 2^24-position ranges), the default shapes and
      the 2^28 one timed beside the bounds, each launch's schedule against
-     the wrapper's mirror; then the two constraint kernels (composition and
-     logup, csrc/constraints.cu) against the plain Expr path and the LogUp
-     scan (csrc/logup_scan.cu) against the plain prefix sum, bit for bit,
-     for every component at every shape of a default fib19_io, a big22 and
-     a production fib19_io prove: on the proves' own inputs (each shape
-     timed beside its bounds and the plain version's time; the scan also
-     beside torch.cumsum of the gathered rows), on random and on edge
-     inputs, and in 4 chunks against one launch (the scan: 4 linear chunks
-     chained by their carries);
+     the wrapper's mirror; then the constraint kernels (csrc/constraints.cu:
+     composition against the plain Expr path, interaction, the whole LogUp
+     interaction trace, against framework.interaction_plain, and on its
+     inputs the mesh's pair: logup against the plain fractions and the
+     LogUp scan, csrc/logup_scan.cu, against the plain prefix sum), bit for
+     bit, for every component at every shape of a default fib19_io, a big22
+     and a production fib19_io prove: on the proves' own inputs (each shape
+     timed beside its bounds and the plain version's time; the interaction
+     beside the logup + scan pair; the scan as the mesh runs it, the second
+     of 2 and of 4 linear chunks with its carry, and in coset mode, which
+     no prove path runs, each beside torch.cumsum of the same rows), on
+     random and on edge inputs (zero denominators among them; the scan
+     also of edge-valued row sums, in both modes), and in 4 chunks against
+     one launch (the scan: 4 linear chunks chained by their carries);
   6. the mesh prover (stwo_brainfuck_tpu_torch/parallel/, D shards sharing
      the one card): the sharded evaluate, interpolate and extend (D 2, 4, 8;
      n 16, 20, 24; 1 and 8 columns) against the one-device kernel and the
@@ -97,9 +102,10 @@ Phases (any failure raises and the script exits non-zero):
      After each prove the FFT kernel's, the Blake2s tree kernel's, the
      quotient kernel's and the constraint kernels' launch counts must have
      risen (the tree kernel once a commit on one device, at most once a
-     shard and once for the top on the mesh; each constraint kernel and the
-     scan once a component on one device, once a shard above the sharded
-     sizes), no plain FFT, Blake2s, quotient or constraint-path call (the
+     shard and once for the top on the mesh; the composition and
+     interaction kernels once a component on one device and no logup or
+     scan launch; on a mesh the logup kernel and the scan once a shard above
+     the sharded sizes), no plain FFT, Blake2s, quotient or constraint-path call (the
      prefix sum included) may have run on a CUDA tensor and no M31 kernel
      or plain M31 op;
   9. production parameters (PcsConfig(log_blowup=4, n_queries=30,
@@ -119,7 +125,9 @@ Phases (any failure raises and the script exits non-zero):
      final line (printed here as the `bench` line) with the fib19_io
      headline's JAX sha256, verified, and every suite row listed.
 The last line of stdout is the JSON result; the line before it lists the
-kernels, the one before that names the card. Needs no jax.
+kernels (each with its launches on its own path: the logup kernel and the
+scan on the mesh prover's, the others on the main path's), the one before
+that names the card. Needs no jax.
 
     python3 chip_smoke.py distributed
 
@@ -266,6 +274,7 @@ M31_INV_PRODUCTS = 42
 CONSTRAINT_CHUNK_LOG = 22
 CONSTRAINT_SAMPLE_LOG = 20
 CONSTRAINT_CHUNKS = 4
+MESH_SHARDS = (2, 4)  # the one-process mesh's shard counts on fib19_io
 SCAN_REPLACES = ("stwo_brainfuck_tpu/framework/component.py:674 (_qm31_cumsum, the prefix "
                  "half of :372 _build_interaction_fn)")
 
@@ -944,13 +953,23 @@ def _constraint_launches(launched: dict) -> dict:
 
 
 def _constraints_per_prove(launched: dict, shards: int, what: str) -> None:
-    """Each constraint kernel once a component on one device; on a mesh
-    once a component below the sharded sizes and once a shard above."""
+    """The constraint kernels of one prove. One device: composition and
+    interaction once a component, no logup or scan launch. A mesh: a
+    component below the sharded sizes takes one interaction launch, one
+    above a logup and a scan launch a shard; composition once a component
+    below its sharded size and once a shard above."""
     n = len(COMPONENT_CLASSES)
-    for family in constraint_kernels.FAMILIES:
-        if not (launched[family] == n if not shards else n <= launched[family] <= n * shards):
-            raise AssertionError(f"{what}: {launched[family]} {family} launches for {n} "
-                                 f"components" + (f" on {shards} shards" if shards else ""))
+    comp, inter, logup, scan = (launched[k] for k in ("composition", "interaction", "logup",
+                                                      "scan"))
+    if not shards:
+        ok = comp == inter == n and logup == scan == 0
+    else:
+        big = n - inter
+        ok = (0 <= big <= n and logup == scan and big <= logup <= big * shards
+              and n <= comp <= n * shards)
+    if not ok:
+        raise AssertionError(f"{what}: constraint launches {_constraint_launches(launched)} for "
+                             f"{n} components" + (f" on {shards} shards" if shards else ""))
 
 
 def _add_counts(a: dict, b: dict) -> dict:
@@ -986,12 +1005,15 @@ def _trees_per_commit(launched: dict, commits: int, shards: int, what: str) -> d
 def _require(launched: dict, plain_fft: int, plain_blake: int, what: str,
              grind: bool = False, plain_quotients: int = 0, plain_constraints: int = 0) -> dict:
     """A prove's launches: the FFT, the Blake2s tree kernel, the quotient
-    kernel and both constraint kernels (and the grind where pow_bits > 13)
-    launched, no plain FFT, Blake2s, quotient or constraint call on a CUDA
-    tensor."""
-    needed = ("fft", "tree", "quotients", "composition", "logup", "scan") + (
-        ("grind",) if grind else ())
+    kernel, the composition kernel and the LogUp interaction (the
+    interaction kernel, or on a mesh's shards the logup kernel and the
+    scan), and the grind where pow_bits > 13, launched; no plain FFT,
+    Blake2s, quotient or constraint call on a CUDA tensor."""
+    needed = ("fft", "tree", "quotients", "composition") + (("grind",) if grind else ())
     missing = [k for k in needed if launched.get(k, 0) <= 0]
+    if launched.get("interaction", 0) <= 0 and (launched.get("logup", 0) <= 0
+                                                or launched.get("scan", 0) <= 0):
+        missing.append("interaction (or logup and scan)")
     if missing:
         raise AssertionError(f"{what}: not launched: {missing} ({launched})")
     if plain_fft:
@@ -1354,14 +1376,15 @@ def phase_quotients(fib_path: str, per_mul: float, dispatch_per_s: float) -> dic
 
 def _constraint_bound(component, family: str, rows: int, per_mul: float, dispatch_per_s: float,
                       accumulate: bool = True, rotation: bool = True,
-                      log_blowup: int = 0) -> dict:
+                      log_blowup: int = 0, batch: int = constraint_kernels.BATCH_ROWS) -> dict:
     """A launch's bounds: bytes (each input word read once, each output word
     written once) at the memory rate; the M31 products the function needs
-    (the program's distinct ops, the weights, V_n^-1: constraint_kernels.
-    launch_work) at per_mul instructions and its adds at 2 at the dispatch
-    rate."""
+    (the program's distinct ops, the weights, V_n^-1, the inverses batched
+    as the kernels batch them, or each on its own with batch 0:
+    constraint_kernels.launch_work) at per_mul instructions and its adds at
+    2 at the dispatch rate."""
     nbytes, products, adds = constraint_kernels.launch_work(component, family, rows, accumulate,
-                                                            rotation, log_blowup)
+                                                            rotation, log_blowup, batch)
     return {"products": products, "adds": adds,
             **bound(nbytes, products * per_mul + 2 * adds, dispatch_per_s)}
 
@@ -1391,34 +1414,69 @@ def _elements(rng) -> dict:
             for k, size in ELEMENT_SIZES.items()}
 
 
+def zero_den_elements(component, main_cols: dict, elements: dict, rows: list) -> dict:
+    """`elements` with z moved so that relation k's denominator is 0 at
+    storage row rows[k % len(rows)]: its element set's z becomes the
+    combination of that row's values (a set shared by relations takes the
+    first's)."""
+    program = framework.constraint_program(type(component))
+    zero = {k: framework.LookupElements(z=(0, 0, 0, 0), alpha=e.alpha, size=e.size)
+            for k, e in elements.items()}
+    dev = next(iter(main_cols.values())).device
+    idx = torch.tensor(rows, dtype=torch.int64, device=dev)
+    inv = program.inversions()
+    vals = framework.emulate(program, {
+        "cols": [main_cols[c][idx] for c in component.columns],
+        "is_first": (idx == 0).to(torch.int64), "elements": zero}, [d for d, _ in inv])
+    out = dict(elements)
+    moved = set()
+    for k, (d, _) in enumerate(inv):
+        name = program.relations[k][0]
+        if name not in moved:
+            moved.add(name)
+            e = elements[name]
+            z = tuple(int(v) for v in vals[d][:, k % len(rows)].cpu())
+            out[name] = framework.LookupElements(z=z, alpha=e.alpha, size=e.size)
+    return out
+
+
 def phase_constraints(fib_path: str, big_path: str, per_mul: float,
                       dispatch_per_s: float) -> dict:
-    """The two constraint kernels against their plain versions (the Expr
-    path) and the LogUp scan against the plain prefix sum
-    (framework.prefix_sum_plain: S and the claimed sum) on the card, bit
-    for bit, for every component:
+    """The constraint kernels against their plain versions on the card, bit
+    for bit, for every component: the composition kernel against the Expr
+    path; the interaction kernel (the whole LogUp interaction trace: Q_k, S
+    and the claimed sum) against framework.interaction_plain; on the same
+    inputs the mesh's pair, the logup kernel against logup_fractions_plain
+    and the LogUp scan against prefix_sum_plain:
 
     - on the prove's own inputs, recorded from a default fib19_io prove, a
       big22 prove and a PRODUCTION fib19_io prove at input 19 (each launch's
       inputs also through framework.composition_plain in ranges of
-      2^CONSTRAINT_CHUNK_LOG rows, and logup_fractions_plain); every shape
-      timed (the kernel's device time behind a sleep, mean of 5, into a
-      scratch accumulator; the plain version's one pass) beside its bounds;
+      2^CONSTRAINT_CHUNK_LOG rows); every shape timed (the kernel's device
+      time behind a sleep, mean of 5, into a scratch accumulator; the plain
+      version's one pass) beside its bounds, the interaction beside the
+      logup + scan pair on its inputs (`pair_ms`);
     - at each of those shapes on random canonical inputs and on edge values
-      (0, 1, p - 2, p - 1, with 0 and p - 1 in every row) from a numpy
-      seed, the kernel over the whole shape and the plain version on its
-      first and last 2^CONSTRAINT_SAMPLE_LOG rows (all of a smaller shape);
+      (0, 1, p - 2, p - 1, with 0 and p - 1 in every row; the lookup
+      elements' z moved so that some denominators are 0) from a numpy
+      seed, the kernel over the whole shape and the plain version (the
+      composition and logup kernels: on its first and last
+      2^CONSTRAINT_SAMPLE_LOG rows, all of a smaller shape);
     - the default fib19_io shapes also as CONSTRAINT_CHUNKS chunks (their
       offsets, S(p - g) given as rows as the mesh gives them and through the
       rotation index) against the one launch; the scan's as
       CONSTRAINT_CHUNKS linear chunks, each launch's carry the claimed sum
       of the one before, against the plain prefix sum in linear order.
-    The scan's shapes are also timed beside torch.cumsum (int64) of the
-    gathered rows, one PyTorch call of the same prefix sum before its % p
-    (`library_ms`). The proofs carry their recorded sha256s and verify."""
+    The scan is timed as the mesh runs it, the second of MESH_SHARDS
+    linear chunks with the first chunk's sum as its carry (checked against
+    the plain prefix sum), and in coset mode (`off_path`: no prove path
+    runs it), each beside torch.cumsum (int64) of the same rows, one
+    PyTorch call of the same prefix sum before its % p (`library_ms`); on
+    edge inputs it also takes edge-valued row sums (both modes). The
+    proofs carry their recorded sha256s and verify."""
     K = constraint_kernels.KERNELS
-    real_comp, real_logup, real_scan = K.composition, K.logup, K.scan
-    current = {}
+    real_comp, real_inter = K.composition, K.interaction
+    real_logup, real_scan = K.logup, K.scan
     shapes: dict = {}
     times: dict = {}
     max_err = 0
@@ -1478,6 +1536,31 @@ def phase_constraints(fib_path: str, big_path: str, per_mul: float,
             same(f"{what} total, rows {sl.start} .. {sl.stop - 1}", total[:, sl], wt)
         return start.elapsed_time(end)
 
+    def check_interaction(what, args, got):
+        """The interaction kernel's (Q, S, claimed) of args against
+        interaction_plain; returns the plain ms."""
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = framework.interaction_plain(*args)
+        end.record()
+        torch.cuda.synchronize()
+        for name, g, w in zip(("Q", "S", "claimed sum"), got, want):
+            same(f"{what} {name}", g, w)
+        return start.elapsed_time(end)
+
+    def check_scan(what, total, s, claimed):
+        """The scan's (S, claimed) of total in coset order against the
+        plain prefix sum; returns the plain ms."""
+        perm = fft.coset_order_permutation(total.shape[1].bit_length() - 1, total.device)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        want, want_claimed = framework.prefix_sum_plain(total, perm)
+        end.record()
+        torch.cuda.synchronize()
+        same(f"{what} S", s, want)
+        same(f"{what} claimed sum", claimed, want_claimed)
+        return start.elapsed_time(end)
+
     def composition(component, main_cols, inter_rows, s_rows, rotation, is_first, claimed_sum,
                     elements, alpha, alpha_offset, log_blowup, acc, offset=0):
         args = (component, main_cols, inter_rows, s_rows, rotation, is_first, claimed_sum,
@@ -1496,46 +1579,84 @@ def phase_constraints(fib_path: str, big_path: str, per_mul: float,
                           log_blowup=log_blowup)}
         return out, nxt
 
-    def check_scan(what, total, s, claimed):
-        """The scan's (S, claimed) of total in coset order against the
-        plain prefix sum; returns the plain ms."""
-        perm = fft.coset_order_permutation(total.shape[1].bit_length() - 1, total.device)
+    def pair(what, component, main, els, timed):
+        """The mesh's pair on the interaction's inputs: the logup kernel
+        (is_first as a column) and the coset scan of its row sums, each
+        against its plain version; with `timed`, both timed (their keys'
+        lines) and the pair's ms returned."""
+        m = 1 << component.log_size
+        isf = torch.zeros(m, dtype=torch.int32, device=main[component.columns[0]].device)
+        isf[0] = 1
+        largs = (component, main, isf, els)
+        q, total = real_logup(*largs)
+        plain_l = check_logup(f"{what} logup", largs, q, total, sample=not timed)
+        s, claimed = real_scan(total)
+        plain_s = check_scan(f"{what} scan", total, s, claimed)
+        if prove == "fib19_io" and not timed and "edge" not in what:
+            scan_chunks_check(what, total)
+        if not timed:
+            return None
+        name = f"{component.name} 2^{component.log_size}"
+        gathered = total[:, fft.coset_order_permutation(component.log_size, total.device)]
+        logup_ms = _time_ms(lambda: real_logup(*largs), reps=5, queued=True)
+        scan_ms = _time_ms(lambda: real_scan(total), reps=5, queued=True)
+        times[f"{prove} logup {name}"] = {"rows": m, "ms": logup_ms, "plain_ms": plain_l,
+                                          **_constraint_bound(component, "logup", m, per_mul,
+                                                              dispatch_per_s)}
+        # the coset mode: no prove path runs it (the interaction kernel
+        # computes the prefix sum on one device)
+        times[f"{prove} coset_scan {name}"] = {
+            "rows": m, "ms": scan_ms, "plain_ms": plain_s, "off_path": True,
+            "library_ms": _time_ms(lambda: torch.cumsum(gathered, dim=1, dtype=torch.int64),
+                                   reps=5),
+            **_constraint_bound(component, "scan", m, per_mul, dispatch_per_s)}
+        for shards in MESH_SHARDS:
+            if m >= 2 * shards:
+                linear_scan_timed(name, component, gathered, shards)
+        return logup_ms + scan_ms
+
+    def linear_scan_timed(name, component, lin, shards):
+        """The scan as the mesh runs it: the second of `shards` linear
+        chunks of the rows' sums, its carry the first chunk's sum, against
+        the plain prefix sum; timed beside its bound and torch.cumsum of
+        the chunk."""
+        c = lin.shape[1] // shards
+        chunk = lin[:, c:2 * c].contiguous()
+        carry = (lin[:, :c].to(torch.int64).sum(1) % P).to(torch.int32)
+        s, claimed = real_scan(chunk, False, carry)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        want, want_claimed = framework.prefix_sum_plain(total, perm)
+        want, want_claimed = framework.prefix_sum_plain(lin[:, :2 * c])
         end.record()
         torch.cuda.synchronize()
-        same(f"{what} S", s, want)
-        same(f"{what} claimed sum", claimed, want_claimed)
-        return start.elapsed_time(end)
+        same(f"{prove} linear scan {name} chunk 2 of {shards} S", s, want[:, c:])
+        same(f"{prove} linear scan {name} chunk 2 of {shards} claimed sum", claimed,
+             want_claimed)
+        times[f"{prove} scan {name} chunk 2 of {shards}"] = {
+            "rows": c, "ms": _time_ms(lambda: real_scan(chunk, False, carry), reps=5,
+                                      queued=True),
+            "plain_ms": start.elapsed_time(end), "mode": "linear, with a carry",
+            "library_ms": _time_ms(lambda: torch.cumsum(chunk, dim=1, dtype=torch.int64),
+                                   reps=5),
+            **_constraint_bound(component, "scan", c, per_mul, dispatch_per_s)}
 
-    def scan(total, coset=True, carry=None):
-        s, claimed = real_scan(total, coset, carry)
-        component = current["component"]
-        m = total.shape[1]
-        key = f"{prove} scan {component.name} 2^{component.log_size}"
-        plain_ms = check_scan(key, total, s, claimed)
-        gathered = total[:, fft.coset_order_permutation(component.log_size, total.device)]
-        shapes[key] = ("scan", component, m, 0, 0)
-        times[key] = {"rows": m, "ms": _time_ms(lambda: real_scan(total), reps=5, queued=True),
-                      "plain_ms": plain_ms,
-                      "library_ms": _time_ms(lambda: torch.cumsum(gathered, dim=1,
-                                                                  dtype=torch.int64), reps=5),
-                      **_constraint_bound(component, "scan", m, per_mul, dispatch_per_s)}
-        return s, claimed
-
-    def logup(component, main_cols, is_first, elements):
-        args = (component, main_cols, is_first, elements)
-        current["component"] = component
-        q, total = real_logup(*args)
-        key = f"{prove} logup {component.name} 2^{component.log_size}"
-        plain_ms = check_logup(key, args, q, total)
-        shapes[key] = ("logup", component, total.shape[1], 0, 0)
-        times[key] = {"rows": total.shape[1],
-                      "ms": _time_ms(lambda: real_logup(*args), reps=5, queued=True),
-                      "plain_ms": plain_ms, **_constraint_bound(
-                          component, "logup", total.shape[1], per_mul, dispatch_per_s)}
-        return q, total
+    def interaction(component, main_cols, elements):
+        args = (component, main_cols, elements)
+        got = real_inter(*args)
+        key = f"{prove} interaction {component.name} 2^{component.log_size}"
+        plain_ms = check_interaction(key, args, got)
+        m = 1 << component.log_size
+        shapes[key] = ("interaction", component, m, 0, 0)
+        geo = K.geometry(type(component), component.log_size, got[1].device)
+        times[key] = {"rows": m, "ms": _time_ms(lambda: real_inter(*args), reps=5, queued=True),
+                      "plain_ms": plain_ms, "library_ms": None,
+                      "pair_ms": pair(key, component, main_cols, elements, True),
+                      "tiles": geo[3], "tile_rows": geo[2], "on_chip": bool(geo[5]),
+                      **_constraint_bound(component, "interaction", m, per_mul, dispatch_per_s),
+                      "per_row_inverse_bound_ms": _constraint_bound(
+                          component, "interaction", m, per_mul, dispatch_per_s,
+                          batch=0)["bound_ms"]}
+        return got
 
     # the proves' own inputs, then random and edge inputs at their shapes
     inputs_checked = 0
@@ -1553,7 +1674,7 @@ def phase_constraints(fib_path: str, big_path: str, per_mul: float,
         machine = create_test_machine(code, inp)
         machine.execute()
         with mock.patch.object(K, "composition", composition), \
-                mock.patch.object(K, "logup", logup), mock.patch.object(K, "scan", scan):
+                mock.patch.object(K, "interaction", interaction):
             proof = air.prove_brainfuck(machine, config, device="cuda")
         if proof_sha256(proof) != sha:
             raise AssertionError(f"{prove} proof under the constraint check: sha256 "
@@ -1571,15 +1692,17 @@ def phase_constraints(fib_path: str, big_path: str, per_mul: float,
                 isf = _rows_like(gen, 1, m, dev, edge)[0]
                 els = _elements(rng)
                 what = f"{key} on {'edge' if edge else 'random'} inputs"
-                if family == "logup":
-                    largs = (component, main, isf, els)
-                    q, total = real_logup(*largs)
-                    check_logup(what, largs, q, total, sample=True)
-                elif family == "scan":
-                    total = torch.stack(_rows_like(gen, 4, m, dev, edge))
-                    check_scan(what, total, *real_scan(total))
-                    if prove == "fib19_io" and not edge:
-                        scan_chunks_check(what, total)
+                if family == "interaction":
+                    if edge:
+                        els = zero_den_elements(component, main, els, [0, 1, m - 2, m // 2 + 1])
+                        # the scan's rows' sums themselves edge values, in
+                        # both modes
+                        total = torch.stack(_rows_like(gen, 4, m, dev, True))
+                        check_scan(f"{what} edge sums", total, *real_scan(total))
+                        scan_chunks_check(f"{what} edge sums", total)
+                    iargs = (component, main, els)
+                    check_interaction(what, iargs, real_inter(*iargs))
+                    pair(what, component, main, els, False)
                 else:
                     inter = _rows_like(gen, n_inter_rows, m, dev, edge)
                     acc = torch.stack(_rows_like(gen, 4, m, dev, edge))
@@ -1676,17 +1799,22 @@ def phase_production(fib_path: str) -> dict:
 
 
 class _PeakTimer(air.PhaseTimer):
-    """A PhaseTimer that also keeps each phase's peak allocated bytes (the
-    peak statistics are reset at every mark)."""
+    """A PhaseTimer that also keeps each phase's peak allocated bytes and
+    its peak requested bytes (the tensors' own sizes, before the allocator
+    rounds them to its blocks); the peak statistics are reset at every
+    mark."""
 
     def __init__(self, device):
         super().__init__(device)
         self.peaks: dict = {}
+        self.requested: dict = {}
         torch.cuda.reset_peak_memory_stats(self.device)
 
     def mark(self, name: str) -> None:
         super().mark(name)
         self.peaks[name] = torch.cuda.max_memory_allocated(self.device)
+        self.requested[name] = torch.cuda.memory_stats(self.device).get(
+            "requested_bytes.all.peak")
         torch.cuda.reset_peak_memory_stats(self.device)
 
 
@@ -1757,7 +1885,8 @@ def phase_production_memory(fib_path: str) -> dict:
     out = {"program": "fib19_io", "input": list(FIB_INPUT), "pcs_config": PRODUCTION.to_json(),
            "prove_s": prove_s, "phases_s": timer.seconds,
            "peak_device_bytes": max(timer.peaks.values()), "phase_at_peak": phase,
-           "peaks_by_phase": timer.peaks, "trace_events": len(snapshot["device_traces"][dev]),
+           "peaks_by_phase": timer.peaks, "requested_peaks_by_phase": timer.requested,
+           "trace_events": len(snapshot["device_traces"][dev]),
            "trace_peak_bytes": replay_peak,
            "largest_at_peak": [{"bytes": ev["size"], "stack": _frames(ev)}
                                for ev in blocks[:MEMORY_TOP]]}
@@ -1880,8 +2009,9 @@ _CLI_HASHES = re.compile(r"Blake2s kernel launches: tree (\d+), level (\d+), gri
                          r"plain Blake2s calls on CUDA tensors: (\d+)")
 _CLI_QUOTIENTS = re.compile(r"Quotient kernel launches: (\d+); plain quotient calls on CUDA "
                             r"tensors: (\d+)")
-_CLI_CONSTRAINTS = re.compile(r"constraint kernel launches: composition (\d+), logup (\d+), "
-                              r"scan (\d+); plain constraint calls on CUDA tensors: (\d+)")
+_CLI_CONSTRAINTS = re.compile(r"constraint kernel launches: composition (\d+), interaction "
+                              r"(\d+), logup (\d+), scan (\d+); plain constraint calls on CUDA "
+                              r"tensors: (\d+)")
 
 
 def _distributed_cli(world: int, backend: str, torchrun: bool = False,
@@ -1944,9 +2074,9 @@ def _distributed_cli(world: int, backend: str, torchrun: bool = False,
                                  f"{written} proofs written in the logs")
         ranks = [{"prove_s": t, **_rank_counts(
                      i, {"fft": int(c[0]), **dict(zip(("tree", "level", "grind"), map(int, h[:3]))),
-                         "quotients": int(q[0]), "composition": int(k[0]), "logup": int(k[1]),
-                         "scan": int(k[2])},
-                     int(c[1]), int(h[3]), int(q[1]), int(k[3]),
+                         "quotients": int(q[0]), "composition": int(k[0]),
+                         "interaction": int(k[1]), "logup": int(k[2]), "scan": int(k[3])},
+                     int(c[1]), int(h[3]), int(q[1]), int(k[4]),
                      grind=bool(pow_bits and pow_bits > 13))}
                  for i, (c, h, q, k, t) in enumerate(zip(counts, hashes, quots, cons, times))]
         files = sorted(os.listdir(tmp))
@@ -2336,7 +2466,7 @@ def main(argv) -> int:
     _reset_counts()
     phase_small("sharded_small", ("--devices", "8"))
     phase_small("sharded_small_pow16", ("--devices", "8", "--pow-bits", "16"), "small_pow16")
-    for shards in (2, 4):
+    for shards in MESH_SHARDS:
         phase_program("fib19_io", os.path.join(ROOT, "programs", "fib19_io.bf"), FIB_INPUT,
                       runs=2, expect_sha=REFERENCE_SHA256["fib19_io"], n_shards=shards)
     sharded = _require_here(_counts(), "the mesh prover", grind=True)
@@ -2432,28 +2562,38 @@ def main(argv) -> int:
         "plain_ms": quot_times["plain_ms"], "bound_ms": quot_times["bound_ms"],
         "bound_by": quot_times["bound_by"], "library_ms": None,
     })
-    for family, replaces in (
-            ("composition", "stwo_brainfuck_tpu/framework/component.py:520 (_constraints_fn)"),
+    # each constraint kernel's own path: the one-device prover runs the
+    # composition and interaction kernels; the logup kernel and the scan run
+    # on the mesh's and the processes' shards
+    for family, replaces, source, own in (
+            ("composition", "stwo_brainfuck_tpu/framework/component.py:520 (_constraints_fn)",
+             "constraints.cu", "prover"),
+            ("interaction", "stwo_brainfuck_tpu/framework/component.py:372 "
+                            "(_build_interaction_fn)", "constraints.cu", "prover"),
             ("logup", "stwo_brainfuck_tpu/framework/component.py:372 (_build_interaction_fn, "
-                      "the fractions)"),
-            ("scan", SCAN_REPLACES)):
+                      "the fractions)", "constraints.cu", "sharded_prover"),
+            ("scan", SCAN_REPLACES, "logup_scan.cu", "sharded_prover")):
         default = [k for k in cons["times"] if k.startswith(f"fib19_io {family} ")]
         head = max(default, key=lambda k: (cons["times"][k]["rows"], cons["times"][k]["bound_ms"]))
         t = cons["times"][head]
+        by_path = {"prover": main_path[family], "sharded_prover": sharded[family],
+                   "distributed_prover": distributed[family],
+                   "production": production["launches"][family], "bench": bench_path[family]}
         kernels.append({
             "name": "logup_scan" if family == "scan" else f"constraints_{family}",
-            "route": "cuda",
-            "source": "stwo_brainfuck_tpu_torch/csrc/" + (
-                "logup_scan.cu" if family == "scan" else "constraints.cu"),
-            "replaces": replaces, "shape": head, "launches": main_path[family],
-            "launches_by_path": {"prover": main_path[family], "sharded_prover": sharded[family],
-                                 "distributed_prover": distributed[family],
-                                 "production": production["launches"][family],
-                                 "bench": bench_path[family]},
+            "route": "cuda", "source": "stwo_brainfuck_tpu_torch/csrc/" + source,
+            "replaces": replaces, "shape": head, "launches": by_path[own],
+            "launches_path": own, "launches_by_path": by_path,
             "max_abs_err": cons["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t.get("library_ms"),
+            **{k: t[k] for k in ("pair_ms", "mode") if k in t},
         })
+    if main_path["logup"] or main_path["scan"] or not (sharded["logup"] and sharded["scan"]
+                                                       and distributed["logup"]
+                                                       and distributed["scan"]):
+        raise AssertionError(f"logup and scan launches: main path {main_path}, mesh {sharded}, "
+                             f"processes {distributed}")
     if not all(k["launches"] > 0 for k in kernels):
         raise AssertionError(f"a kernel was not launched on its path: {kernels}")
     print(card)

@@ -147,9 +147,9 @@ def cmd_prove(args) -> int:
     log.info("Quotient kernel launches: %d; plain quotient calls on CUDA tensors: %d",
              quotient_kernels.KERNEL.launches, quotients.PLAIN_CUDA_CALLS)
     cons = constraint_kernels.KERNELS.launches
-    log.info("constraint kernel launches: composition %d, logup %d, scan %d; plain constraint "
-             "calls on CUDA tensors: %d", cons["composition"], cons["logup"], cons["scan"],
-             framework.PLAIN_CUDA_CALLS)
+    log.info("constraint kernel launches: composition %d, interaction %d, logup %d, scan %d; "
+             "plain constraint calls on CUDA tensors: %d", cons["composition"],
+             cons["interaction"], cons["logup"], cons["scan"], framework.PLAIN_CUDA_CALLS)
     if not coordinator:
         return 0  # the proof is the same in every process; process 0 writes it
 

@@ -5,10 +5,12 @@
 //
 // The constraint kernels of the 13 components for Hopper (sm_90a): the
 // bodies below, one struct a component, plug into the hand-written
-// skeleton csrc/constraint_kernel.cuh (one thread a row, the loads, the
-// vanishing inverse, the weighted accumulation, the stores). Each body is
-// the component's recorded constraint program (framework/component.py
-// ConstraintProgram), one statement an op.
+// skeletons csrc/constraint_kernel.cuh (composition: one thread a row, the
+// loads, the vanishing inverse, the weighted accumulation, the stores;
+// logup and interaction: the batched inversion between the denominators
+// and the fractions) and csrc/logup_scan.cuh (interaction: the coset
+// scan). Each body is the component's recorded constraint program
+// (framework/component.py ConstraintProgram), one statement an op.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -83,16 +85,23 @@ struct MemoryComponent {
     return acc;
   }
 
-  // Q_k = num_k * den_k^-1 of each relation at one row
-  __device__ __forceinline__ static void logup(const Row& r, Qm* q) {
+  // den_k of each relation at one row
+  template <class R>
+  __device__ __forceinline__ static void denominators(const R& r, Qm* den) {
     const uint32_t v4 = r.col(0);
     const uint32_t v5 = r.col(1);
     const uint32_t v6 = r.col(2);
+    const Qm v32 = qm31::qm_combine<3>(r.consts, 0, {v4, v5, v6}, 12);
+    den[0] = v32;
+  }
+
+  // Q_k = num_k * inv[k] of each relation at one row, inv[k] = den_k^-1
+  template <class R>
+  __device__ __forceinline__ static void fractions(const R& r, const Qm* inv, Qm* q) {
     const uint32_t v7 = r.col(3);
     const uint32_t v17 = 1u;
     const uint32_t v18 = m31::sub(v7, v17);
-    const Qm v32 = qm31::qm_sub(qm31::qm_add(qm31::qm_add(qm31::qm_mul_m31(r.konst(0), v4), qm31::qm_mul_m31(r.konst(4), v5)), qm31::qm_mul_m31(r.konst(8), v6)), r.konst(12));
-    const Qm v39 = qm31::qm_inv(v32);
+    const Qm v39 = inv[0];
     const Qm v40 = qm31::qm_mul_m31(v39, v18);
     q[0] = v40;
   }
@@ -158,16 +167,23 @@ struct InstructionComponent {
     return acc;
   }
 
-  // Q_k = num_k * den_k^-1 of each relation at one row
-  __device__ __forceinline__ static void logup(const Row& r, Qm* q) {
+  // den_k of each relation at one row
+  template <class R>
+  __device__ __forceinline__ static void denominators(const R& r, Qm* den) {
     const uint32_t v4 = r.col(0);
     const uint32_t v5 = r.col(1);
     const uint32_t v6 = r.col(2);
+    const Qm v30 = qm31::qm_combine<3>(r.consts, 16, {v4, v5, v6}, 28);
+    den[0] = v30;
+  }
+
+  // Q_k = num_k * inv[k] of each relation at one row, inv[k] = den_k^-1
+  template <class R>
+  __device__ __forceinline__ static void fractions(const R& r, const Qm* inv, Qm* q) {
     const uint32_t v7 = r.col(3);
     const uint32_t v14 = 1u;
     const uint32_t v15 = m31::sub(v7, v14);
-    const Qm v30 = qm31::qm_sub(qm31::qm_add(qm31::qm_add(qm31::qm_mul_m31(r.konst(16), v4), qm31::qm_mul_m31(r.konst(20), v5)), qm31::qm_mul_m31(r.konst(24), v6)), r.konst(28));
-    const Qm v37 = qm31::qm_inv(v30);
+    const Qm v37 = inv[0];
     const Qm v38 = qm31::qm_mul_m31(v37, v15);
     q[0] = v38;
   }
@@ -213,16 +229,23 @@ struct ProgramComponent {
     return acc;
   }
 
-  // Q_k = num_k * den_k^-1 of each relation at one row
-  __device__ __forceinline__ static void logup(const Row& r, Qm* q) {
+  // den_k of each relation at one row
+  template <class R>
+  __device__ __forceinline__ static void denominators(const R& r, Qm* den) {
     const uint32_t v4 = r.col(0);
     const uint32_t v5 = r.col(1);
     const uint32_t v6 = r.col(2);
+    const Qm v16 = qm31::qm_combine<3>(r.consts, 16, {v4, v5, v6}, 28);
+    den[0] = v16;
+  }
+
+  // Q_k = num_k * inv[k] of each relation at one row, inv[k] = den_k^-1
+  template <class R>
+  __device__ __forceinline__ static void fractions(const R& r, const Qm* inv, Qm* q) {
     const uint32_t v7 = r.col(3);
     const uint32_t v10 = 1u;
     const uint32_t v15 = m31::sub(v10, v7);
-    const Qm v16 = qm31::qm_sub(qm31::qm_add(qm31::qm_add(qm31::qm_mul_m31(r.konst(16), v4), qm31::qm_mul_m31(r.konst(20), v5)), qm31::qm_mul_m31(r.konst(24), v6)), r.konst(28));
-    const Qm v23 = qm31::qm_inv(v16);
+    const Qm v23 = inv[0];
     const Qm v24 = qm31::qm_mul_m31(v23, v15);
     q[0] = v24;
   }
@@ -293,8 +316,9 @@ struct ProcessorComponent {
     return acc;
   }
 
-  // Q_k = num_k * den_k^-1 of each relation at one row
-  __device__ __forceinline__ static void logup(const Row& r, Qm* q) {
+  // den_k of each relation at one row
+  template <class R>
+  __device__ __forceinline__ static void denominators(const R& r, Qm* den) {
     const uint32_t v6 = r.col(0);
     const uint32_t v7 = r.col(1);
     const uint32_t v8 = r.col(2);
@@ -302,17 +326,25 @@ struct ProcessorComponent {
     const uint32_t v10 = r.col(4);
     const uint32_t v11 = r.col(5);
     const uint32_t v12 = r.col(6);
+    const Qm v28 = qm31::qm_combine<7>(r.consts, 32, {v6, v7, v8, v9, v10, v11, v12}, 60);
+    const Qm v31 = qm31::qm_combine<3>(r.consts, 16, {v7, v8, v9}, 28);
+    const Qm v35 = qm31::qm_combine<3>(r.consts, 0, {v6, v10, v11}, 12);
+    den[0] = v28;
+    den[1] = v31;
+    den[2] = v35;
+  }
+
+  // Q_k = num_k * inv[k] of each relation at one row, inv[k] = den_k^-1
+  template <class R>
+  __device__ __forceinline__ static void fractions(const R& r, const Qm* inv, Qm* q) {
     const uint32_t v13 = r.col(7);
     const uint32_t v21 = 1u;
     const uint32_t v27 = m31::sub(v21, v13);
-    const Qm v28 = qm31::qm_sub(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_mul_m31(r.konst(32), v6), qm31::qm_mul_m31(r.konst(36), v7)), qm31::qm_mul_m31(r.konst(40), v8)), qm31::qm_mul_m31(r.konst(44), v9)), qm31::qm_mul_m31(r.konst(48), v10)), qm31::qm_mul_m31(r.konst(52), v11)), qm31::qm_mul_m31(r.konst(56), v12)), r.konst(60));
-    const Qm v31 = qm31::qm_sub(qm31::qm_add(qm31::qm_add(qm31::qm_mul_m31(r.konst(16), v7), qm31::qm_mul_m31(r.konst(20), v8)), qm31::qm_mul_m31(r.konst(24), v9)), r.konst(28));
-    const Qm v35 = qm31::qm_sub(qm31::qm_add(qm31::qm_add(qm31::qm_mul_m31(r.konst(0), v6), qm31::qm_mul_m31(r.konst(4), v10)), qm31::qm_mul_m31(r.konst(8), v11)), r.konst(12));
-    const Qm v43 = qm31::qm_inv(v28);
+    const Qm v43 = inv[0];
     const Qm v44 = qm31::qm_mul_m31(v43, v27);
-    const Qm v45 = qm31::qm_inv(v31);
+    const Qm v45 = inv[1];
     const Qm v46 = qm31::qm_mul_m31(v45, v27);
-    const Qm v47 = qm31::qm_inv(v35);
+    const Qm v47 = inv[2];
     const Qm v48 = qm31::qm_mul_m31(v47, v27);
     q[0] = v44;
     q[1] = v46;
@@ -386,20 +418,27 @@ struct JumpIfNotZeroComponent {
     return acc;
   }
 
-  // Q_k = num_k * den_k^-1 of each relation at one row
-  __device__ __forceinline__ static void logup(const Row& r, Qm* q) {
+  // den_k of each relation at one row
+  template <class R>
+  __device__ __forceinline__ static void denominators(const R& r, Qm* den) {
     const uint32_t v4 = r.col(0);
     const uint32_t v5 = r.col(2);
-    const uint32_t v6 = r.col(11);
     const uint32_t v7 = r.col(5);
-    const uint32_t v13 = 1u;
-    const uint32_t v15 = m31::sub(v6, v13);
     const uint32_t v20 = r.col(1);
     const uint32_t v21 = r.col(3);
     const uint32_t v32 = r.col(4);
     const uint32_t v36 = r.col(6);
-    const Qm v37 = qm31::qm_sub(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_mul_m31(r.konst(32), v4), qm31::qm_mul_m31(r.konst(36), v20)), qm31::qm_mul_m31(r.konst(40), v5)), qm31::qm_mul_m31(r.konst(44), v21)), qm31::qm_mul_m31(r.konst(48), v32)), qm31::qm_mul_m31(r.konst(52), v7)), qm31::qm_mul_m31(r.konst(56), v36)), r.konst(60));
-    const Qm v45 = qm31::qm_inv(v37);
+    const Qm v37 = qm31::qm_combine<7>(r.consts, 32, {v4, v20, v5, v21, v32, v7, v36}, 60);
+    den[0] = v37;
+  }
+
+  // Q_k = num_k * inv[k] of each relation at one row, inv[k] = den_k^-1
+  template <class R>
+  __device__ __forceinline__ static void fractions(const R& r, const Qm* inv, Qm* q) {
+    const uint32_t v6 = r.col(11);
+    const uint32_t v13 = 1u;
+    const uint32_t v15 = m31::sub(v6, v13);
+    const Qm v45 = inv[0];
     const Qm v46 = qm31::qm_mul_m31(v45, v15);
     q[0] = v46;
   }
@@ -472,20 +511,27 @@ struct JumpIfZeroComponent {
     return acc;
   }
 
-  // Q_k = num_k * den_k^-1 of each relation at one row
-  __device__ __forceinline__ static void logup(const Row& r, Qm* q) {
+  // den_k of each relation at one row
+  template <class R>
+  __device__ __forceinline__ static void denominators(const R& r, Qm* den) {
     const uint32_t v4 = r.col(0);
     const uint32_t v5 = r.col(2);
-    const uint32_t v6 = r.col(11);
     const uint32_t v7 = r.col(5);
-    const uint32_t v13 = 1u;
-    const uint32_t v15 = m31::sub(v6, v13);
     const uint32_t v20 = r.col(1);
     const uint32_t v21 = r.col(3);
     const uint32_t v33 = r.col(4);
     const uint32_t v37 = r.col(6);
-    const Qm v38 = qm31::qm_sub(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_mul_m31(r.konst(32), v4), qm31::qm_mul_m31(r.konst(36), v20)), qm31::qm_mul_m31(r.konst(40), v5)), qm31::qm_mul_m31(r.konst(44), v21)), qm31::qm_mul_m31(r.konst(48), v33)), qm31::qm_mul_m31(r.konst(52), v7)), qm31::qm_mul_m31(r.konst(56), v37)), r.konst(60));
-    const Qm v46 = qm31::qm_inv(v38);
+    const Qm v38 = qm31::qm_combine<7>(r.consts, 32, {v4, v20, v5, v21, v33, v7, v37}, 60);
+    den[0] = v38;
+  }
+
+  // Q_k = num_k * inv[k] of each relation at one row, inv[k] = den_k^-1
+  template <class R>
+  __device__ __forceinline__ static void fractions(const R& r, const Qm* inv, Qm* q) {
+    const uint32_t v6 = r.col(11);
+    const uint32_t v13 = 1u;
+    const uint32_t v15 = m31::sub(v6, v13);
+    const Qm v46 = inv[0];
     const Qm v47 = qm31::qm_mul_m31(v46, v15);
     q[0] = v47;
   }
@@ -545,20 +591,27 @@ struct InputComponent {
     return acc;
   }
 
-  // Q_k = num_k * den_k^-1 of each relation at one row
-  __device__ __forceinline__ static void logup(const Row& r, Qm* q) {
+  // den_k of each relation at one row
+  template <class R>
+  __device__ __forceinline__ static void denominators(const R& r, Qm* den) {
     const uint32_t v4 = r.col(2);
-    const uint32_t v5 = r.col(7);
     const uint32_t v6 = r.col(5);
     const uint32_t v7 = r.col(1);
-    const uint32_t v12 = 1u;
-    const uint32_t v13 = m31::sub(v5, v12);
     const uint32_t v22 = r.col(4);
     const uint32_t v24 = r.col(0);
     const uint32_t v25 = r.col(3);
     const uint32_t v26 = r.col(6);
-    const Qm v27 = qm31::qm_sub(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_mul_m31(r.konst(32), v24), qm31::qm_mul_m31(r.konst(36), v7)), qm31::qm_mul_m31(r.konst(40), v4)), qm31::qm_mul_m31(r.konst(44), v25)), qm31::qm_mul_m31(r.konst(48), v22)), qm31::qm_mul_m31(r.konst(52), v6)), qm31::qm_mul_m31(r.konst(56), v26)), r.konst(60));
-    const Qm v35 = qm31::qm_inv(v27);
+    const Qm v27 = qm31::qm_combine<7>(r.consts, 32, {v24, v7, v4, v25, v22, v6, v26}, 60);
+    den[0] = v27;
+  }
+
+  // Q_k = num_k * inv[k] of each relation at one row, inv[k] = den_k^-1
+  template <class R>
+  __device__ __forceinline__ static void fractions(const R& r, const Qm* inv, Qm* q) {
+    const uint32_t v5 = r.col(7);
+    const uint32_t v12 = 1u;
+    const uint32_t v13 = m31::sub(v5, v12);
+    const Qm v35 = inv[0];
     const Qm v36 = qm31::qm_mul_m31(v35, v13);
     q[0] = v36;
   }
@@ -620,20 +673,27 @@ struct LeftComponent {
     return acc;
   }
 
-  // Q_k = num_k * den_k^-1 of each relation at one row
-  __device__ __forceinline__ static void logup(const Row& r, Qm* q) {
+  // den_k of each relation at one row
+  template <class R>
+  __device__ __forceinline__ static void denominators(const R& r, Qm* den) {
     const uint32_t v4 = r.col(2);
-    const uint32_t v5 = r.col(7);
     const uint32_t v6 = r.col(5);
     const uint32_t v7 = r.col(1);
-    const uint32_t v12 = 1u;
-    const uint32_t v13 = m31::sub(v5, v12);
     const uint32_t v22 = r.col(4);
     const uint32_t v26 = r.col(0);
     const uint32_t v27 = r.col(3);
     const uint32_t v28 = r.col(6);
-    const Qm v29 = qm31::qm_sub(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_mul_m31(r.konst(32), v26), qm31::qm_mul_m31(r.konst(36), v7)), qm31::qm_mul_m31(r.konst(40), v4)), qm31::qm_mul_m31(r.konst(44), v27)), qm31::qm_mul_m31(r.konst(48), v22)), qm31::qm_mul_m31(r.konst(52), v6)), qm31::qm_mul_m31(r.konst(56), v28)), r.konst(60));
-    const Qm v37 = qm31::qm_inv(v29);
+    const Qm v29 = qm31::qm_combine<7>(r.consts, 32, {v26, v7, v4, v27, v22, v6, v28}, 60);
+    den[0] = v29;
+  }
+
+  // Q_k = num_k * inv[k] of each relation at one row, inv[k] = den_k^-1
+  template <class R>
+  __device__ __forceinline__ static void fractions(const R& r, const Qm* inv, Qm* q) {
+    const uint32_t v5 = r.col(7);
+    const uint32_t v12 = 1u;
+    const uint32_t v13 = m31::sub(v5, v12);
+    const Qm v37 = inv[0];
     const Qm v38 = qm31::qm_mul_m31(v37, v13);
     q[0] = v38;
   }
@@ -698,20 +758,27 @@ struct MinusComponent {
     return acc;
   }
 
-  // Q_k = num_k * den_k^-1 of each relation at one row
-  __device__ __forceinline__ static void logup(const Row& r, Qm* q) {
+  // den_k of each relation at one row
+  template <class R>
+  __device__ __forceinline__ static void denominators(const R& r, Qm* den) {
     const uint32_t v4 = r.col(2);
-    const uint32_t v5 = r.col(7);
     const uint32_t v6 = r.col(5);
     const uint32_t v7 = r.col(1);
-    const uint32_t v12 = 1u;
-    const uint32_t v13 = m31::sub(v5, v12);
     const uint32_t v22 = r.col(4);
     const uint32_t v28 = r.col(0);
     const uint32_t v29 = r.col(3);
     const uint32_t v30 = r.col(6);
-    const Qm v31 = qm31::qm_sub(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_mul_m31(r.konst(32), v28), qm31::qm_mul_m31(r.konst(36), v7)), qm31::qm_mul_m31(r.konst(40), v4)), qm31::qm_mul_m31(r.konst(44), v29)), qm31::qm_mul_m31(r.konst(48), v22)), qm31::qm_mul_m31(r.konst(52), v6)), qm31::qm_mul_m31(r.konst(56), v30)), r.konst(60));
-    const Qm v39 = qm31::qm_inv(v31);
+    const Qm v31 = qm31::qm_combine<7>(r.consts, 32, {v28, v7, v4, v29, v22, v6, v30}, 60);
+    den[0] = v31;
+  }
+
+  // Q_k = num_k * inv[k] of each relation at one row, inv[k] = den_k^-1
+  template <class R>
+  __device__ __forceinline__ static void fractions(const R& r, const Qm* inv, Qm* q) {
+    const uint32_t v5 = r.col(7);
+    const uint32_t v12 = 1u;
+    const uint32_t v13 = m31::sub(v5, v12);
+    const Qm v39 = inv[0];
     const Qm v40 = qm31::qm_mul_m31(v39, v13);
     q[0] = v40;
   }
@@ -774,20 +841,27 @@ struct OutputComponent {
     return acc;
   }
 
-  // Q_k = num_k * den_k^-1 of each relation at one row
-  __device__ __forceinline__ static void logup(const Row& r, Qm* q) {
+  // den_k of each relation at one row
+  template <class R>
+  __device__ __forceinline__ static void denominators(const R& r, Qm* den) {
     const uint32_t v4 = r.col(2);
-    const uint32_t v5 = r.col(7);
     const uint32_t v6 = r.col(5);
     const uint32_t v7 = r.col(1);
-    const uint32_t v12 = 1u;
-    const uint32_t v13 = m31::sub(v5, v12);
     const uint32_t v22 = r.col(4);
     const uint32_t v26 = r.col(0);
     const uint32_t v27 = r.col(3);
     const uint32_t v28 = r.col(6);
-    const Qm v29 = qm31::qm_sub(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_mul_m31(r.konst(32), v26), qm31::qm_mul_m31(r.konst(36), v7)), qm31::qm_mul_m31(r.konst(40), v4)), qm31::qm_mul_m31(r.konst(44), v27)), qm31::qm_mul_m31(r.konst(48), v22)), qm31::qm_mul_m31(r.konst(52), v6)), qm31::qm_mul_m31(r.konst(56), v28)), r.konst(60));
-    const Qm v37 = qm31::qm_inv(v29);
+    const Qm v29 = qm31::qm_combine<7>(r.consts, 32, {v26, v7, v4, v27, v22, v6, v28}, 60);
+    den[0] = v29;
+  }
+
+  // Q_k = num_k * inv[k] of each relation at one row, inv[k] = den_k^-1
+  template <class R>
+  __device__ __forceinline__ static void fractions(const R& r, const Qm* inv, Qm* q) {
+    const uint32_t v5 = r.col(7);
+    const uint32_t v12 = 1u;
+    const uint32_t v13 = m31::sub(v5, v12);
+    const Qm v37 = inv[0];
     const Qm v38 = qm31::qm_mul_m31(v37, v13);
     q[0] = v38;
   }
@@ -852,20 +926,27 @@ struct PlusComponent {
     return acc;
   }
 
-  // Q_k = num_k * den_k^-1 of each relation at one row
-  __device__ __forceinline__ static void logup(const Row& r, Qm* q) {
+  // den_k of each relation at one row
+  template <class R>
+  __device__ __forceinline__ static void denominators(const R& r, Qm* den) {
     const uint32_t v4 = r.col(2);
-    const uint32_t v5 = r.col(7);
     const uint32_t v6 = r.col(5);
     const uint32_t v7 = r.col(1);
-    const uint32_t v12 = 1u;
-    const uint32_t v13 = m31::sub(v5, v12);
     const uint32_t v22 = r.col(4);
     const uint32_t v28 = r.col(0);
     const uint32_t v29 = r.col(3);
     const uint32_t v30 = r.col(6);
-    const Qm v31 = qm31::qm_sub(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_mul_m31(r.konst(32), v28), qm31::qm_mul_m31(r.konst(36), v7)), qm31::qm_mul_m31(r.konst(40), v4)), qm31::qm_mul_m31(r.konst(44), v29)), qm31::qm_mul_m31(r.konst(48), v22)), qm31::qm_mul_m31(r.konst(52), v6)), qm31::qm_mul_m31(r.konst(56), v30)), r.konst(60));
-    const Qm v39 = qm31::qm_inv(v31);
+    const Qm v31 = qm31::qm_combine<7>(r.consts, 32, {v28, v7, v4, v29, v22, v6, v30}, 60);
+    den[0] = v31;
+  }
+
+  // Q_k = num_k * inv[k] of each relation at one row, inv[k] = den_k^-1
+  template <class R>
+  __device__ __forceinline__ static void fractions(const R& r, const Qm* inv, Qm* q) {
+    const uint32_t v5 = r.col(7);
+    const uint32_t v12 = 1u;
+    const uint32_t v13 = m31::sub(v5, v12);
+    const Qm v39 = inv[0];
     const Qm v40 = qm31::qm_mul_m31(v39, v13);
     q[0] = v40;
   }
@@ -927,20 +1008,27 @@ struct RightComponent {
     return acc;
   }
 
-  // Q_k = num_k * den_k^-1 of each relation at one row
-  __device__ __forceinline__ static void logup(const Row& r, Qm* q) {
+  // den_k of each relation at one row
+  template <class R>
+  __device__ __forceinline__ static void denominators(const R& r, Qm* den) {
     const uint32_t v4 = r.col(2);
-    const uint32_t v5 = r.col(7);
     const uint32_t v6 = r.col(5);
     const uint32_t v7 = r.col(1);
-    const uint32_t v12 = 1u;
-    const uint32_t v13 = m31::sub(v5, v12);
     const uint32_t v22 = r.col(4);
     const uint32_t v26 = r.col(0);
     const uint32_t v27 = r.col(3);
     const uint32_t v28 = r.col(6);
-    const Qm v29 = qm31::qm_sub(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_mul_m31(r.konst(32), v26), qm31::qm_mul_m31(r.konst(36), v7)), qm31::qm_mul_m31(r.konst(40), v4)), qm31::qm_mul_m31(r.konst(44), v27)), qm31::qm_mul_m31(r.konst(48), v22)), qm31::qm_mul_m31(r.konst(52), v6)), qm31::qm_mul_m31(r.konst(56), v28)), r.konst(60));
-    const Qm v37 = qm31::qm_inv(v29);
+    const Qm v29 = qm31::qm_combine<7>(r.consts, 32, {v26, v7, v4, v27, v22, v6, v28}, 60);
+    den[0] = v29;
+  }
+
+  // Q_k = num_k * inv[k] of each relation at one row, inv[k] = den_k^-1
+  template <class R>
+  __device__ __forceinline__ static void fractions(const R& r, const Qm* inv, Qm* q) {
+    const uint32_t v5 = r.col(7);
+    const uint32_t v12 = 1u;
+    const uint32_t v13 = m31::sub(v5, v12);
+    const Qm v37 = inv[0];
     const Qm v38 = qm31::qm_mul_m31(v37, v13);
     q[0] = v38;
   }
@@ -981,20 +1069,27 @@ struct EndOfExecutionComponent {
     return acc;
   }
 
-  // Q_k = num_k * den_k^-1 of each relation at one row
-  __device__ __forceinline__ static void logup(const Row& r, Qm* q) {
+  // den_k of each relation at one row
+  template <class R>
+  __device__ __forceinline__ static void denominators(const R& r, Qm* den) {
     const uint32_t v4 = r.col(2);
-    const uint32_t v5 = r.col(7);
-    const uint32_t v6 = 0u;
-    const uint32_t v7 = m31::sub(v6, v5);
     const uint32_t v8 = r.col(0);
     const uint32_t v9 = r.col(1);
     const uint32_t v10 = r.col(3);
     const uint32_t v11 = r.col(4);
     const uint32_t v12 = r.col(5);
     const uint32_t v13 = r.col(6);
-    const Qm v14 = qm31::qm_sub(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_mul_m31(r.konst(32), v8), qm31::qm_mul_m31(r.konst(36), v9)), qm31::qm_mul_m31(r.konst(40), v4)), qm31::qm_mul_m31(r.konst(44), v10)), qm31::qm_mul_m31(r.konst(48), v11)), qm31::qm_mul_m31(r.konst(52), v12)), qm31::qm_mul_m31(r.konst(56), v13)), r.konst(60));
-    const Qm v21 = qm31::qm_inv(v14);
+    const Qm v14 = qm31::qm_combine<7>(r.consts, 32, {v8, v9, v4, v10, v11, v12, v13}, 60);
+    den[0] = v14;
+  }
+
+  // Q_k = num_k * inv[k] of each relation at one row, inv[k] = den_k^-1
+  template <class R>
+  __device__ __forceinline__ static void fractions(const R& r, const Qm* inv, Qm* q) {
+    const uint32_t v5 = r.is_first();
+    const uint32_t v6 = 0u;
+    const uint32_t v7 = m31::sub(v6, v5);
+    const Qm v21 = inv[0];
     const Qm v22 = qm31::qm_mul_m31(v21, v7);
     q[0] = v22;
   }
@@ -1088,6 +1183,54 @@ extern "C" int constraints_logup(int id, const void* table, int n_ptrs, int n_wo
     case 10: return logup_entry<PlusComponent>(ARGS);
     case 11: return logup_entry<RightComponent>(ARGS);
     case 12: return logup_entry<EndOfExecutionComponent>(ARGS);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+#undef ARGS
+
+// out: col_log, row_log, tile_rows, tiles, rows_per_warp, on_chip of an
+// interaction launch of 2^log_n rows on the current device, and the
+// resident tiles it was planned for.
+extern "C" int constraints_interaction_geometry(int id, int log_n, int* out) {
+  switch (id) {
+    case 0: return interaction_geometry_of<MemoryComponent>(log_n, out);
+    case 1: return interaction_geometry_of<InstructionComponent>(log_n, out);
+    case 2: return interaction_geometry_of<ProgramComponent>(log_n, out);
+    case 3: return interaction_geometry_of<ProcessorComponent>(log_n, out);
+    case 4: return interaction_geometry_of<JumpIfNotZeroComponent>(log_n, out);
+    case 5: return interaction_geometry_of<JumpIfZeroComponent>(log_n, out);
+    case 6: return interaction_geometry_of<InputComponent>(log_n, out);
+    case 7: return interaction_geometry_of<LeftComponent>(log_n, out);
+    case 8: return interaction_geometry_of<MinusComponent>(log_n, out);
+    case 9: return interaction_geometry_of<OutputComponent>(log_n, out);
+    case 10: return interaction_geometry_of<PlusComponent>(log_n, out);
+    case 11: return interaction_geometry_of<RightComponent>(log_n, out);
+    case 12: return interaction_geometry_of<EndOfExecutionComponent>(log_n, out);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The first n words of the interaction launches' head on the current device.
+extern "C" int constraints_head(uint32_t* out, int n) { return logup_scan::head_words(out, n); }
+
+#define ARGS table, n_ptrs, n_words, log_n, q, s, claimed, work, sums, stream
+extern "C" int constraints_interaction(int id, const void* table, int n_ptrs, int n_words,
+                                       int log_n, void* q, void* s, void* claimed, void* work,
+                                       void* sums, void* stream) {
+  switch (id) {
+    case 0: return interaction_entry<MemoryComponent>(ARGS);
+    case 1: return interaction_entry<InstructionComponent>(ARGS);
+    case 2: return interaction_entry<ProgramComponent>(ARGS);
+    case 3: return interaction_entry<ProcessorComponent>(ARGS);
+    case 4: return interaction_entry<JumpIfNotZeroComponent>(ARGS);
+    case 5: return interaction_entry<JumpIfZeroComponent>(ARGS);
+    case 6: return interaction_entry<InputComponent>(ARGS);
+    case 7: return interaction_entry<LeftComponent>(ARGS);
+    case 8: return interaction_entry<MinusComponent>(ARGS);
+    case 9: return interaction_entry<OutputComponent>(ARGS);
+    case 10: return interaction_entry<PlusComponent>(ARGS);
+    case 11: return interaction_entry<RightComponent>(ARGS);
+    case 12: return interaction_entry<EndOfExecutionComponent>(ARGS);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -65,6 +65,30 @@ __device__ __forceinline__ Qm qm_mul_m31(Qm x, uint32_t s) {
   return {P::mul(x.a, s), P::mul(x.b, s), P::mul(x.c, s), P::mul(x.d, s)};
 }
 
+// A LogUp denominator sum_j alpha_j v_j - z: alpha_j the QM31 words at
+// consts[alpha + 4 j], z at consts[z], v_j M31 values. Each coordinate is
+// one 64-bit sum of products (m31::mac, one IMAD.WIDE a term) reduced once
+// every four terms (m31::reduce64: four products of canonical operands and
+// a canonical addend stay below 2^64); exact mod p, so the same words as a
+// product-by-product reduction.
+template <int N>
+__device__ __forceinline__ Qm qm_combine(const uint32_t* consts, int alpha, const uint32_t (&v)[N],
+                                         int z) {
+  uint32_t out[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const uint32_t zc = __ldg(consts + z + c);
+    uint64_t acc = zc ? m31::kP - zc : 0u;
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      acc = m31::mac(acc, __ldg(consts + alpha + 4 * j + c), v[j]);
+      if (j % 4 == 3 && j + 1 < N) acc = m31::reduce64(acc);
+    }
+    out[c] = m31::reduce64(acc);
+  }
+  return {out[0], out[1], out[2], out[3]};
+}
+
 // An M31 value as a QM31 one.
 __device__ __forceinline__ Qm qm_from_m31(uint32_t s) { return {s, 0u, 0u, 0u}; }
 
@@ -110,18 +134,33 @@ __device__ __forceinline__ void batch_inv(const uint32_t (&z)[K], uint32_t (&inv
 }
 
 // (A + Bu)^-1 = (A - Bu) / (A^2 - (2 + i) B^2), the CM31 denominator
-// inverted as conj / norm; 0 -> 0 (core/qm31.py inv).
-__device__ __forceinline__ Qm qm_inv(Qm x) {
+// inverted as conj / norm; 0 -> 0 (core/qm31.py inv). In two halves, so that
+// a kernel can invert the norms of many values with one m31_inv
+// (batch_inv): qm_inv_den gives the CM31 denominator d (its norm
+// cm_norm(d) = d.r^2 + d.i^2), qm_inv_from the inverse from the norm's
+// inverse (0 for a zero norm, which only x = 0 has). 20 products besides
+// the norm's inversion.
+__device__ __forceinline__ Cm qm_inv_den(Qm x) {
   const Cm a2 = cm_mul({x.a, x.b}, {x.a, x.b});
   const Cm b2 = cm_mul({x.c, x.d}, {x.c, x.d});
-  const Cm den = {m31::add(m31::sub(a2.r, m31::add(b2.r, b2.r)), b2.i),
-                  m31::sub(m31::sub(a2.i, b2.r), m31::add(b2.i, b2.i))};
-  const uint32_t norm = m31::add(m31::mul(den.r, den.r), m31::mul(den.i, den.i));
-  const uint32_t ninv = m31_inv(norm);
+  return {m31::add(m31::sub(a2.r, m31::add(b2.r, b2.r)), b2.i),
+          m31::sub(m31::sub(a2.i, b2.r), m31::add(b2.i, b2.i))};
+}
+
+__device__ __forceinline__ uint32_t cm_norm(Cm d) {
+  return m31::add(m31::mul(d.r, d.r), m31::mul(d.i, d.i));
+}
+
+__device__ __forceinline__ Qm qm_inv_from(Qm x, Cm den, uint32_t ninv) {
   const Cm di = {m31::mul(den.r, ninv), m31::mul(m31::sub(0u, den.i), ninv)};
   const Cm lo = cm_mul({x.a, x.b}, di);
   const Cm hi = cm_mul({m31::sub(0u, x.c), m31::sub(0u, x.d)}, di);
   return {lo.r, lo.i, hi.r, hi.i};
+}
+
+__device__ __forceinline__ Qm qm_inv(Qm x) {
+  const Cm den = qm_inv_den(x);
+  return qm_inv_from(x, den, m31_inv(cm_norm(den)));
 }
 
 __device__ __forceinline__ Qm load_qm(const uint32_t* w) {

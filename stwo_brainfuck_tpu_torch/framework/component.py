@@ -322,13 +322,23 @@ class ConstraintProgram:
     relations: Tuple[Tuple[str, int, Tuple[int, ...]], ...]
     fractions: Tuple[int, ...]
 
-    def live(self, outputs: Sequence[int]) -> List[int]:
-        """The ops that `outputs` need, in recorded order."""
-        need = set(outputs)
+    def live(self, outputs: Sequence[int], leaves: Sequence[int] = ()) -> List[int]:
+        """The ops that `outputs` need, in recorded order; the values in
+        `leaves` are given, so what only they need is not."""
+        need, given = set(outputs), set(leaves)
         for v in range(len(self.ops) - 1, -1, -1):
-            if v in need:
+            if v in need and v not in given:
                 need.update(_operands(self.ops[v]))
         return sorted(need)
+
+    def inversions(self) -> List[Tuple[int, int]]:
+        """(den_k, the "inv" op of den_k) of each relation k: the value ids
+        of the denominators the fractions invert."""
+        out = []
+        for elements, _, values in self.relations:
+            den = self.ops.index(("combine", elements, values))
+            out.append((den, self.ops.index(("inv", den))))
+        return out
 
 
 def _operands(op: tuple) -> Tuple[int, ...]:
@@ -432,22 +442,25 @@ def constraint_program(cls) -> ConstraintProgram:
         fractions=tuple(q.id for q in fractions))
 
 
-def emulate(program: ConstraintProgram, inputs: dict,
-            outputs: Sequence[int]) -> Dict[int, torch.Tensor]:
+def emulate(program: ConstraintProgram, inputs: dict, outputs: Sequence[int],
+            given: Optional[Dict[int, torch.Tensor]] = None) -> Dict[int, torch.Tensor]:
     """The values the kernels compute for `outputs` (value ids), every op
     they need run in recorded order with int64 torch ops on the inputs'
     device: M31 values (n,), QM31 values (4, n), canonical. inputs: "cols"
     (the main columns in program order), "is_first", "inter" (a (4, n)
     array or 4 rows an interaction column), "s_prev" ((4, n) or 4 rows),
     "claimed" (host QM31), "elements" (name -> LookupElements); only those
-    the outputs need are read."""
-    vals: Dict[int, torch.Tensor] = {}
+    the outputs need are read. `given`: values of some ops (value id ->
+    tensor), taken as they are, with nothing computed for them."""
+    vals: Dict[int, torch.Tensor] = dict(given or {})
     dev = _device(inputs)
 
     def qm_input(x) -> torch.Tensor:
         return (x if isinstance(x, torch.Tensor) else torch.stack(list(x))).to(torch.int64)
 
-    for v in program.live(outputs):
+    for v in program.live(outputs, list(vals)):
+        if v in vals:
+            continue
         op = program.ops[v]
         kind = op[0]
         if kind == "col":
@@ -522,9 +535,9 @@ def _device_elements(elements: Dict[str, LookupElements], device) -> Dict[str, d
 def logup_fractions(component: Component, main_cols: Dict[str, torch.Tensor],
                     is_first: torch.Tensor, elements: Dict[str, LookupElements]):
     """The LogUp fraction columns of the component's relations, pointwise
-    over whatever rows main_cols hold: ((K, 4, n) int32 Q_k, (4, n) sum of
-    the Q_k). On CUDA tensors one launch of the logup kernel
-    (ops/constraint_kernels.py), on the CPU logup_fractions_plain."""
+    over whatever rows main_cols hold (a mesh shard's): ((K, 4, n) int32
+    Q_k, (4, n) sum of the Q_k). On CUDA tensors one launch of the logup
+    kernel (ops/constraint_kernels.py), on the CPU logup_fractions_plain."""
     if is_first.is_cuda:
         from ..ops import constraint_kernels
 
@@ -600,15 +613,33 @@ def build_interaction_trace_async(
     ([(4, N) int32 QM31 tensors Q_0..Q_{K-1}, S], the claimed sum as a (4,)
     int32 tensor on the columns' device, so that a caller pulls every
     component's in one copy). S is the prefix sum of sum_k Q_k in coset
-    LINEAR order, scattered back to bit-reversed storage (prefix_sum). On
-    CUDA tensors a logup launch and a scan launch."""
+    LINEAR order, scattered back to bit-reversed storage. On CUDA tensors
+    one launch of the interaction kernel (ops/constraint_kernels.py), on the
+    CPU interaction_plain."""
+    dev = next(iter(main_cols.values())).device
+    if dev.type == "cuda":
+        from ..ops import constraint_kernels
+
+        q_cols, s, claimed = constraint_kernels.KERNELS.interaction(component, main_cols, elements)
+    else:
+        q_cols, s, claimed = interaction_plain(component, main_cols, elements)
+    return list(q_cols) + [s], claimed
+
+
+def interaction_plain(component: Component, main_cols: Dict[str, torch.Tensor],
+                      elements: Dict[str, LookupElements]
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """What the interaction kernel computes, on any device:
+    logup_fractions_plain (is_first 1 at storage row 0, the first point)
+    then prefix_sum_plain in coset order; ((K, 4, N) int32 Q_k, (4, N)
+    int32 S, (4,) int32 the claimed sum)."""
     dev = next(iter(main_cols.values())).device
     n = 1 << component.log_size
     is_first = torch.zeros(n, dtype=torch.int32, device=dev)
     is_first[0] = 1
-    q_cols, total = logup_fractions(component, main_cols, is_first, elements)
-    s, claimed = prefix_sum(total)
-    return list(q_cols) + [s], claimed
+    q_cols, total = logup_fractions_plain(component, main_cols, is_first, elements)
+    s, claimed = prefix_sum_plain(total, coset_order_permutation(component.log_size, dev))
+    return q_cols, s, claimed
 
 
 def build_interaction_trace(

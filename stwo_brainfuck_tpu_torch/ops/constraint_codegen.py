@@ -7,8 +7,10 @@ body of the hand-written constraint kernels (``csrc/constraint_kernel.cuh``).
 One definition drives everything: ``components/defs.py``'s
 ``define_constraints``, recorded once per class as a straight-line
 ``framework.component.ConstraintProgram``, becomes one struct per component
-with two ``__device__`` bodies, ``composition`` (the weighted sum of the
-constraints at one row) and ``logup`` (the relations' fractions Q_k), one
+with three ``__device__`` bodies, ``composition`` (the weighted sum of the
+constraints at one row), and the relations' fractions Q_k split in two so
+that the skeleton inverts many rows' denominators at once:
+``denominators`` (den_k) and ``fractions`` (Q_k from the inverses), one
 statement per op and every value a canonical ``uint32_t`` or ``Qm`` in
 registers. The generated file is committed, so a build needs only the
 sources in the repository; after editing ``components/defs.py`` run the
@@ -18,9 +20,10 @@ what this module emits).
 The launch's tables, as the bodies read them (``ops/constraint_kernels.py``
 packs them):
 
-- pointers: main column c at slot c, is_first at slot C; for composition
-  also interaction column k's coordinate rows at C + 1 + 4k .. + 3 and the
-  rows S(p - g) is read from at C + 1 + 4 (K + 1) .. + 3;
+- pointers: main column c at slot c, is_first at slot C (the interaction
+  launch has none: is_first is t == 0); for composition also interaction
+  column k's coordinate rows at C + 1 + 4k .. + 3 and the rows S(p - g) is
+  read from at C + 1 + 4 (K + 1) .. + 3;
 - constant words: the lookup elements, a set after another in
   ``ELEMENT_ORDER`` (alpha^0 .. alpha^(size - 1), then z; 4 words each),
   then the claimed sum at ``CLAIMED_WORD``, then the constraint weights
@@ -68,6 +71,10 @@ def logup_slots(program: ConstraintProgram) -> int:
     return len(program.columns) + 1
 
 
+def interaction_slots(program: ConstraintProgram) -> int:
+    return len(program.columns)
+
+
 # ---------------------------------------------------------------------------
 # Emission
 # ---------------------------------------------------------------------------
@@ -76,15 +83,17 @@ def _var(v: int) -> str:
     return f"v{v}"
 
 
-def _expr(program: ConstraintProgram, v: int) -> str:
-    """The C++ expression of value v's op."""
+def _expr(program: ConstraintProgram, v: int, row_first: bool = False) -> str:
+    """The C++ expression of value v's op (row_first: as the interaction
+    bodies read it, is_first the row type's own and a denominator one
+    qm31::qm_combine)."""
     op = program.ops[v]
     kind = op[0]
     n_cols = len(program.columns)
     if kind == "col":
         return f"r.col({op[1]})"
     if kind == "is_first":
-        return f"r.col({n_cols})"
+        return "r.is_first()" if row_first else f"r.col({n_cols})"
     if kind == "inter":
         return f"r.qcol({n_cols + 1 + 4 * op[1]})"
     if kind == "s_prev":
@@ -95,6 +104,10 @@ def _expr(program: ConstraintProgram, v: int) -> str:
         return f"{op[1]}u"
     if kind == "inv":
         return f"qm31::qm_inv({_var(op[1])})"
+    if kind == "combine" and row_first:
+        alpha, z = element_words()[op[1]]
+        vals = ", ".join(_var(x) for x in op[2])
+        return f"qm31::qm_combine<{len(op[2])}>(r.consts, {alpha}, {{{vals}}}, {z})"
     if kind == "combine":
         alpha, z = element_words()[op[1]]
         acc = None
@@ -116,11 +129,16 @@ def _expr(program: ConstraintProgram, v: int) -> str:
     return f"qm31::qm_{kind}({left}, {right})"
 
 
-def _statements(program: ConstraintProgram, outputs) -> List[str]:
+def _statements(program: ConstraintProgram, outputs, given: Dict[int, str] = None,
+                row_first: bool = False) -> List[str]:
+    """One statement a live op of `outputs`; the ops in `given` take the
+    expression given."""
+    given = given or {}
     lines = []
-    for v in program.live(outputs):
+    for v in program.live(outputs, list(given)):
         ty = "Qm" if program.qm[v] else "uint32_t"
-        lines.append(f"    const {ty} {_var(v)} = {_expr(program, v)};")
+        expr = given[v] if v in given else _expr(program, v, row_first)
+        lines.append(f"    const {ty} {_var(v)} = {expr};")
     return lines
 
 
@@ -146,13 +164,26 @@ def emit_component(cls) -> str:
             f"qm31::qm_mul_m31({w}, {_var(c)})"
         lines.append(f"    {'Qm acc = ' if i == 0 else 'acc = qm31::qm_add(acc, '}{term}"
                      f"{')' if i else ''};")
+    inv = program.inversions()
+    dens = [d for d, _ in inv]
+    inverses = {}
+    for k, (_, i) in enumerate(inv):
+        inverses.setdefault(i, f"inv[{k}]")
     lines += [
         "    return acc;",
         "  }",
         "",
-        "  // Q_k = num_k * den_k^-1 of each relation at one row",
-        "  __device__ __forceinline__ static void logup(const Row& r, Qm* q) {",
-        *_statements(program, program.fractions),
+        "  // den_k of each relation at one row",
+        "  template <class R>",
+        "  __device__ __forceinline__ static void denominators(const R& r, Qm* den) {",
+        *_statements(program, dens, row_first=True),
+        *[f"    den[{k}] = {_var(d)};" for k, d in enumerate(dens)],
+        "  }",
+        "",
+        "  // Q_k = num_k * inv[k] of each relation at one row, inv[k] = den_k^-1",
+        "  template <class R>",
+        "  __device__ __forceinline__ static void fractions(const R& r, const Qm* inv, Qm* q) {",
+        *_statements(program, program.fractions, inverses, row_first=True),
         *[f"    q[{k}] = {_var(f)};" for k, f in enumerate(program.fractions)],
         "  }",
         "};",
@@ -168,10 +199,12 @@ _HEAD = f"""\
 //
 // The constraint kernels of the 13 components for Hopper (sm_90a): the
 // bodies below, one struct a component, plug into the hand-written
-// skeleton csrc/constraint_kernel.cuh (one thread a row, the loads, the
-// vanishing inverse, the weighted accumulation, the stores). Each body is
-// the component's recorded constraint program (framework/component.py
-// ConstraintProgram), one statement an op.
+// skeletons csrc/constraint_kernel.cuh (composition: one thread a row, the
+// loads, the vanishing inverse, the weighted accumulation, the stores;
+// logup and interaction: the batched inversion between the denominators
+// and the fractions) and csrc/logup_scan.cuh (interaction: the coset
+// scan). Each body is the component's recorded constraint program
+// (framework/component.py ConstraintProgram), one statement an op.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -194,6 +227,10 @@ def emit() -> str:
     cases_c = "\n".join(f"    case {i}: return composition_entry<{n}>(ARGS);"
                         for i, n in enumerate(names))
     cases_l = "\n".join(f"    case {i}: return logup_entry<{n}>(ARGS);"
+                        for i, n in enumerate(names))
+    cases_i = "\n".join(f"    case {i}: return interaction_entry<{n}>(ARGS);"
+                        for i, n in enumerate(names))
+    cases_g = "\n".join(f"    case {i}: return interaction_geometry_of<{n}>(log_n, out);"
                         for i, n in enumerate(names))
     shape = "\n".join(f"    case {i}: return shape_of<{n}>(out);" for i, n in enumerate(names))
     label = "\n".join(f'    case {i}: return "{c.name}";' for i, c in enumerate(COMPONENT_CLASSES))
@@ -242,6 +279,30 @@ extern "C" int constraints_logup(int id, const void* table, int n_ptrs, int n_wo
   return static_cast<int>(cudaErrorInvalidValue);
 }}
 #undef ARGS
+
+// out: col_log, row_log, tile_rows, tiles, rows_per_warp, on_chip of an
+// interaction launch of 2^log_n rows on the current device, and the
+// resident tiles it was planned for.
+extern "C" int constraints_interaction_geometry(int id, int log_n, int* out) {{
+  switch (id) {{
+{cases_g}
+  }}
+  return static_cast<int>(cudaErrorInvalidValue);
+}}
+
+// The first n words of the interaction launches' head on the current device.
+extern "C" int constraints_head(uint32_t* out, int n) {{ return logup_scan::head_words(out, n); }}
+
+#define ARGS table, n_ptrs, n_words, log_n, q, s, claimed, work, sums, stream
+extern "C" int constraints_interaction(int id, const void* table, int n_ptrs, int n_words,
+                                       int log_n, void* q, void* s, void* claimed, void* work,
+                                       void* sums, void* stream) {{
+  switch (id) {{
+{cases_i}
+  }}
+  return static_cast<int>(cudaErrorInvalidValue);
+}}
+#undef ARGS
 """)
     return "\n".join(parts)
 
@@ -251,12 +312,22 @@ extern "C" int constraints_logup(int id, const void* table, int n_ptrs, int n_wo
 # ---------------------------------------------------------------------------
 
 QM_INV = (62, 18)   # qm31::qm_inv: M31 products (42 of them m31_inv's chain), adds
+M31_INV = 42        # qm31::m31_inv's addition chain
 QM_MUL = (16, 16)   # qm31::qm_mul
 
 
-def op_work(program: ConstraintProgram, outputs) -> Tuple[int, int]:
+def batch_inv_products(m: int) -> int:
+    """qm31::batch_inv of m values: m - 1 running products, one m31_inv, two
+    products a value on the way back."""
+    return 3 * (m - 1) + M31_INV
+
+
+def op_work(program: ConstraintProgram, outputs, inv: Tuple[int, int] = QM_INV
+            ) -> Tuple[int, int]:
     """(M31 products, M31 adds and subtracts) of the emitted statements of
-    the ops `outputs` need, as csrc/qm31.cuh and csrc/m31.cuh compute them."""
+    the ops `outputs` need, as csrc/qm31.cuh and csrc/m31.cuh compute them;
+    an "inv" op costs `inv` (QM_INV: qm31::qm_inv; a batched inversion
+    passes its share besides the norm's inverse)."""
     products = adds = 0
     for v in program.live(outputs):
         op = program.ops[v]
@@ -265,8 +336,8 @@ def op_work(program: ConstraintProgram, outputs) -> Tuple[int, int]:
             products += 4 * len(op[2])
             adds += 4 * len(op[2])
         elif kind == "inv":
-            products += QM_INV[0]
-            adds += QM_INV[1]
+            products += inv[0]
+            adds += inv[1]
         elif kind in ("add", "sub", "mul"):
             qa, qb = program.qm[op[1]], program.qm[op[2]]
             if kind != "mul":

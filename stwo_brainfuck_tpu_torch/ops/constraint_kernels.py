@@ -1,14 +1,15 @@
 """The constraint kernels: the hand-written Hopper kernels
-(``csrc/constraint_kernel.cuh`` with the bodies ``ops/constraint_codegen.py``
-emits into ``csrc/constraints.cu``) behind
-``framework.component.composition_accumulate`` and ``logup_fractions`` on
-CUDA tensors.
+(``csrc/constraint_kernel.cuh`` and ``csrc/logup_scan.cuh`` with the bodies
+``ops/constraint_codegen.py`` emits into ``csrc/constraints.cu``) behind
+``framework.component.composition_accumulate``,
+``build_interaction_trace_async`` and ``logup_fractions`` on CUDA tensors.
 
 Counterparts of ``stwo_brainfuck_tpu/framework/component.py``'s
 ``_constraints_fn`` (the composition contribution of a component, one fused
-executable) and the fraction half of ``_build_interaction_fn`` (the LogUp
-fractions and their sum); bit for bit the plain versions
-``composition_contribution`` and ``logup_fractions_plain`` (the Expr path).
+executable) and ``_build_interaction_fn`` (the LogUp fractions, their sum's
+prefix sum in coset order and the claimed sum); bit for bit the plain
+versions ``composition_contribution``, ``interaction_plain`` and
+``logup_fractions_plain`` (the Expr path).
 
 ``KERNELS.composition(...)``: acc (4, m) int32 (+)= the component's weighted
 constraint sum over V_n at storage positions offset .. offset + m - 1 of its
@@ -16,14 +17,20 @@ blown-up domain, in one launch; V_n^-1 takes 2^log_blowup values there
 (``core/poly.py`` ``vanishing_inverse_blocks``), which ride in the launch's
 constant table, and S(p - g) is read through the int32 rotation index
 (``core/fft.py`` ``rotation_index``) or from rows the kernel is given.
-``KERNELS.logup(...)``: ((K, 4, n) int32 Q_k, (4, n) int32 their sum) in
-one launch. ``KERNELS.scan(total, coset, carry)`` (``csrc/logup_scan.cu``, a
-library of its own): the LogUp prefix sum S of that sum and its last value,
-the claimed sum, both on the card, in one launch; in coset order (gathered
-by the coset permutation and scattered back, ``build_interaction_trace``)
-or, for a mesh shard already in linear order, with a QM31 carry-in.
-``scan_geometry`` mirrors the coset scan's tiles and ``emulate_scan``
-replays a launch on any device.
+``KERNELS.interaction(...)``: ((K, 4, N) int32 Q_k, (4, N) int32 S, (4,)
+int32 claimed sum) of a whole component in one launch: the coset scan of
+``csrc/logup_scan.cuh`` with the rows' sums computed in the tile (one
+device; ``emulate_interaction`` replays it). ``KERNELS.logup(...)``: ((K,
+4, n) int32 Q_k, (4, n) int32 their sum) in one launch (the mesh's shards).
+``KERNELS.scan(total, coset, carry)`` (``csrc/logup_scan.cu``, a library of
+its own): the LogUp prefix sum S of that sum and its last value, the
+claimed sum, both on the card, in one launch; in coset order (the same
+skeleton, the sums read from ``total``) or, for a mesh shard already in
+linear order, with a QM31 carry-in. ``scan_geometry`` mirrors the coset
+tiles and ``emulate_scan`` replays a launch on any device. A library's
+coset launches on a device share one head, a global of the library (zero
+when it loads, left zero by each launch's last CTA: no fill runs before a
+launch; ``head`` reads it).
 
 Each launch's column pointers and constants (the lookup elements, the
 claimed sum, the weights alpha^(offset + i), V_n^-1) go to the card as one
@@ -45,18 +52,23 @@ import numpy as np
 import torch
 
 from ..components.defs import COMPONENT_CLASSES
-from ..core import poly, qm31
+from ..core import m31, poly, qm31
 from ..core.m31 import P_INT
 from ..framework.component import LookupElements, constraint_program, emulate
 from . import nvcc
 from .staging import PinnedRing
-from .constraint_codegen import (CLAIMED_WORD, ELEMENT_ORDER, ELEMENT_WORDS, WEIGHTS_WORD,
-                                 composition_slots, logup_slots, op_work)
+from .constraint_codegen import (ELEMENT_ORDER, ELEMENT_WORDS, M31_INV, QM_INV, WEIGHTS_WORD,
+                                 batch_inv_products, composition_slots, interaction_slots,
+                                 logup_slots, op_work)
 
-FAMILIES = ("composition", "logup", "scan")
+FAMILIES = ("composition", "logup", "scan", "interaction")
 SCAN_WARPS = 8
 SCAN_LINEAR_TILE = 2048  # values a linear tile (8 warps of 8 rounds of 32)
-SCAN_MAX_TILES = 64  # a coset launch's tiles: its scratch stays under 1 MB
+SCAN_MIN_TILE_ROWS = 16  # logup_scan::kMinTileRows
+SCAN_MAX_TILES = 4096  # logup_scan::kMaxTiles: the shared head's flags
+SCAN_VEC = 256  # a coset tile's vector (words)
+BATCH_ROWS = 4  # constraints::kBatchRows: rows whose norms one m31_inv inverts
+RESIDENT_TILES = 264  # the emulations' default: an H100's 132 SMs at two CTAs each
 MAX_EVAL_LOG = 30  # qm31::kMaxLogSize: the largest canonic domain the kernel takes
 COMPONENT_IDS = {cls.name: i for i, cls in enumerate(COMPONENT_CLASSES)}
 
@@ -73,6 +85,12 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.constraints_composition.restype = i32
     lib.constraints_logup.argtypes = [i32, ptr, i32, i32, i64, ptr, ptr, ptr]
     lib.constraints_logup.restype = i32
+    lib.constraints_interaction_geometry.argtypes = [i32, i32, ptr]
+    lib.constraints_interaction_geometry.restype = i32
+    lib.constraints_interaction.argtypes = [i32, ptr, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr]
+    lib.constraints_interaction.restype = i32
+    lib.constraints_head.argtypes = [ptr, i32]
+    lib.constraints_head.restype = i32
     # the built file must be the one the programs emit now
     if lib.constraints_components() != len(COMPONENT_CLASSES):
         raise RuntimeError("csrc/constraints.cu: another component count; regenerate it")
@@ -134,10 +152,12 @@ def _bind_scan(lib: ctypes.CDLL) -> None:
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.logup_scan_geometry.argtypes = [i32, ptr]
     lib.logup_scan_geometry.restype = i32
-    lib.logup_scan_scratch.argtypes = [i32, i64, ptr]
+    lib.logup_scan_scratch.argtypes = [i64, ptr]
     lib.logup_scan_scratch.restype = i32
-    lib.logup_scan_coset.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, ptr]
+    lib.logup_scan_coset.argtypes = [ptr, ptr, ptr, ptr, i32, ptr]
     lib.logup_scan_coset.restype = i32
+    lib.logup_scan_head.argtypes = [ptr, i32]
+    lib.logup_scan_head.restype = i32
     lib.logup_scan_linear.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i64, ptr]
     lib.logup_scan_linear.restype = i32
 
@@ -193,20 +213,32 @@ def emulate_logup(component, main_cols: Dict[str, torch.Tensor], is_first: torch
     return q.to(torch.int32), (q.sum(0) % P_INT).to(torch.int32)
 
 
-def scan_geometry(log_n: int) -> Tuple[int, int, int, int, int]:
-    """(col_log, row_log, tile_rows, tiles, rows_per_warp) of the coset
-    scan of 2^log_n rows, as csrc/logup_scan.cu's geometry: the pair index
-    j < 2^(log_n - 1) read as 2^row_log rows of 2^col_log columns (col_log =
-    min(5, log_n - 2)), a tile tile_rows rows of the chain's first half (and
-    their mirrors), rows_per_warp of them a warp."""
+def scan_geometry(log_n: int, max_tiles: int) -> Tuple[int, int, int, int, int]:
+    """(col_log, row_log, tile_rows, tiles, rows_per_warp) of a coset launch
+    of 2^log_n rows (the scan's and the interaction kernel's) planned for
+    max_tiles resident CTAs, as csrc/logup_scan.cuh tiles_for: the pair
+    index j < 2^(log_n - 1) read as 2^row_log rows of 2^col_log columns
+    (col_log = min(5, log_n - 2)); a tile tile_rows rows of the chain's
+    first half (and their mirrors), the least power of two of at least
+    SCAN_MIN_TILE_ROWS that keeps tiles <= max_tiles (all the rows where
+    there are fewer); rows_per_warp of them a warp."""
     if not 2 <= log_n <= MAX_EVAL_LOG:
         raise ValueError(f"the scan takes 2^2 .. 2^{MAX_EVAL_LOG} rows, not 2^{log_n}")
     m = log_n - 1
     col_log = min(5, m - 1)
     row_log = m - col_log
     low_rows = 1 << (row_log - 1)
-    tile_rows = min(low_rows, max(32, low_rows // SCAN_MAX_TILES))
+    per_tile = -(-low_rows // max(1, max_tiles))
+    rows = SCAN_MIN_TILE_ROWS
+    while rows < per_tile:
+        rows <<= 1
+    tile_rows = min(rows, low_rows)
     return col_log, row_log, tile_rows, low_rows // tile_rows, max(1, tile_rows >> 3)
+
+
+def on_chip_bytes(log_n: int, max_tiles: int) -> int:
+    """Shared memory a tile's sums take on chip (16 words a lane and row)."""
+    return scan_geometry(log_n, max_tiles)[2] * 16 * 32 * 4
 
 
 def _bitrev(x: torch.Tensor, bits: int) -> torch.Tensor:
@@ -220,10 +252,11 @@ def _cumsum_mod(x: torch.Tensor, dim: int) -> torch.Tensor:
     return torch.cumsum(x, dim=dim) % P_INT
 
 
-def emulate_scan(total: torch.Tensor, coset: bool = True, carry: Optional[torch.Tensor] = None
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+def emulate_scan(total: torch.Tensor, coset: bool = True, carry: Optional[torch.Tensor] = None,
+                 max_tiles: int = RESIDENT_TILES) -> Tuple[torch.Tensor, torch.Tensor]:
     """What one scan launch computes, on any device, as the kernel
-    schedules it: ((4, n) int32 S, (4,) int32 its last linear value).
+    schedules it (coset: planned for max_tiles resident CTAs): ((4, n)
+    int32 S, (4,) int32 its last linear value).
 
     coset: the pairs (2j, N - 1 - 2j) and their mirrors as the lanes read
     them, each warp's rows and each tile's sums, the tiles' chain (the
@@ -252,7 +285,7 @@ def emulate_scan(total: torch.Tensor, coset: bool = True, carry: Optional[torch.
         s = s.reshape(4, -1)[:, :n]
         return s.to(torch.int32), s[:, -1].to(torch.int32)
     log_n = n.bit_length() - 1
-    col_log, row_log, tile_rows, tiles, rpw = scan_geometry(log_n)
+    col_log, row_log, tile_rows, tiles, rpw = scan_geometry(log_n, max_tiles)
     cols = 1 << col_log
     kr = torch.arange(1 << (row_log - 1), dtype=torch.int64, device=dev)
     j = (_bitrev(kr, row_log) << col_log)[:, None] + torch.arange(cols, device=dev)[None, :]
@@ -283,6 +316,90 @@ def emulate_scan(total: torch.Tensor, coset: bool = True, carry: Optional[torch.
     s[:, n - 2 - 2 * jj] = (pre_m - a1.reshape(shape)) % P_INT
     s[:, n - 1 - 2 * jj] = pre
     return s.to(torch.int32), incl[:, -1].to(torch.int32)
+
+
+def _batch_inv(z: torch.Tensor) -> torch.Tensor:
+    """qm31::batch_inv along the last axis (int64, canonical): the running
+    products (a zero takes 1), one inverse, two products a value on the way
+    back; a zero gets 0."""
+    zz = torch.where(z == 0, torch.ones_like(z), z)
+    run = [zz[..., 0]]
+    for m in range(1, z.shape[-1]):
+        run.append(run[-1] * zz[..., m] % P_INT)
+    t = m31.inv(run[-1])
+    out = torch.empty_like(z)
+    for m in range(z.shape[-1] - 1, 0, -1):
+        out[..., m] = t * run[m - 1] % P_INT
+        t = t * zz[..., m] % P_INT
+    out[..., 0] = t
+    return torch.where(z == 0, torch.zeros_like(z), out)
+
+
+def emulate_fractions(component, main_cols: Dict[str, torch.Tensor], is_first: torch.Tensor,
+                      elements: Dict[str, LookupElements], order: torch.Tensor,
+                      batch: int = BATCH_ROWS) -> torch.Tensor:
+    """The Q_k of the rows `order` ((..., B') int64 row indices, the last
+    axis a thread's rows in its order) as the kernels' batched inversion
+    computes them: the program's denominators (constraint_codegen's split),
+    each den's CM31 denominator and norm (qm31::qm_inv_den, cm_norm), the
+    norms of `batch` consecutive rows' K relations (row-major) inverted
+    together (_batch_inv), each inverse from its norm's (qm_inv_from), then
+    the fractions with those inverses given; (K, 4, *order.shape) int64."""
+    program = constraint_program(type(component))
+    idx = order.reshape(-1)
+    inputs = {"cols": [main_cols[c][idx] for c in component.columns],
+              "is_first": is_first[idx], "elements": elements}
+    inv_ops = program.inversions()
+    vals = emulate(program, inputs, [d for d, _ in inv_ops])
+    k = len(inv_ops)
+    x = torch.stack([vals[d] for d, _ in inv_ops])            # (K, 4, rows)
+    a, b, c, d = x[:, 0], x[:, 1], x[:, 2], x[:, 3]
+    a2r, a2i = (a * a - b * b) % P_INT, 2 * a * b % P_INT
+    b2r, b2i = (c * c - d * d) % P_INT, 2 * c * d % P_INT
+    den_r = (a2r - 2 * b2r + b2i) % P_INT
+    den_i = (a2i - b2r - 2 * b2i) % P_INT
+    norm = (den_r * den_r + den_i * den_i) % P_INT                 # (K, rows)
+    # a batch: `batch` consecutive rows of a thread, their K norms row-major
+    lead = order.shape[:-1]
+    per = order.shape[-1]
+    grouped = norm.reshape(k, *lead, per // batch, batch).movedim(0, -1)
+    ninv = _batch_inv(grouped.reshape(*lead, per // batch, batch * k))
+    ninv = ninv.reshape(*lead, per // batch, batch, k).movedim(-1, 0).reshape(k, -1)
+    di_r, di_i = den_r * ninv % P_INT, (P_INT - den_i) % P_INT * ninv % P_INT
+    inv = torch.stack([(a * di_r - b * di_i) % P_INT, (a * di_i + b * di_r) % P_INT,
+                       (-c * di_r + d * di_i) % P_INT, (-c * di_i - d * di_r) % P_INT], 1)
+    given = {}
+    for j, (_, i) in enumerate(inv_ops):
+        given.setdefault(i, inv[j])
+    vals = emulate(program, inputs, program.fractions, given)
+    q = torch.stack([vals[f].expand(4, idx.shape[0]) for f in program.fractions])
+    return q.reshape(len(program.fractions), 4, *order.shape)
+
+
+def emulate_interaction(component, main_cols: Dict[str, torch.Tensor],
+                        elements: Dict[str, LookupElements], max_tiles: int = RESIDENT_TILES,
+                        batch: int = BATCH_ROWS
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """What one interaction launch computes, on any device, as it schedules
+    it: each lane's pair row j (tiles of scan_geometry(log_n, max_tiles))
+    and its four storage rows 2j, 2j + 1, N - 2 - 2j, N - 1 - 2j, their
+    fractions in batches of `batch` rows (emulate_fractions; is_first is t
+    == 0), the Q_k stored at those rows and their sums handed to the coset
+    scan (emulate_scan); ((K, 4, N) int32 Q_k, (4, N) int32 S, (4,) int32
+    claimed sum)."""
+    n = 1 << component.log_size
+    dev = main_cols[component.columns[0]].device
+    col_log, row_log, _, _, _ = scan_geometry(component.log_size, max_tiles)
+    kr = torch.arange(1 << (row_log - 1), dtype=torch.int64, device=dev)
+    j = (_bitrev(kr, row_log) << col_log)[:, None] + torch.arange(1 << col_log, device=dev)
+    order = torch.stack([2 * j, 2 * j + 1, n - 2 - 2 * j, n - 1 - 2 * j], -1)
+    is_first = (torch.arange(n, device=dev) == 0).to(torch.int64)
+    q = emulate_fractions(component, main_cols, is_first, elements, order, batch)
+    out = torch.empty((q.shape[0], 4, n), dtype=torch.int64, device=dev)
+    out[:, :, order.reshape(-1)] = q.reshape(q.shape[0], 4, -1)
+    total = (out.sum(0) % P_INT).to(torch.int32)
+    s, claimed = emulate_scan(total, True, None, max_tiles)
+    return out.to(torch.int32), s, claimed
 
 
 # ---------------------------------------------------------------------------
@@ -333,6 +450,38 @@ class ConstraintKernels:
         self.scan_lib = nvcc.CudaLibrary("logup_scan", _bind_scan)
         self.launches = dict.fromkeys(FAMILIES, 0)
         self.staging = PinnedRing()
+        self._plans: Dict[tuple, Tuple[int, ...]] = {}
+
+    def head(self, kind, dev: torch.device) -> list:
+        """The coset launches' head on `dev` (ticket, exit count, a flag a
+        tile; a global of the library, "scan" or the interaction's): zero
+        when the library loads, left zero by every launch."""
+        out = (ctypes.c_uint32 * (2 + SCAN_MAX_TILES))()
+        with torch.cuda.device(dev):
+            lib = self.scan_lib.load().logup_scan_head if kind == "scan" else \
+                self.lib.load().constraints_head
+            rc = lib(ctypes.addressof(out), len(out))
+        if rc != 0:
+            raise RuntimeError(f"the coset head: CUDA error {rc}")
+        return list(out)
+
+    def geometry(self, kind, log_n: int, dev: torch.device) -> Tuple[int, ...]:
+        """(col_log, row_log, tile_rows, tiles, rows_per_warp, on_chip,
+        resident tiles) of a coset launch of 2^log_n rows on `dev`: kind a
+        component class (the interaction kernel) or "scan"."""
+        key = (kind, log_n, dev)
+        if key not in self._plans:
+            out = (ctypes.c_int * 7)()
+            with torch.cuda.device(dev):
+                if kind == "scan":
+                    rc = self.scan_lib.load().logup_scan_geometry(log_n, ctypes.addressof(out))
+                else:
+                    rc = self.lib.load().constraints_interaction_geometry(
+                        COMPONENT_IDS[kind.name], log_n, ctypes.addressof(out))
+            if rc != 0:
+                raise RuntimeError(f"coset launch of 2^{log_n} rows: no plan, CUDA error {rc}")
+            self._plans[key] = tuple(out)
+        return self._plans[key]
 
     def composition(self, component, main_cols: Dict[str, torch.Tensor],
                     inter_rows: Sequence[torch.Tensor], s_rows: Sequence[torch.Tensor],
@@ -412,6 +561,44 @@ class ConstraintKernels:
         self.launches["logup"] += 1
         return q, total
 
+    def interaction(self, component, main_cols: Dict[str, torch.Tensor],
+                    elements: Dict[str, LookupElements]
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """framework.component.build_interaction_trace_async in one launch:
+        ((K, 4, N) int32 Q_k, (4, N) int32 S, (4,) int32 claimed sum), N =
+        2^log_size the columns' length, S and the claimed sum in coset
+        order."""
+        cls = type(component)
+        program = constraint_program(cls)
+        rows = _main_rows(component, main_cols)
+        dev, n = _check_rows(rows, f"{component.name} interaction")
+        log_n = n.bit_length() - 1
+        if n != 1 << component.log_size or not 2 <= log_n <= MAX_EVAL_LOG:
+            raise ValueError(f"{component.name} interaction: {n} rows, expected 2^"
+                             f"{component.log_size} (2^2 .. 2^{MAX_EVAL_LOG})")
+        _require_cuda(dev, f"{component.name} interaction")
+        lib = self.lib.load()
+        _, _, _, tiles, _, on_chip, _ = self.geometry(cls, log_n, dev)
+        words = pack_constants(elements)
+        host = pack_table([r.data_ptr() for r in rows], words)
+        q = torch.empty((len(program.relations), 4, n), dtype=torch.int32, device=dev)
+        s = torch.empty((4, n), dtype=torch.int32, device=dev)
+        claimed = torch.empty(4, dtype=torch.int32, device=dev)
+        work = torch.empty(2 * tiles * SCAN_VEC, dtype=torch.int32, device=dev)
+        sums = None if on_chip else torch.empty((4, n), dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            table = self.staging.to_card(host, dev)
+            rc = lib.constraints_interaction(
+                COMPONENT_IDS[component.name], table.data_ptr(), interaction_slots(program),
+                words.size, log_n, q.data_ptr(), s.data_ptr(), claimed.data_ptr(),
+                work.data_ptr(), None if sums is None else sums.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{component.name} interaction kernel launch failed: "
+                               f"CUDA error {rc}")
+        self.launches["interaction"] += 1
+        return q, s, claimed
+
     def scan(self, total: torch.Tensor, coset: bool = True,
              carry: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """framework.component.prefix_sum in one launch: ((4, n) int32 S,
@@ -437,20 +624,21 @@ class ConstraintKernels:
         dev = total.device
         _require_cuda(dev, "the scan's rows")
         lib = self.scan_lib.load()
-        sizes = (ctypes.c_longlong * 2)()
-        if lib.logup_scan_scratch(int(coset), n, ctypes.addressof(sizes)) != 0:
-            raise ValueError(f"the scan refused {n} rows")
         s = torch.empty_like(total)
         claimed = torch.empty(4, dtype=torch.int32, device=dev)
         with torch.cuda.device(dev):
-            head = torch.zeros(sizes[0], dtype=torch.int32, device=dev)
-            work = torch.empty(sizes[1], dtype=torch.int32, device=dev)
             stream = torch.cuda.current_stream(dev).cuda_stream
             if coset:
+                tiles = self.geometry("scan", n.bit_length() - 1, dev)[3]
+                work = torch.empty(2 * tiles * SCAN_VEC, dtype=torch.int32, device=dev)
                 rc = lib.logup_scan_coset(total.data_ptr(), s.data_ptr(), claimed.data_ptr(),
-                                          head.data_ptr(), work.data_ptr(), n.bit_length() - 1,
-                                          stream)
+                                          work.data_ptr(), n.bit_length() - 1, stream)
             else:
+                sizes = (ctypes.c_longlong * 2)()
+                if lib.logup_scan_scratch(n, ctypes.addressof(sizes)) != 0:
+                    raise ValueError(f"the scan refused {n} rows")
+                head = torch.zeros(sizes[0], dtype=torch.int32, device=dev)
+                work = torch.empty(sizes[1], dtype=torch.int32, device=dev)
                 rc = lib.logup_scan_linear(total.data_ptr(), s.data_ptr(), claimed.data_ptr(),
                                            None if carry is None else carry.data_ptr(),
                                            head.data_ptr(), work.data_ptr(), n, stream)
@@ -468,24 +656,40 @@ KERNELS = ConstraintKernels()
 # ---------------------------------------------------------------------------
 
 def launch_work(component, family: str, rows: int, accumulate: bool = True,
-                rotation: bool = True, log_blowup: int = 0) -> Tuple[int, int, int]:
+                rotation: bool = True, log_blowup: int = 0,
+                batch: int = BATCH_ROWS) -> Tuple[int, int, int]:
     """(bytes, M31 products, M31 adds) of one launch over `rows` rows, the
     work the function needs: each input word read once and each output
     word written once (the scan: 16 bytes a row in, 16 out, and the
+    claimed sum; interaction: the live main columns in, Q_k and S out, the
     claimed sum); the program's distinct ops
     (ops/constraint_codegen.op_work) and, for composition, the weights, the
     product by V_n^-1 and the accumulation at every row, and once a launch
     the 2^log_blowup values of V_n^-1 (a point, log_size - 1 doublings and
-    an inversion each: core/poly.py vanishing_inverse_blocks)."""
+    an inversion each: core/poly.py vanishing_inverse_blocks). logup and
+    interaction invert as the kernels do: the norms of `batch` rows' K
+    relations with one m31_inv (qm31::batch_inv: QM_INV less the chain, 20
+    products a relation, and batch_inv_products(batch K) a batch), or with
+    batch 0 each relation on its own (qm31::qm_inv, 62)."""
     if family == "scan":  # the sums in, S out, the claimed sum; n - 1 adds a coordinate
         return rows * 32 + 16, 0, 4 * (rows - 1)
     p = constraint_program(type(component))
-    if family == "logup":
-        products, adds = op_work(p, p.fractions)
+    k = len(p.relations)
+    if family in ("logup", "interaction"):
+        if batch:
+            products, adds = op_work(p, p.fractions, (QM_INV[0] - M31_INV, QM_INV[1]))
+            products = rows * products + -(-rows // batch) * batch_inv_products(batch * k)
+        else:
+            products, adds = op_work(p, p.fractions)
+            products *= rows
         live = p.live(p.fractions)
-        inputs = sum(1 for v in live if p.ops[v][0] in ("col", "is_first"))
-        return (rows * 4 * (inputs + 4 * (len(p.relations) + 1)) + 4 * ELEMENT_WORDS,
-                rows * products, rows * (adds + 4 * (len(p.relations) - 1)))
+        if family == "logup":
+            inputs = sum(1 for v in live if p.ops[v][0] in ("col", "is_first"))
+            return (rows * 4 * (inputs + 4 * (k + 1)) + 4 * ELEMENT_WORDS, products,
+                    rows * (adds + 4 * (k - 1)))
+        inputs = sum(1 for v in live if p.ops[v][0] == "col")  # is_first is t == 0
+        return (rows * 4 * (inputs + 4 * (k + 1)) + 4 * ELEMENT_WORDS + 16, products,
+                rows * (adds + 4 * (k - 1)) + 4 * (rows - 1))
     products, adds = op_work(p, p.constraints)
     live = p.live(p.constraints)
     words = sum(4 if p.ops[v][0] in ("inter", "s_prev") else 1

@@ -89,10 +89,14 @@ def test_program_records_each_op_once(name):
     program = tfw.constraint_program(T_CLASSES[name])
     assert len(set(program.ops)) == len(program.ops)
     body = cg.emit_component(T_CLASSES[name])
-    composition, logup = body.split("static void logup(")
-    for text, outputs in ((composition, program.constraints), (logup, program.fractions)):
+    composition, rest = body.split("static void denominators(")
+    dens, fractions = rest.split("static void fractions(")
+    inv = program.inversions()
+    for text, outputs, leaves in ((composition, program.constraints, ()),
+                                  (dens, [d for d, _ in inv], ()),
+                                  (fractions, program.fractions, [i for _, i in inv])):
         exprs = re.findall(r"^    const \w+ v\d+ = (.*);$", text, re.M)
-        assert len(exprs) == len(set(exprs)) == len(program.live(outputs))
+        assert len(exprs) == len(set(exprs)) == len(program.live(outputs, leaves))
 
 
 @pytest.mark.parametrize("log, blow", [(1, 0), (1, 1), (2, 4), (4, 1), (4, 4), (6, 3), (9, 2)])

@@ -521,7 +521,8 @@ def test_scan_matches_plain_on_the_card(cuda, log_n):
         plain = framework.PLAIN_CUDA_CALLS
         assert torch.equal(s, want) and torch.equal(claimed, want_claimed)
         if log_n <= 16:
-            es, ec = constraint_kernels.emulate_scan(total)
+            resident = constraint_kernels.KERNELS.geometry("scan", log_n, cuda)[6]
+            es, ec = constraint_kernels.emulate_scan(total, max_tiles=resident)
             assert torch.equal(es, s) and torch.equal(ec, claimed)
     assert constraint_kernels.KERNELS.launches == {**launches, "scan": launches["scan"] + 2}
 
@@ -541,10 +542,11 @@ def test_scan_geometry_and_refusals_on_the_card(cuda):
     import ctypes
 
     lib = constraint_kernels.KERNELS.scan_lib.load()
-    out = (ctypes.c_int * 5)()
+    out = (ctypes.c_int * 7)()
     for log_n in range(2, 31):
         assert lib.logup_scan_geometry(log_n, ctypes.addressof(out)) == 0
-        assert tuple(out) == constraint_kernels.scan_geometry(log_n)
+        assert tuple(out)[:5] == constraint_kernels.scan_geometry(log_n, out[6])
+        assert out[3] <= out[6]  # every tile resident
     x = _scan_case(0, 64, cuda)
     with pytest.raises(TypeError):
         constraint_kernels.KERNELS.scan(x.to(torch.int64))
@@ -669,6 +671,108 @@ def test_fib19_io_prove_launches_each_constraint_kernel_once_a_component(cuda):
     proof = air.prove_brainfuck(m, device=cuda)
     assert framework.PLAIN_CUDA_CALLS == plain
     for family in constraint_kernels.FAMILIES:
-        assert constraint_kernels.KERNELS.launches[family] - launches[family] == \
-            len(COMPONENT_CLASSES)
+        assert constraint_kernels.KERNELS.launches[family] - launches[family] == (
+            len(COMPONENT_CLASSES) if family in ("composition", "interaction") else 0)
     assert chip_smoke.proof_sha256(proof) == chip_smoke.REFERENCE_SHA256["fib19_io"]
+
+
+def _interaction_case(cls, log, seed, dev, edge=False):
+    """Seeded main columns and lookup elements of one component's
+    interaction on `dev`; edge: values 0, 1, p - 2, p - 1 and the
+    elements' z moved so that denominators are 0 at some rows."""
+    rng = np.random.default_rng(seed)
+    comp = cls(log)
+    n = 1 << log
+    values = np.array([0, 1, P - 2, P - 1])
+    main = {c: torch.as_tensor((values[rng.integers(0, 4, n)] if edge else
+                                rng.integers(0, P, n)).astype(np.int32), device=dev)
+            for c in comp.columns}
+
+    def felt():
+        return tuple(int(v) for v in rng.integers(0, P, 4))
+
+    els = {k: framework.LookupElements(z=felt(), alpha=felt(), size=s)
+           for k, s in ELEMENT_SIZES.items()}
+    if edge:
+        els = chip_smoke.zero_den_elements(comp, main, els, [0, 1, n - 2, n // 2 + 1])
+    return comp, main, els
+
+
+@pytest.mark.parametrize("edge", [False, True])
+@pytest.mark.parametrize("log", [2, 4, 11, 16])
+@pytest.mark.parametrize("cls", COMPONENT_CLASSES, ids=lambda c: c.name)
+def test_interaction_kernel_matches_plain_on_the_card(cuda, cls, log, edge):
+    comp, main, els = _interaction_case(cls, log, log * 3 + edge, cuda, edge)
+    launches, plain = dict(constraint_kernels.KERNELS.launches), framework.PLAIN_CUDA_CALLS
+    cols, claimed = framework.build_interaction_trace_async(comp, main, els)
+    assert framework.PLAIN_CUDA_CALLS == plain
+    assert constraint_kernels.KERNELS.launches == {
+        **launches, "interaction": launches["interaction"] + 1}
+    q, s, want_claimed = framework.interaction_plain(comp, main, els)
+    assert torch.equal(torch.stack(cols[:-1]), q) and torch.equal(cols[-1], s)
+    assert torch.equal(claimed, want_claimed)
+    resident = constraint_kernels.KERNELS.geometry(cls, log, cuda)[6]
+    eq, es, ec = constraint_kernels.emulate_interaction(comp, main, els, resident)
+    assert torch.equal(eq, q) and torch.equal(es, s) and torch.equal(ec, claimed)
+
+
+@pytest.mark.parametrize("cls, log", [(COMPONENT_CLASSES[0], 20), (COMPONENT_CLASSES[3], 22),
+                                      (COMPONENT_CLASSES[1], 18)], ids=lambda v: str(v))
+def test_interaction_kernel_at_the_provers_sizes(cuda, cls, log):
+    """On chip and in the scratch (the planned geometry says which)."""
+    comp, main, els = _interaction_case(cls, log, log, cuda)
+    got = constraint_kernels.KERNELS.interaction(comp, main, els)
+    want = framework.interaction_plain(comp, main, els)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_interaction_geometry_on_the_card(cuda):
+    import ctypes
+
+    lib = constraint_kernels.KERNELS.lib.load()
+    out = (ctypes.c_int * 7)()
+    for cls in COMPONENT_CLASSES:
+        for log_n in range(2, 31):
+            assert lib.constraints_interaction_geometry(
+                constraint_kernels.COMPONENT_IDS[cls.name], log_n, ctypes.addressof(out)) == 0
+            assert tuple(out)[:5] == constraint_kernels.scan_geometry(log_n, out[6])
+            assert out[3] <= out[6] and out[6] >= 132  # every tile resident, every SM a CTA
+            if out[5]:
+                assert constraint_kernels.on_chip_bytes(log_n, out[6]) <= 96 * 1024
+
+
+def test_interaction_head_resets_itself(cuda):
+    """Back-to-back launches of different sizes and modes, no sync between
+    them: each equals its plain version and the head is zero after."""
+    cases = [_interaction_case(COMPONENT_CLASSES[i], log, 50 + log, cuda)
+             for i, log in ((0, 20), (3, 6), (1, 16), (3, 22), (0, 20), (2, 2))]
+    outs = []
+    for comp, main, els in cases:
+        outs.append(constraint_kernels.KERNELS.interaction(comp, main, els))
+        # the coset scan shares the head
+        total = _scan_case(len(outs), 1 << 12, cuda)
+        outs.append((total, *constraint_kernels.KERNELS.scan(total)))
+    torch.cuda.synchronize()
+    assert not any(constraint_kernels.KERNELS.head(COMPONENT_CLASSES[0], cuda))
+    assert not any(constraint_kernels.KERNELS.head("scan", cuda))
+    for i, (comp, main, els) in enumerate(cases):
+        for g, w in zip(outs[2 * i], framework.interaction_plain(comp, main, els)):
+            assert torch.equal(g, w)
+        total, s, claimed = outs[2 * i + 1]
+        want, want_claimed = framework.prefix_sum_plain(
+            total, fft.coset_order_permutation(12, cuda))
+        assert torch.equal(s, want) and torch.equal(claimed, want_claimed)
+
+
+def test_logup_kernel_with_zero_denominators_on_the_card(cuda):
+    for cls in COMPONENT_CLASSES:
+        comp, main, els = _interaction_case(cls, 10, 77, cuda, edge=True)
+        n = 1 << 10
+        isf = torch.zeros(n, dtype=torch.int32, device=cuda)
+        isf[0] = 1
+        for rows in (n, n - 3):  # a ragged last thread
+            sub = {k: v[:rows] for k, v in main.items()}
+            q, total = constraint_kernels.KERNELS.logup(comp, sub, isf[:rows], els)
+            wq, wtotal = framework.logup_fractions_plain(comp, sub, isf[:rows], els)
+            assert torch.equal(q, wq) and torch.equal(total.to(torch.int64), wtotal)

@@ -113,12 +113,17 @@ def test_linear_scan_emulation_with_a_carry(n):
 
 @pytest.mark.parametrize("log_n", range(2, 31))
 def test_scan_geometry_covers_every_pair_once(log_n):
-    col_log, row_log, tile_rows, tiles, rpw = ck.scan_geometry(log_n)
-    assert col_log + row_log == log_n - 1 and col_log <= 5
-    # a tile's rows of the chain's first half, as many mirrors: every pair once
-    assert 2 * tiles * tile_rows == 1 << row_log
-    assert (rpw * 8 == tile_rows) if tile_rows >= 8 else rpw == 1
-    assert tiles == min(64, max(1, (1 << (row_log - 1)) // 32))
+    for max_tiles in (1, 7, 132, 264, 1056):
+        col_log, row_log, tile_rows, tiles, rpw = ck.scan_geometry(log_n, max_tiles)
+        assert col_log + row_log == log_n - 1 and col_log <= 5
+        # a tile's rows of the chain's first half, as many mirrors: every pair once
+        assert 2 * tiles * tile_rows == 1 << row_log
+        assert (rpw * 8 == tile_rows) if tile_rows >= 8 else rpw == 1
+        # as few rows a tile as keep the tiles resident, at least
+        # SCAN_MIN_TILE_ROWS where there are
+        low_rows = 1 << (row_log - 1)
+        assert tile_rows & (tile_rows - 1) == 0 and tiles <= max_tiles
+        assert tile_rows == min(low_rows, ck.SCAN_MIN_TILE_ROWS) or tiles > max_tiles // 2
 
 
 def test_scan_bound_and_refusals():
