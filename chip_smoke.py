@@ -71,7 +71,8 @@ Phases (any failure raises and the script exits non-zero):
      timed beside the one-device kernel's; then, counts set to 0 first, the
      small program through the CLI with --devices 8 (sha256, tamper) and
      fib19_io at D = 2 and 4 (sha256, verify), each with its per-phase
-     split, peak device memory and FFT, Blake2s and quotient launches, no
+     split (the decommitment in one device->host pull), peak device
+     memory and FFT, Blake2s and quotient launches, no
      plain FFT, Blake2s or quotient call on a CUDA tensor and no M31
      kernel; the small program also
      at --pow-bits 16 with --devices 8 (the grind kernel);
@@ -83,7 +84,8 @@ Phases (any failure raises and the script exits non-zero):
      process with NCCL, and under torchrun with one NCCL process a card
      (sha256, verified on the card); fib19_io in two
      spawned processes sharing the card (gloo), cold then warm, each process
-     reporting its phases, peak device memory, FFT launches and plain calls
+     reporting its phases (the decommitment in one pull and one
+     all_reduce), peak device memory, FFT launches and plain calls
      (counts at 0 before each prove); with two or more cards, fib19_io on
      two (and four) cards with NCCL. Every process must launch the FFT
      kernel and the Blake2s tree kernel (at most twice a commit: its shard's
@@ -96,9 +98,11 @@ Phases (any failure raises and the script exits non-zero):
      warm, verify, sha256, the last proof verified by the CLI in a fresh
      process) and programs/big22.bf (1.32 M steps, 2^22-row tables; a
      fresh-process verify too), each with its per-phase split and peak
-     device memory, then one more warm fib19_io prove under
-     torch.profiler (device busy share, host syncs and the time waiting
-     in them).
+     device memory (every prove's decommitment in one device->host pull),
+     then one more warm fib19_io prove under torch.profiler (device busy
+     share, host syncs and the time waiting in them, garbage-collection
+     pauses, and the decommit phase's seconds, pulls, device-to-host
+     copies and host syncs).
      After each prove the FFT kernel's, the Blake2s tree kernel's, the
      quotient kernel's and the constraint kernels' launch counts must have
      risen (the tree kernel once a commit on one device, at most once a
@@ -146,6 +150,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import ctypes
+import gc
 import hashlib
 import io
 import json
@@ -179,6 +184,7 @@ from stwo_brainfuck_tpu_torch.framework import component as framework
 from stwo_brainfuck_tpu_torch.ops import (blake2s_kernels, circle_fft, constraint_kernels,
                                            m31_kernels, nvcc, quotient_kernels)
 from stwo_brainfuck_tpu_torch.parallel import fft_sharded
+from stwo_brainfuck_tpu_torch.parallel import mesh as mesh_calls
 from stwo_brainfuck_tpu_torch.parallel.merkle_sharded import commit_sharded
 from stwo_brainfuck_tpu_torch.parallel.mesh import make_mesh
 from stwo_brainfuck_tpu_torch.vm.compiler import compile_program
@@ -1002,6 +1008,39 @@ def _trees_per_commit(launched: dict, commits: int, shards: int, what: str) -> d
     return {"commits": commits, "tree_launches_per_commit": launched["tree"] / commits}
 
 
+class _PhaseCalls(air.PhaseTimer):
+    """air.PhaseTimer that also records, for each phase, the device->host
+    pulls of the decommitment's reads (core/merkle.PULLS) and the
+    torch.distributed calls of the process mesh (parallel/mesh.CALLS)
+    made in it."""
+
+    def __init__(self, device):
+        super().__init__(device)
+        self.calls: dict = {}
+        self._seen = self._now()
+
+    @staticmethod
+    def _now() -> dict:
+        return {"pulls": merkle.PULLS, **mesh_calls.CALLS}
+
+    def mark(self, name: str) -> None:
+        super().mark(name)
+        now = self._now()
+        self.calls[name] = {k: v - self._seen.get(k, 0) for k, v in now.items()
+                            if v != self._seen.get(k, 0)}
+        self._seen = now
+
+
+def _decommit_phase(seconds: float, calls: dict, what: str, processes: bool = False) -> dict:
+    """A prove's decommit phase: every gather served in one device->host
+    pull and, on the process mesh (`processes`), in one all_reduce and no
+    other torch.distributed call."""
+    want = {"pulls": 1, **({"all_reduce": 1} if processes else {})}
+    if calls != want:
+        raise AssertionError(f"{what}: decommit made {calls}, not {want}")
+    return {"s": seconds, **calls}
+
+
 def _require(launched: dict, plain_fft: int, plain_blake: int, what: str,
              grind: bool = False, plain_quotients: int = 0, plain_constraints: int = 0) -> dict:
     """A prove's launches: the FFT, the Blake2s tree kernel, the quotient
@@ -1116,7 +1155,7 @@ def phase_program(name, path, inp, runs: int, expect_sha: str | None,
         steps = len(machine.trace())
         torch.cuda.reset_peak_memory_stats()
         before = _counts()
-        timer = air.PhaseTimer("cuda")
+        timer = _PhaseCalls("cuda")
         with _counting_commits() as counted:
             t1 = time.perf_counter()
             proof = air.prove_brainfuck(machine, config, device="cuda", timer=timer, mesh=mesh)
@@ -1128,6 +1167,8 @@ def phase_program(name, path, inp, runs: int, expect_sha: str | None,
             raise AssertionError(f"{name} prove: {launched['grind']} grind launches, not one")
         trees = _trees_per_commit(launched, counted["commits"], len(mesh.local) if mesh else 0,
                                   f"{name} prove")
+        decommit = _decommit_phase(timer.seconds["decommit"], timer.calls["decommit"],
+                                   f"{name} prove")
         peak = torch.cuda.max_memory_allocated()
         t2 = time.perf_counter()
         air.verify_brainfuck(proof, device="cuda")
@@ -1147,7 +1188,7 @@ def phase_program(name, path, inp, runs: int, expect_sha: str | None,
             "vm_s": t1 - t0, "prove_s": prove_s, "verify_s": verify_s,
             "khz": steps / prove_s / 1e3, "proof_bytes": len(json.dumps(proof)),
             "claim_max_log": max(proof["claim"].values()),
-            "phases_s": timer.seconds, "peak_device_bytes": peak,
+            "phases_s": timer.seconds, "decommit": decommit, "peak_device_bytes": peak,
             "fft_launches": launched["fft"],
             "blake2s_launches": {k: launched[k] for k in blake2s_kernels.ENTRIES},
             "quotient_launches": launched["quotients"],
@@ -1185,12 +1226,57 @@ def phase_fresh_verify(name: str, proof: dict) -> dict:
     return out
 
 
+class _ProfiledPhases:
+    """A prove's phase marks as torch.profiler ranges, without
+    synchronizing: phase k is the range "prove phase k", named at its mark;
+    the decommitment's pulls (core/merkle.PULLS) are read at each mark, and
+    the interpreter's garbage-collection pauses are timed in each phase."""
+
+    def __init__(self):
+        self.names: list = []
+        self.pulls: dict = {}
+        self.gc_s: dict = {}
+        self._pulls = merkle.PULLS
+        self._gc = [0.0, None]  # seconds in this phase, start of a pause
+        gc.callbacks.append(self._on_gc)
+        self._open()
+
+    def _on_gc(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            self._gc[1] = time.perf_counter()
+        elif self._gc[1] is not None:
+            self._gc[0] += time.perf_counter() - self._gc[1]
+            self._gc[1] = None
+
+    def _open(self) -> None:
+        self._range = torch.profiler.record_function(f"prove phase {len(self.names)}")
+        self._range.__enter__()
+
+    def mark(self, name: str) -> None:
+        self._range.__exit__(None, None, None)
+        self.pulls[name] = merkle.PULLS - self._pulls
+        self._pulls = merkle.PULLS
+        self.gc_s[name] = self._gc[0]
+        self._gc[0] = 0.0
+        self.names.append(name)
+        self._open()
+
+    def close(self) -> None:
+        self._range.__exit__(None, None, None)
+        gc.callbacks.remove(self._on_gc)
+
+
 def phase_split(name: str, path: str, inp: bytes) -> dict:
-    """One more warm prove of the program under torch.profiler (no phase
-    timer, so only the prove's own synchronizations): the device-busy
-    share (the union of kernel and copy intervals over the prove's wall
-    time), the host synchronizations the prove makes and the time spent
-    waiting in them, and the kernels that take the most device time."""
+    """One more warm prove of the program under torch.profiler (its phase
+    marks as profiler ranges, which do not synchronize, so only the
+    prove's own synchronizations): the device-busy share (the union of
+    kernel and copy intervals over the prove's wall time), the host
+    synchronizations the prove makes and the time spent waiting in them,
+    the kernels that take the most device time, the interpreter's
+    garbage-collection pauses, and the decommit phase: its seconds,
+    device->host pulls (one: every gather in one copy; also read as the
+    device-to-host copies in its range), host syncs and collection
+    pauses."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1199,19 +1285,31 @@ def phase_split(name: str, path: str, inp: bytes) -> dict:
     machine.execute()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        phases = _ProfiledPhases()
         t0 = time.perf_counter()
-        air.prove_brainfuck(machine, device="cuda")
+        air.prove_brainfuck(machine, device="cuda", timer=phases)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
+        phases.close()
+    ranges = {f"prove phase {k}": n for k, n in enumerate(phases.names)}
     spans, syncs, wait_us, by_kernel, kernels = [], {}, 0.0, {}, 0
+    sync_at, dtoh_at, decommit = [], [], None
     for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
+        if ev.name in ranges:  # the phase ranges (on the host, and their device annotations)
+            if ev.device_type == DeviceType.CPU and ranges[ev.name] == "decommit":
+                decommit = ev.time_range
+        elif ev.device_type == DeviceType.CUDA:
             spans.append((ev.time_range.start, ev.time_range.end))
             kernels += not ev.name.startswith(("Memcpy", "Memset"))
             by_kernel[ev.name] = by_kernel.get(ev.name, 0.0) + ev.time_range.elapsed_us()
+            if ev.name.startswith("Memcpy DtoH"):
+                dtoh_at.append(ev.time_range.start)
         elif "Synchronize" in ev.name:
             syncs[ev.name] = syncs.get(ev.name, 0) + 1
             wait_us += ev.time_range.elapsed_us()
+            sync_at.append(ev.time_range.start)
+    if decommit is None:
+        raise AssertionError(f"{name}: no decommit range among the profiler's events")
     busy_us, end = 0.0, None
     for a, b in sorted(spans):
         if end is None or a > end:
@@ -1220,13 +1318,20 @@ def phase_split(name: str, path: str, inp: bytes) -> dict:
         elif b > end:
             busy_us += b - end
             end = b
+    inside = lambda ts: sum(decommit.start <= t <= decommit.end for t in ts)  # noqa: E731
+    split = {"s": decommit.elapsed_us() / 1e6, "pulls": phases.pulls["decommit"],
+             "device_to_host_copies": inside(dtoh_at), "host_syncs": inside(sync_at),
+             "gc_s": phases.gc_s["decommit"]}
+    if split["pulls"] != 1 or split["device_to_host_copies"] != 1:
+        raise AssertionError(f"{name}: decommit made {split}, not one pull")
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
     out = {"program": name, "run": "warm, profiled", "prove_s": wall_s,
            "device_busy_s": busy_us / 1e6 if spans else None,
            "device_busy_share": busy_us / 1e6 / wall_s if spans else "not measured",
            "device_events": len(spans), "device_kernels": kernels,
            "host_syncs": sum(syncs.values()), "syncs_by_call": syncs,
-           "sync_wait_s": wait_us / 1e6, "top_device_us": dict(top)}
+           "sync_wait_s": wait_us / 1e6, "gc_s": sum(phases.gc_s.values()), "decommit": split,
+           "top_device_us": dict(top)}
     _line("phase_split", out)
     return out
 
@@ -2123,7 +2228,7 @@ def _prove_rank(rank: int, world: int, port: int, backend: str, device: str, run
                 machine.execute()
                 torch.cuda.reset_peak_memory_stats(mesh.home)
                 _reset_counts()
-                timer = air.PhaseTimer(mesh.home)
+                timer = _PhaseCalls(mesh.home)
                 with _counting_commits() as counted:
                     t0 = time.perf_counter()
                     proof = air.prove_brainfuck(machine, timer=timer, mesh=mesh)
@@ -2131,7 +2236,7 @@ def _prove_rank(rank: int, world: int, port: int, backend: str, device: str, run
                 res = {"rank": rank, "run": run, "device": str(mesh.home),
                        "commits": counted["commits"],
                        "steps": len(machine.trace()), "prove_s": time.perf_counter() - t0,
-                       "phases_s": timer.seconds,
+                       "phases_s": timer.seconds, "decommit_calls": timer.calls["decommit"],
                        "peak_device_bytes": torch.cuda.max_memory_allocated(mesh.home),
                        "launches": _counts(),
                        "plain_fft_cuda_calls": fft.PLAIN_CUDA_CALLS,
@@ -2199,6 +2304,8 @@ def _distributed_group(world: int, backend: str, device: str, runs: int) -> int:
                                   r["plain_blake2s_cuda_calls"], r["plain_quotient_cuda_calls"],
                                   r["plain_constraint_cuda_calls"]))
             r.update(_trees_per_commit(r["launches"], r["commits"], 1, f"process {r['rank']}"))
+            r["decommit"] = _decommit_phase(r["phases_s"]["decommit"], r["decommit_calls"],
+                                            f"process {r['rank']}", processes=True)
             if r["m31_launches"] or r["plain_m31_cuda_calls"]:
                 raise AssertionError(f"process {r['rank']}: an M31 kernel or plain M31 op ran")
             launched = _add_counts(launched, r["launches"])
@@ -2211,7 +2318,7 @@ def _distributed_group(world: int, backend: str, device: str, runs: int) -> int:
             "prove_s": max(r["prove_s"] for r in ranks), "verify_s": ranks[0]["verify_s"],
             "khz": ranks[0]["steps"] / max(r["prove_s"] for r in ranks) / 1e3,
             "proof_bytes": ranks[0]["proof_bytes"], "sha256": sha, "matches_jax": True,
-            "processes": [{k: r[k] for k in ("rank", "device", "prove_s", "phases_s",
+            "processes": [{k: r[k] for k in ("rank", "device", "prove_s", "phases_s", "decommit",
                                          "peak_device_bytes", "fft_launches",
                                          "blake2s_launches", "quotient_launches",
                                          "constraint_launches", "commits",

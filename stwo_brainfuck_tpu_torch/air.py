@@ -405,11 +405,15 @@ def _prove_tables(mats: Dict[str, torch.Tensor], claim: Dict[str, int],
     mark("pow")
 
     log.info("Decommitment")
-    decommitments = []
-    for tree in trees:
-        pos = query_positions_by_level(queries, s_max, sorted(tree.column_levels()))
-        decommitments.append(merkle.decommit(tree.tree, pos))
-    fri.fri_decommit(fri_prover, queries)
+    # every tree's and FRI layer's gathers and the FRI layer values served
+    # in one pass: one device->host pull (one all_reduce on a process mesh)
+    pendings = [merkle.decommit_async(
+        tree.tree, query_positions_by_level(queries, s_max, sorted(tree.column_levels())))
+        for tree in trees]
+    fri_positions, fri_pendings, fri_values = fri.fri_decommit_async(fri_prover, queries)
+    decs, values_host = merkle.finalize_with_extra(pendings + fri_pendings, fri_values)
+    decommitments = decs[:len(trees)]
+    fri.fri_decommit_finish(fri_prover, fri_positions, decs[len(trees):], values_host)
     mark("decommit")
 
     return {

@@ -42,6 +42,11 @@ def point_add(a, b):
     )
 
 
+def point_neg(a):
+    """Inverse in the group = conjugate (x, -y)."""
+    return (a[0], (P_INT - a[1]) % P_INT)
+
+
 def point_double(a):
     return point_add(a, a)
 
@@ -168,6 +173,11 @@ class CanonicCoset:
     def circle_domain(self) -> CircleDomain:
         return CircleDomain(half_odds(self.log_size - 1))
 
+    def step_index(self) -> int:
+        """Index of the subgroup generator of size 2^log_size (the step of
+        the LogUp prefix-sum's shifted mask point)."""
+        return 1 << (M31_CIRCLE_LOG_ORDER - self.log_size)
+
 
 # ---------------------------------------------------------------------------
 # QM31 ("secure field") points for out-of-domain sampling
@@ -182,8 +192,21 @@ def secure_point_add(a, b):
     )
 
 
+def secure_point_neg(a):
+    return (a[0], qm31.h_neg(a[1]))
+
+
+def secure_point_double(a):
+    return secure_point_add(a, a)
+
+
 def secure_point_from_m31(p):
     return ((p[0], 0, 0, 0), (p[1], 0, 0, 0))
+
+
+def secure_point_mul_index(index: int):
+    """G^index embedded in the QM31 circle."""
+    return secure_point_from_m31(point_at_index(index))
 
 
 def point_from_t(t):

@@ -186,18 +186,37 @@ def fri_commit(inputs: Dict[int, torch.Tensor], channel, ops=None) -> FriProver:
     )
 
 
-def fri_decommit(prover: FriProver, queries: Sequence[int]) -> None:
-    """Decommit each layer at the query fold quads, filling
-    proof.layer_decommitments (witness hashes only: the values travel once,
-    in proof.layer_values)."""
+def fri_decommit_async(prover: FriProver, queries: Sequence[int]):
+    """Every layer's decommitment gathers at the query fold quads (witness
+    hashes only: the values travel once, in proof.layer_values) and its
+    value gather, recorded and not served. Returns (each layer's
+    positions, the layers' pending decommitments, the value gathers); the
+    caller serves them with other gathers (merkle.finalize_with_extra)
+    and passes the results to fri_decommit_finish."""
+    positions_list, pendings, values = [], [], []
     for tree, evals, m in zip(prover.layers, prover.layer_evals, prover.layer_levels):
         positions = sorted({((q >> (prover.max_log - m)) & ~3) + j
                             for q in queries for j in range(4)})
-        prover.proof.layer_decommitments.append(
-            merkle.decommit(tree, positions, include_values=False))
-        got = merkle.gather_columns(evals, positions)
-        prover.proof.layer_values.append(
-            {p: tuple(int(x) for x in got[:, i]) for i, p in enumerate(positions)})
+        pendings.append(merkle.decommit_async(tree, positions, include_values=False))
+        values.append(merkle.Gather(evals, positions))
+        positions_list.append(positions)
+    return positions_list, pendings, values
+
+
+def fri_decommit_finish(prover: FriProver, positions_list, decs, values_host) -> None:
+    """Fill proof.layer_decommitments and layer_values from the served
+    decommitments and value gathers ((4, n) host arrays)."""
+    for positions, dec, got in zip(positions_list, decs, values_host):
+        prover.proof.layer_decommitments.append(dec)
+        prover.proof.layer_values.append(dict(zip(positions, map(tuple, got.T.tolist()))))
+
+
+def fri_decommit(prover: FriProver, queries: Sequence[int]) -> None:
+    """Decommit each layer at the query fold quads, filling
+    proof.layer_decommitments and layer_values (one pass, one pull)."""
+    positions_list, pendings, values = fri_decommit_async(prover, queries)
+    decs, values_host = merkle.finalize_with_extra(pendings, values)
+    fri_decommit_finish(prover, positions_list, decs, values_host)
 
 
 class FriVerificationError(Exception):

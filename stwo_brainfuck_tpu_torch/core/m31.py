@@ -53,6 +53,18 @@ def pow_const_sq(a, n: int):
     return a
 
 
+def pow_const(a, e: int):
+    """a^e for a Python exponent (square-and-multiply)."""
+    result = None
+    base = wide(a)
+    while e > 0:
+        if e & 1:
+            result = base if result is None else mul(result, base)
+        base = square(base)
+        e >>= 1
+    return torch.ones_like(base) if result is None else result
+
+
 def inv(a):
     """a^(p-2) = a^-1, with 0 mapping to 0 (the VM's mvi convention).
     Same addition chain as the JAX package (p - 2 = (2^29 - 1)·4 + 1)."""

@@ -107,6 +107,9 @@ class TreeProver:
     def root(self) -> bytes:
         return self.tree.root
 
+    def decommit(self, positions_by_level: Dict[int, List[int]]) -> merkle.MerkleDecommitment:
+        return merkle.decommit(self.tree, positions_by_level)
+
     def column_levels(self) -> Dict[int, int]:
         by_level: Dict[int, int] = {}
         for rec in self.records:

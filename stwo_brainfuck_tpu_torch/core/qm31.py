@@ -68,6 +68,20 @@ def mul(x, y) -> torch.Tensor:
     return torch.stack([out0, out1, out2, out3])
 
 
+def pow_const(x, e: int) -> torch.Tensor:
+    """x^e for a Python exponent (square-and-multiply), x of shape (4, ...)."""
+    result = None
+    base = m31.wide(x)
+    while e > 0:
+        if e & 1:
+            result = base if result is None else mul(result, base)
+        base = mul(base, base)
+        e >>= 1
+    if result is None:
+        return from_m31(torch.ones_like(base[0]))
+    return result
+
+
 def mul_m31(x, s) -> torch.Tensor:
     """QM31 × M31 (scalar or tensor broadcast over the 4 coordinates)."""
     s = m31.wide(s)

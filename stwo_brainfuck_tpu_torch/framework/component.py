@@ -249,6 +249,16 @@ class Component:
     def define_constraints(self, e: Evaluator) -> None:
         raise NotImplementedError
 
+    @property
+    def n_main_columns(self) -> int:
+        return len(self.columns)
+
+    @property
+    def n_interaction_columns(self) -> int:
+        """QM31 interaction columns: one fraction column a relation entry,
+        plus the prefix sum."""
+        return self.relation_count() + 1
+
     def relation_count(self) -> int:
         """Number of LogUp relation entries (dry run with dummies)."""
         return _counts(type(self))[0]

@@ -27,8 +27,11 @@ The collectives:
 - ``shift``: shard i receives the last column of shard i - 1, cyclically;
 - ``permute``: the global gather ``out[j] = x[perm[j]]``;
 - ``sum``: the sum of every shard's value (the OODS partial contractions);
-- ``full`` and ``gather``: the whole array, or some of its positions, in
-  every process (the last FRI layer, the decommitment's reads).
+- ``full``: the whole array in every process (the last FRI layer);
+- ``gather_many``: the values at some positions of any number of arrays,
+  on the host in every process, in one pass (the decommitment's reads,
+  ``core/merkle.serve``): one device->host pull, and on the process mesh
+  one ``all_reduce``.
 
 Shards may share a device (D shards on one card, or on the CPU): then
 ``t.to(device)`` returns the same tensor, so every collective builds a
@@ -37,11 +40,19 @@ new list of shards and none updates a shard in place.
 
 from __future__ import annotations
 
+from collections import Counter
 from dataclasses import dataclass
 from typing import Callable, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as tdist
+
+from ..core import merkle
+
+# torch.distributed calls the process-group mesh has made in this process,
+# by name ("all_gather", "sendrecv", "all_to_all", "all_reduce").
+CALLS: Counter = Counter()
 
 
 class Mesh:
@@ -117,6 +128,23 @@ class Mesh:
         """The whole array on this process's device."""
         return self._concat(x.shards) if isinstance(x, Sharded) else x.to(self.home)
 
+    def _parts(self, reads: "merkle.Reads", replicated: bool) -> list:
+        """What this process reads of a batch of gathers: of a sharded
+        source, the run of sorted positions each shard it owns holds; of a
+        plain one (the same in every process), all of them if
+        `replicated`."""
+        parts = []
+        for j, g in enumerate(reads.gathers):
+            if not isinstance(g.source, Sharded):
+                if replicated:
+                    parts.append(reads.part(j, g.source))
+                continue
+            c = g.source.chunk
+            runs = np.searchsorted(reads.positions[j], np.arange(self.size + 1) * c)
+            for i in self.local:
+                parts.append(reads.part(j, g.source.shards[i], runs[i], runs[i + 1], i * c))
+        return parts
+
 
 @dataclass(frozen=True)
 class DeviceMesh(Mesh):
@@ -181,17 +209,12 @@ class DeviceMesh(Mesh):
         """The sum of every shard's value, on this process's device."""
         return sum(s.to(self.home) for s in shards)
 
-    def gather(self, shards: Sequence[torch.Tensor], positions: Sequence[int]) -> torch.Tensor:
-        """x[..., positions] of the concatenated shards, as a CPU tensor."""
-        pos = torch.as_tensor(list(positions), dtype=torch.int64)
-        chunk = int(shards[0].shape[-1])
-        out = torch.empty(tuple(shards[0].shape[:-1]) + (pos.numel(),), dtype=shards[0].dtype)
-        owner = pos // chunk
-        for i, s in enumerate(shards):
-            sel = torch.nonzero(owner == i).flatten()
-            if sel.numel():
-                out[..., sel] = s[..., (pos[sel] % chunk).to(s.device)].cpu()
-        return out
+    def gather_many(self, gathers: Sequence["merkle.Gather"]) -> List[np.ndarray]:
+        """Every gather's values on the host (a sharded source's positions
+        read on the shards that own them): one copy a device to `home`,
+        one device->host pull."""
+        reads = merkle.Reads(gathers)
+        return reads.collect(self._parts(reads, replicated=True), self.home)
 
 
 @dataclass(frozen=True)
@@ -224,6 +247,7 @@ class ProcessGroupMesh(Mesh):
     def _gather_list(self, x: torch.Tensor) -> List[torch.Tensor]:
         x = self._stage(x)
         parts = [torch.empty_like(x) for _ in range(self.size)]
+        CALLS["all_gather"] += 1
         tdist.all_gather(parts, x)
         return [p.to(self.home) for p in parts]
 
@@ -234,6 +258,7 @@ class ProcessGroupMesh(Mesh):
             return x.clone()
         x = self._stage(x)
         buf = torch.empty_like(x)
+        CALLS["sendrecv"] += 1
         for req in tdist.batch_isend_irecv([tdist.P2POp(tdist.isend, x, to),
                                            tdist.P2POp(tdist.irecv, buf, frm)]):
             req.wait()
@@ -246,6 +271,7 @@ class ProcessGroupMesh(Mesh):
         inp = self._stage(torch.cat([s.movedim(-1, 0) for s in sends], dim=0))
         out = torch.empty((sum(recv_counts),) + tuple(inp.shape[1:]), dtype=inp.dtype,
                           device=inp.device)
+        CALLS["all_to_all"] += 1
         tdist.all_to_all_single(out, inp, output_split_sizes=recv_counts,
                                input_split_sizes=[int(s.shape[-1]) for s in sends])
         return [p.movedim(0, -1).to(self.home) for p in torch.split(out, recv_counts, dim=0)]
@@ -312,25 +338,30 @@ class ProcessGroupMesh(Mesh):
             o[..., dst] = x[..., src] if s == me else got[s]
         return self._only(o)
 
+    def _all_reduce(self, x: torch.Tensor) -> None:
+        CALLS["all_reduce"] += 1
+        tdist.all_reduce(x)
+
     def sum(self, shards: Sequence[torch.Tensor]) -> torch.Tensor:
         x = self._stage(shards[self.rank]).clone()
-        tdist.all_reduce(x)
+        self._all_reduce(x)
         return x.to(self.home)
 
-    def gather(self, shards: Sequence[torch.Tensor], positions: Sequence[int]) -> torch.Tensor:
-        """Every process fills the positions its shard owns, zeros elsewhere;
-        one all_reduce sums them (exact: one term a position is non-zero)."""
-        mine = shards[self.rank]
-        chunk = int(mine.shape[-1])
-        pos = torch.as_tensor(list(positions), dtype=torch.int64)
-        out = torch.zeros(tuple(mine.shape[:-1]) + (pos.numel(),), dtype=mine.dtype,
-                          device=self._wire)
-        sel = torch.nonzero(pos // chunk == self.rank).flatten()
-        if sel.numel():
-            out[..., sel.to(self._wire)] = \
-                mine[..., (pos[sel] % chunk).to(mine.device)].to(self._wire)
-        tdist.all_reduce(out)
-        return out.cpu()
+    def gather_many(self, gathers: Sequence["merkle.Gather"]) -> List[np.ndarray]:
+        """Every gather's values on the host, the same in every process:
+        each process writes the positions its shard owns (rank 0 also the
+        gathers of plain arrays, which every process holds alike) into a
+        zeroed buffer, and one all_reduce sums them (exact: one term a slot
+        is non-zero). One device->host pull."""
+        reads = merkle.Reads(gathers)
+        buf = torch.zeros(reads.total, dtype=reads.dtype, device=self.home)
+        reads.gather_into(self._parts(reads, replicated=self.rank == 0), buf)
+        if self.backend == "gloo":
+            host = torch.from_numpy(merkle.pull(buf))
+            self._all_reduce(host)
+            return reads.place(host.numpy())
+        self._all_reduce(buf)
+        return reads.place(merkle.pull(buf))
 
 
 class Permutation:
@@ -398,9 +429,9 @@ class Sharded:
         return Sharded(self.mesh, self.mesh.each(lambda i: self.shards[i][j]))
 
     def gather(self, positions: Sequence[int]) -> torch.Tensor:
-        """x[..., positions] as a CPU tensor (the decommitment's reads), the
-        same in every process."""
-        return self.mesh.gather(self.shards, positions)
+        """x[..., positions] as a CPU tensor, the same in every process
+        (one read of Mesh.gather_many)."""
+        return torch.from_numpy(self.mesh.gather_many([merkle.Gather(self, positions)])[0])
 
     def full(self) -> torch.Tensor:
         """The concatenated array on this process's device."""

@@ -18,6 +18,9 @@ class InstructionType(IntEnum):
     JumpIfZero = ord("[")     # 91
     JumpIfNotZero = ord("]")  # 93
 
+    def to_u32(self) -> int:
+        return int(self)
+
 
 VALID_INSTRUCTIONS_BF = "><+-.,[]"
 _VALID_SET = frozenset(ord(c) for c in VALID_INSTRUCTIONS_BF)
@@ -36,3 +39,7 @@ def from_u8(value: int) -> InstructionType:
     if value not in _VALID_SET:
         raise InstructionError(value)
     return InstructionType(value)
+
+
+def is_instruction(value: int) -> bool:
+    return value in _VALID_SET

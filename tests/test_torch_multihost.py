@@ -169,6 +169,21 @@ def test_two_process_sharded_fft_matches_jax(groups, op):
                                           err_msg=f"{k} on rank {rank}")
 
 
+def test_two_process_decommitment_matches_one_device(groups):
+    """The batched decommitment on the process mesh: the one-device bytes
+    in every process, one all_reduce and one device->host pull."""
+    from stwo_brainfuck_tpu_torch.core import merkle as tmerkle
+
+    inp = worker.decommit_inputs()
+    cols = {k: torch.as_tensor(v) for k, v in inp["columns"].items()}
+    want = json.dumps(tmerkle.decommit(tmerkle.commit(cols), inp["queries"]).to_json())
+    x = inp["columns"][6][:, inp["positions"]]
+    for rank, got in enumerate(groups[2]):
+        assert got["decommit_json"] == want, f"rank {rank}"
+        np.testing.assert_array_equal(got["decommit_extra"].numpy(), np.stack([x, x]))
+        assert got["decommit_counts"].tolist() == [1, 1], f"rank {rank}: all_reduce, pulls"
+
+
 # ---------------------------------------------------------------------------
 # The CLI's prove --distributed
 # ---------------------------------------------------------------------------

@@ -6,10 +6,12 @@ the port only, never jax):
 
 joins a gloo group of W processes on the CPU, runs every collective of the
 ProcessGroupMesh on the seeded inputs of ``inputs(W)`` (and, at W = 2, the
-sharded evaluate, interpolate and extend of ``fft_input()``), and saves
-what this process got to OUT_DIR/rank{R}.pt.
+sharded evaluate, interpolate and extend of ``fft_input()`` and the batched
+decommitment of ``decommit_inputs()``), and saves what this process got to
+OUT_DIR/rank{R}.pt.
 """
 
+import json
 import os
 import sys
 
@@ -62,6 +64,37 @@ def transforms(mesh) -> dict:
             "extend_coeffs": coeffs.full(), "extend": ext.full()}
 
 
+def decommit_inputs() -> dict:
+    """The decommitment case's columns (level -> (C, 2^k)), queries and
+    extra positions, the same in every process and in the test."""
+    rng = np.random.default_rng(13)
+    return {"columns": {6: rng.integers(0, P, (3, 64)).astype(np.int32),
+                        3: rng.integers(0, P, (2, 8)).astype(np.int32)},
+            "queries": [0, 9, 63, 40, 41, 9], "positions": [63, 0, 17, 5, 32]}
+
+
+def decommitment(mesh) -> dict:
+    """A sharded tree's decommitment finalized in one pass with two extra
+    gathers (of a sharded array and of a plain one, which only rank 0
+    writes), and the all_reduce calls and device->host pulls it made."""
+    from stwo_brainfuck_tpu_torch.core import merkle
+    from stwo_brainfuck_tpu_torch.parallel import mesh as mesh_mod
+    from stwo_brainfuck_tpu_torch.parallel.merkle_sharded import commit_sharded
+
+    inp = decommit_inputs()
+    cols = {k: torch.as_tensor(v) for k, v in inp["columns"].items()}
+    tree = commit_sharded(mesh, cols)
+    sharded = mesh.shard(cols[6])
+    calls, pulls = mesh_mod.CALLS["all_reduce"], merkle.PULLS
+    decs, extra = merkle.finalize_with_extra(
+        [merkle.decommit_async(tree, inp["queries"])],
+        [merkle.Gather(sharded, inp["positions"]), merkle.Gather(cols[6], inp["positions"])])
+    return {"decommit_json": json.dumps(decs[0].to_json()),
+            "decommit_extra": torch.from_numpy(np.stack(extra)),
+            "decommit_counts": torch.tensor([mesh_mod.CALLS["all_reduce"] - calls,
+                                             merkle.PULLS - pulls])}
+
+
 def main(out_dir: str) -> None:
     from stwo_brainfuck_tpu_torch.parallel import multihost
 
@@ -72,6 +105,7 @@ def main(out_dir: str) -> None:
         got = collectives(mesh)
         if mesh.size == 2:
             got.update(transforms(mesh))
+            got.update(decommitment(mesh))
         torch.save(got, os.path.join(out_dir, f"rank{mesh.local[0]}.pt"))
     finally:
         multihost.shutdown()
