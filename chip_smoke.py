@@ -4,7 +4,7 @@
 
 Phases (any failure raises and the script exits non-zero):
   1. device report: the card's name, power limit and clocks, CUDA version,
-     kernel build time (the six kernel libraries are built with nvcc from
+     kernel build time (the eight kernel libraries are built with nvcc from
      stwo_brainfuck_tpu_torch/csrc/ into stwo_brainfuck_tpu_torch/build/,
      one nvcc per source, started together), and the SASS instruction
      counts of one M31 product, m31::mul, the FFT's m31::mul_doubled and
@@ -63,7 +63,13 @@ Phases (any failure raises and the script exits non-zero):
      no prove path runs, each beside torch.cumsum of the same rows), on
      random and on edge inputs (zero denominators among them; the scan
      also of edge-valued row sums, in both modes), and in 4 chunks against
-     one launch (the scan: 4 linear chunks chained by their carries);
+     one launch (the scan: 4 linear chunks chained by their carries); then
+     the OODS kernel (csrc/oods.cu) and the FRI fold kernel
+     (csrc/fri_fold.cu) against their plain versions, bit for bit, at every
+     launch of a default fib19_io, a big22 and a production fib19_io prove
+     (the 2^28-position circle fold among them), each also as a mesh
+     shard's chunks at their offsets, each timed beside its bound and its
+     plain version (the `oods_fri` line);
   6. the mesh prover (stwo_brainfuck_tpu_torch/parallel/, D shards sharing
      the one card): the sharded evaluate, interpolate and extend (D 2, 4, 8;
      n 16, 20, 24; 1 and 8 columns) against the one-device kernel and the
@@ -104,14 +110,16 @@ Phases (any failure raises and the script exits non-zero):
      pauses, and the decommit phase's seconds, pulls, device-to-host
      copies and host syncs).
      After each prove the FFT kernel's, the Blake2s tree kernel's, the
-     quotient kernel's and the constraint kernels' launch counts must have
-     risen (the tree kernel once a commit on one device, at most once a
+     quotient kernel's, the constraint kernels', the OODS kernel's and the
+     fold kernel's launch counts must have risen (on one device one OODS
+     launch, its samples pulled once, and one fold launch a committed FRI
+     layer plus the last fold) (the tree kernel once a commit on one device, at most once a
      shard and once for the top on the mesh; the composition and
      interaction kernels once a component on one device and no logup or
      scan launch; on a mesh the logup kernel and the scan once a shard above
-     the sharded sizes), no plain FFT, Blake2s, quotient or constraint-path call (the
-     prefix sum included) may have run on a CUDA tensor and no M31 kernel
-     or plain M31 op;
+     the sharded sizes), no plain FFT, Blake2s, quotient, constraint-path
+     (the prefix sum included), OODS or fold call may have run on a CUDA
+     tensor and no M31 kernel or plain M31 op;
   9. production parameters (PcsConfig(log_blowup=4, n_queries=30,
      pow_bits=16)): the memory reading (production_memory: one cold
      fib19_io prove at input 19 under the allocator's history, its peak,
@@ -177,12 +185,13 @@ import torch
 from stwo_brainfuck_tpu_torch import air, bench, cli
 from stwo_brainfuck_tpu_torch.components import device_build, tables
 from stwo_brainfuck_tpu_torch.components.defs import COMPONENT_CLASSES, ELEMENT_SIZES
-from stwo_brainfuck_tpu_torch.core import blake2s, fft, merkle, quotients
+from stwo_brainfuck_tpu_torch.core import blake2s, fft, fri, merkle, poly, quotients
 from stwo_brainfuck_tpu_torch.core.channel import _plain_grind
 from stwo_brainfuck_tpu_torch.core.pcs import PcsConfig
 from stwo_brainfuck_tpu_torch.framework import component as framework
 from stwo_brainfuck_tpu_torch.ops import (blake2s_kernels, circle_fft, constraint_kernels,
-                                           m31_kernels, nvcc, quotient_kernels)
+                                           fri_kernels, m31_kernels, nvcc, oods_kernels,
+                                           quotient_kernels)
 from stwo_brainfuck_tpu_torch.parallel import fft_sharded
 from stwo_brainfuck_tpu_torch.parallel import mesh as mesh_calls
 from stwo_brainfuck_tpu_torch.parallel.merkle_sharded import commit_sharded
@@ -944,14 +953,38 @@ def _reset_counts() -> None:
     quotients.PLAIN_CUDA_CALLS = 0
     constraint_kernels.KERNELS.launches = dict.fromkeys(constraint_kernels.FAMILIES, 0)
     framework.PLAIN_CUDA_CALLS = 0
+    oods_kernels.KERNEL.launches = 0
+    fri_kernels.KERNEL.launches = 0
+    poly.PLAIN_CUDA_CALLS = 0
+    fri.PLAIN_CUDA_CALLS = 0
 
 
 def _counts() -> dict:
     """The prover's kernels' launch counts: the FFT, each Blake2s entry, the
-    quotient kernel and the two constraint kernels."""
+    quotient kernel, the constraint kernels, the OODS kernel and the FRI
+    fold kernel."""
     return {"fft": circle_fft.KERNEL.launches, **blake2s_kernels.KERNELS.launches,
             "quotients": quotient_kernels.KERNEL.launches,
-            **constraint_kernels.KERNELS.launches}
+            **constraint_kernels.KERNELS.launches, "oods": oods_kernels.KERNEL.launches,
+            "fri_fold": fri_kernels.KERNEL.launches}
+
+
+def _oods_fri_per_prove(launched: dict, layers: int, shards: int, oods_pulls: int,
+                        what: str) -> None:
+    """The OODS and fold kernels of one prove. One device: one OODS launch,
+    its samples pulled once, and one fold launch a committed FRI layer plus
+    the last fold (layers + 1). A mesh: one OODS launch a shard at most,
+    and the fold launches between layers + 1 and a shard's each."""
+    oods, folds = launched["oods"], launched["fri_fold"]
+    if not shards:
+        ok = oods == 1 and oods_pulls == 1 and folds == layers + 1
+    else:
+        ok = (1 <= oods <= shards and oods_pulls == 1
+              and layers + 1 <= folds <= (layers + 1) * shards)
+    if not ok:
+        raise AssertionError(f"{what}: {oods} OODS launches, {oods_pulls} OODS pulls and {folds} "
+                             f"fold launches for {layers} FRI layers"
+                             + (f" on {shards} shards" if shards else ""))
 
 
 def _constraint_launches(launched: dict) -> dict:
@@ -1010,7 +1043,8 @@ def _trees_per_commit(launched: dict, commits: int, shards: int, what: str) -> d
 
 class _PhaseCalls(air.PhaseTimer):
     """air.PhaseTimer that also records, for each phase, the device->host
-    pulls of the decommitment's reads (core/merkle.PULLS) and the
+    pulls of the decommitment's reads (core/merkle.PULLS) and of the OODS
+    samples (core/poly.PULLS) and the
     torch.distributed calls of the process mesh (parallel/mesh.CALLS)
     made in it."""
 
@@ -1021,7 +1055,7 @@ class _PhaseCalls(air.PhaseTimer):
 
     @staticmethod
     def _now() -> dict:
-        return {"pulls": merkle.PULLS, **mesh_calls.CALLS}
+        return {"pulls": merkle.PULLS, "oods_pulls": poly.PULLS, **mesh_calls.CALLS}
 
     def mark(self, name: str) -> None:
         super().mark(name)
@@ -1042,13 +1076,16 @@ def _decommit_phase(seconds: float, calls: dict, what: str, processes: bool = Fa
 
 
 def _require(launched: dict, plain_fft: int, plain_blake: int, what: str,
-             grind: bool = False, plain_quotients: int = 0, plain_constraints: int = 0) -> dict:
+             grind: bool = False, plain_quotients: int = 0, plain_constraints: int = 0,
+             plain_oods_fri: int = 0) -> dict:
     """A prove's launches: the FFT, the Blake2s tree kernel, the quotient
-    kernel, the composition kernel and the LogUp interaction (the
+    kernel, the composition kernel, the LogUp interaction (the
     interaction kernel, or on a mesh's shards the logup kernel and the
-    scan), and the grind where pow_bits > 13, launched; no plain FFT,
-    Blake2s, quotient or constraint call on a CUDA tensor."""
-    needed = ("fft", "tree", "quotients", "composition") + (("grind",) if grind else ())
+    scan), the OODS kernel and the fold kernel, and the grind where
+    pow_bits > 13, launched; no plain FFT, Blake2s, quotient, constraint,
+    OODS or fold call on a CUDA tensor."""
+    needed = (("fft", "tree", "quotients", "composition", "oods", "fri_fold")
+              + (("grind",) if grind else ()))
     missing = [k for k in needed if launched.get(k, 0) <= 0]
     if launched.get("interaction", 0) <= 0 and (launched.get("logup", 0) <= 0
                                                 or launched.get("scan", 0) <= 0):
@@ -1065,13 +1102,17 @@ def _require(launched: dict, plain_fft: int, plain_blake: int, what: str,
         raise AssertionError(f"{what}: the plain constraint path (the Expr evaluation, the "
                              f"fractions or the prefix sum) ran on a CUDA tensor "
                              f"{plain_constraints} times")
+    if plain_oods_fri:
+        raise AssertionError(f"{what}: the plain OODS sampling or FRI fold ran on a CUDA tensor "
+                             f"{plain_oods_fri} times")
     return launched
 
 
 def _require_here(launched: dict, what: str, grind: bool = False) -> dict:
     """_require with this process's plain-call counts."""
     return _require(launched, fft.PLAIN_CUDA_CALLS, blake2s.PLAIN_CUDA_CALLS, what, grind,
-                    quotients.PLAIN_CUDA_CALLS, framework.PLAIN_CUDA_CALLS)
+                    quotients.PLAIN_CUDA_CALLS, framework.PLAIN_CUDA_CALLS,
+                    poly.PLAIN_CUDA_CALLS + fri.PLAIN_CUDA_CALLS)
 
 
 def _check_launches(before: dict, what: str, grind: bool = False) -> dict:
@@ -1127,6 +1168,7 @@ def phase_small(tag: str = "small", flags: tuple = (), reference: str = "small")
                 "blake2s_launches": {k: launched[k] for k in blake2s_kernels.ENTRIES},
                 "quotient_launches": launched["quotients"],
                 "constraint_launches": _constraint_launches(launched),
+                "oods_launches": launched["oods"], "fold_launches": launched["fri_fold"],
                 **({"matches_cpu_proof": True} if pow16 else {})})
     return launched
 
@@ -1169,6 +1211,9 @@ def phase_program(name, path, inp, runs: int, expect_sha: str | None,
                                   f"{name} prove")
         decommit = _decommit_phase(timer.seconds["decommit"], timer.calls["decommit"],
                                    f"{name} prove")
+        _oods_fri_per_prove(launched, len(proof["fri"]["layer_roots"]),
+                            len(mesh.local) if mesh else 0,
+                            timer.calls["oods"].get("oods_pulls", 0), f"{name} prove")
         peak = torch.cuda.max_memory_allocated()
         t2 = time.perf_counter()
         air.verify_brainfuck(proof, device="cuda")
@@ -1192,7 +1237,8 @@ def phase_program(name, path, inp, runs: int, expect_sha: str | None,
             "fft_launches": launched["fft"],
             "blake2s_launches": {k: launched[k] for k in blake2s_kernels.ENTRIES},
             "quotient_launches": launched["quotients"],
-            "constraint_launches": _constraint_launches(launched), **trees,
+            "constraint_launches": _constraint_launches(launched),
+            "oods_launches": launched["oods"], "fold_launches": launched["fri_fold"], **trees,
             "sha256": sha, "matches_jax": None if expect_sha is None else True,
             **({"matches_recorded": True} if recorded else {}),
         })
@@ -1476,6 +1522,177 @@ def phase_quotients(fib_path: str, per_mul: float, dispatch_per_s: float) -> dic
     out = {"shapes": shapes, "comparisons": len(shapes), "tolerance": 0, "max_abs_err": max_err,
            "chunk_log": QUOTIENT_CHUNK_LOG, "times": times}
     _line("quotients", out)
+    return out
+
+
+OODS_REPLACES = "stwo_brainfuck_tpu/core/poly.py:76 (_sample_tensor_jit)"
+FOLD_REPLACES = ("stwo_brainfuck_tpu/core/fri.py:67 (_fold_jit), :77 (_fold2_jit), "
+                 ":85 (_fold_add_jit)")
+CHECK_SHARDS = 4  # the OODS and fold checks' shard chunks
+FOLD_PRODUCTS = 24  # a fold: 4 (a + b) / 2, 4 (a - b) itw, 16 beta (a - b) itw
+
+
+def oods_work(groups) -> tuple:
+    """(bytes, M31 products) of one OODS launch: each coefficient word read
+    once (a column opened at several points is one row) and the (4, rows)
+    output written once; 4 products a coefficient and point (its word times
+    a QM31 b_hi). The products of the bases and of a thread's sum times
+    b_lo are left out: the bound is a floor."""
+    columns = sum(len(r) for _, _, r in groups)
+    sampled = [r for _, _, rs in groups for r in rs if r is not None]
+    distinct = {(r.data_ptr(), int(r.shape[0])): int(r.shape[0]) for r in sampled}
+    return (4 * sum(distinct.values()) + 16 * columns,
+            4 * sum(int(r.shape[0]) for r in sampled))
+
+
+def fold_work(step, n: int, has_a: bool, has_b: bool) -> tuple:
+    """(bytes, M31 products) of one fold launch of n outputs: each input
+    word read once (the values, the injected inputs, one twiddle word a
+    pair), the (4, n) output written once; FOLD_PRODUCTS a fold and the
+    twiddles' inversion (3 products a twiddle and one m31 inversion a
+    thread's K x T twiddles)."""
+    tws = sum(fri_kernels.pairs_per_output(step, use) for use, _, _ in step.twiddles(has_a, has_b))
+    folds = {0: 0, 1: 1, 2: 3}[step.folds] + 2 * has_a + has_b
+    nbytes = n * (16 * (1 << step.folds) + 64 * has_a + 32 * has_b + 4 * tws + 16)
+    k = fri_kernels.OUTPUTS_PER_THREAD
+    inverse = tws * 3 + M31_INV_PRODUCTS / k
+    return nbytes, n * (FOLD_PRODUCTS * folds + inverse)
+
+
+def oods_device_ms(kernel, groups, want: torch.Tensor, shard: int = 0, reps: int = 5) -> float:
+    """The OODS kernel's device time on `groups` without its call's host
+    part (the table, 2-7 ms of Python a prove's launch, outruns a sleep
+    kernel): the table packed and staged once, one launch checked against
+    `want`, then `reps` launches of the library back to back between two
+    events."""
+    dev = want.device
+    mem = oods_kernels.members(groups, shard)
+    words, blocks = oods_kernels.pack(groups, mem)
+    table = torch.as_tensor(words.view(np.int32), device=dev)
+    out = torch.empty_like(want)
+    scratch = kernel.scratch(dev, want.shape[1])
+    lib = kernel.lib.load()
+
+    def launch():
+        rc = lib.oods_sample(table.data_ptr(), len(mem), len(groups), want.shape[1], blocks,
+                             scratch.data_ptr(), out.data_ptr(),
+                             torch.cuda.current_stream(dev).cuda_stream)
+        if rc:
+            raise RuntimeError(f"OODS launch failed: CUDA error {rc}")
+
+    launch()
+    torch.cuda.synchronize()
+    if not torch.equal(out, want):
+        raise AssertionError("OODS launch on a staged table != the wrapper's")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        launch()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _err(got: torch.Tensor, want: torch.Tensor) -> int:
+    return 0 if torch.equal(got, want) else int(
+        (got.to(torch.int64) - want.to(torch.int64)).abs().max())
+
+
+def _chunk(x, i: int, c: int):
+    """Chunk i of c positions of a (4, m) array (None stays None)."""
+    return None if x is None else x[:, i * c:(i + 1) * c]
+
+
+def phase_oods_fri(fib_path: str, big_path: str, per_mul: float, dispatch_per_s: float) -> dict:
+    """The OODS kernel and the fold kernel against their plain versions on
+    the card, bit for bit, on the inputs of three proves (fib19_io at the
+    default config, big22, fib19_io at PRODUCTION: every OODS group shape
+    and every fold step, the 2^28-position circle fold included): each
+    launch's inputs also go through the plain version (poly.sample_groups_plain,
+    fri.fold_step_plain, int64 on the card) and, as a mesh shard's chunk,
+    through the kernel again (OODS: every row in CHECK_SHARDS chunks, each
+    chunk's launch at its offset, their sums against the whole; folds: the
+    second of CHECK_SHARDS output chunks at its offset). Each launch is
+    timed (device time: an OODS launch on a table staged once, a fold's
+    calls queued behind a sleep; an OODS call's whole time too) beside its
+    bounds and the plain version's one call. Each proof keeps its
+    sha256."""
+    real_sample, real_fold = poly.sample_groups, fri.fold_step
+    times = {}
+    max_err = 0
+    tag = None
+
+    def check(what, got, want):
+        nonlocal max_err
+        err = _err(got, want)
+        max_err = max(max_err, err)
+        if err:
+            raise AssertionError(f"{what}: kernel != plain (max abs err {err})")
+
+    def sample(groups, shard=0):
+        got = real_sample(groups, shard)
+        what = (f"{tag} oods: {len(groups)} groups, {sum(len(r) for _, _, r in groups)} rows, "
+                f"2^{max(lg for lg, _, _ in groups)} largest")
+        check(what, got, poly.sample_groups_plain(groups, shard))
+        parts = []
+        for i in range(CHECK_SHARDS):
+            gs = [(lg, pt, [r.narrow(0, i * (r.shape[0] // CHECK_SHARDS),
+                                     r.shape[0] // CHECK_SHARDS)
+                            if r.shape[0] >= CHECK_SHARDS else (r if i == 0 else None)
+                            for r in rows]) for lg, pt, rows in groups]
+            part = real_sample(gs, shard=i)
+            check(f"{what}, shard {i}", part, poly.sample_groups_plain(gs, shard=i))
+            parts.append(part.to(torch.int64))
+        check(f"{what}, {CHECK_SHARDS} shards summed", (sum(parts) % P).to(torch.int32), got)
+        nbytes, products = oods_work(groups)
+        times[what] = {
+            "groups": [[lg, len(r)] for lg, _, r in groups], "bytes": nbytes,
+            "ms": oods_device_ms(oods_kernels.KERNEL, groups, got, shard),
+            "call_ms": _time_ms(lambda: real_sample(groups, shard)),
+            "plain_ms": _time_ms(lambda: poly.sample_groups_plain(groups, shard), reps=1),
+            **bound(nbytes, products * per_mul, dispatch_per_s)}
+        return got
+
+    def fold(values, step, inject_a=None, inject_b=None, offset=0):
+        got = real_fold(values, step, inject_a, inject_b, offset)
+        n = got.shape[1]
+        what = (f"{tag} fold: level {step.level} -> {step.out_level} ({step.folds} folds"
+                f"{', circle' if step.circle else ''}{', inject_a' if inject_a is not None else ''}"
+                f"{', inject_b' if inject_b is not None else ''})")
+        check(what, got, fri.fold_step_plain(values, step, inject_a, inject_b, offset))
+        if n >= 2 * CHECK_SHARDS:
+            c = n // CHECK_SHARDS
+            part = real_fold(_chunk(values, 1, c << step.folds), step, _chunk(inject_a, 1, 4 * c),
+                             _chunk(inject_b, 1, 2 * c), offset + c)
+            check(f"{what}, chunk 1 of {CHECK_SHARDS}", part, got[:, c:2 * c])
+        nbytes, products = fold_work(step, n, inject_a is not None, inject_b is not None)
+        times[what] = {
+            "outputs": n, "bytes": nbytes,
+            "ms": _time_ms(lambda: real_fold(values, step, inject_a, inject_b, offset),
+                           queued=True),
+            "plain_ms": _time_ms(lambda: fri.fold_step_plain(values, step, inject_a, inject_b,
+                                                             offset), reps=1),
+            **bound(nbytes, products * per_mul, dispatch_per_s)}
+        return got
+
+    proves = (("fib19_io", fib_path, FIB_INPUT, None, REFERENCE_SHA256["fib19_io"]),
+              ("big22", big_path, b"", None, RECORDED_SHA256["big22"]),
+              ("production", fib_path, FIB_INPUT, PRODUCTION,
+               RECORDED_SHA256["fib19_io_in19_production"]))
+    for tag, path, inp, config, sha in proves:
+        _clear_prover_caches()
+        with open(path) as f:
+            machine = create_test_machine(compile_program(f.read()), inp)
+        machine.execute()
+        with mock.patch.object(poly, "sample_groups", sample), \
+                mock.patch.object(fri, "fold_step", fold):
+            proof = air.prove_brainfuck(machine, config, device="cuda")
+        if proof_sha256(proof) != sha:
+            raise AssertionError(f"{tag} (OODS and fold checks): sha256 {proof_sha256(proof)}")
+        del proof
+    _clear_prover_caches()
+    out = {"comparisons": len(times), "tolerance": 0, "max_abs_err": max_err, "times": times}
+    _line("oods_fri", out)
     return out
 
 
@@ -2081,7 +2298,8 @@ def phase_bench() -> dict:
     launched = head["kernel_launches"]
     plain = head["plain_cuda_calls"]
     _require(launched, plain["fft"], plain["blake2s"], "the bench's headline",
-             plain_quotients=plain["quotients"], plain_constraints=plain["constraints"])
+             plain_quotients=plain["quotients"], plain_constraints=plain["constraints"],
+             plain_oods_fri=plain["oods"] + plain["fri"])
     return launched
 
 
@@ -2092,20 +2310,23 @@ def _free_port() -> int:
 
 
 def _rank_counts(rank: int, launches: dict, plain_fft: int, plain_blake: int,
-                 plain_quotients: int, plain_constraints: int, grind: bool = False) -> dict:
+                 plain_quotients: int, plain_constraints: int, plain_oods_fri: int,
+                 grind: bool = False) -> dict:
     """A process's kernel launches and plain FFT, Blake2s, quotient and
     constraint calls on CUDA tensors over one prove: the FFT, tree,
     quotient and constraint kernels (and the grind where pow_bits > 13)
     launched, no plain call."""
     _require(launches, plain_fft, plain_blake, f"process {rank}", grind, plain_quotients,
-             plain_constraints)
+             plain_constraints, plain_oods_fri)
     return {"fft_launches": launches["fft"],
             "blake2s_launches": {k: launches[k] for k in blake2s_kernels.ENTRIES},
             "quotient_launches": launches["quotients"],
             "constraint_launches": _constraint_launches(launches),
+            "oods_launches": launches["oods"], "fold_launches": launches["fri_fold"],
             "plain_fft_cuda_calls": plain_fft, "plain_blake2s_cuda_calls": plain_blake,
             "plain_quotient_cuda_calls": plain_quotients,
-            "plain_constraint_cuda_calls": plain_constraints}
+            "plain_constraint_cuda_calls": plain_constraints,
+            "plain_oods_fold_cuda_calls": plain_oods_fri}
 
 
 _CLI_COUNTS = re.compile(r"Circle FFT kernel launches: (\d+); plain FFT calls on CUDA "
@@ -2117,6 +2338,8 @@ _CLI_QUOTIENTS = re.compile(r"Quotient kernel launches: (\d+); plain quotient ca
 _CLI_CONSTRAINTS = re.compile(r"constraint kernel launches: composition (\d+), interaction "
                               r"(\d+), logup (\d+), scan (\d+); plain constraint calls on CUDA "
                               r"tensors: (\d+)")
+_CLI_OODS_FRI = re.compile(r"OODS kernel launches: (\d+), fold kernel launches: (\d+); plain "
+                           r"OODS and fold calls on CUDA tensors: (\d+)")
 
 
 def _distributed_cli(world: int, backend: str, torchrun: bool = False,
@@ -2169,21 +2392,26 @@ def _distributed_cli(world: int, backend: str, torchrun: bool = False,
         hashes = [h for _, err in outs for h in _CLI_HASHES.findall(err)]
         quots = [q for _, err in outs for q in _CLI_QUOTIENTS.findall(err)]
         cons = [c for _, err in outs for c in _CLI_CONSTRAINTS.findall(err)]
+        folds = [c for _, err in outs for c in _CLI_OODS_FRI.findall(err)]
         times = [float(t) for _, err in outs for t in re.findall(r"proof time: ([0-9.]+) s", err)]
         written = sum(err.count("Proof written") for _, err in outs)
         if (len(counts) != world or len(hashes) != world or len(quots) != world
-                or len(cons) != world or len(times) != world or written != 1):
+                or len(cons) != world or len(folds) != world or len(times) != world
+                or written != 1):
             raise AssertionError(f"distributed CLI ({world} x {backend}): {len(counts)} counts, "
                                  f"{len(hashes)} hash counts, {len(quots)} quotient counts, "
-                                 f"{len(cons)} constraint counts, {len(times)} times and "
-                                 f"{written} proofs written in the logs")
+                                 f"{len(cons)} constraint counts, {len(folds)} OODS and fold "
+                                 f"counts, {len(times)} times and {written} proofs written in "
+                                 f"the logs")
         ranks = [{"prove_s": t, **_rank_counts(
                      i, {"fft": int(c[0]), **dict(zip(("tree", "level", "grind"), map(int, h[:3]))),
                          "quotients": int(q[0]), "composition": int(k[0]),
-                         "interaction": int(k[1]), "logup": int(k[2]), "scan": int(k[3])},
-                     int(c[1]), int(h[3]), int(q[1]), int(k[4]),
+                         "interaction": int(k[1]), "logup": int(k[2]), "scan": int(k[3]),
+                         "oods": int(o[0]), "fri_fold": int(o[1])},
+                     int(c[1]), int(h[3]), int(q[1]), int(k[4]), int(o[2]),
                      grind=bool(pow_bits and pow_bits > 13))}
-                 for i, (c, h, q, k, t) in enumerate(zip(counts, hashes, quots, cons, times))]
+                 for i, (c, h, q, k, o, t) in enumerate(zip(counts, hashes, quots, cons, folds,
+                                                            times))]
         files = sorted(os.listdir(tmp))
         if files != (["proof.json"] if torchrun else ["rank0.json"]):
             raise AssertionError(f"distributed CLI: wrote {files}, only the coordinator writes")
@@ -2203,7 +2431,8 @@ def _distributed_cli(world: int, backend: str, torchrun: bool = False,
     for r in ranks:
         total = _add_counts(total, {"fft": r["fft_launches"], **r["blake2s_launches"],
                                     "quotients": r["quotient_launches"],
-                                    **r["constraint_launches"]})
+                                    **r["constraint_launches"], "oods": r["oods_launches"],
+                                    "fri_fold": r["fold_launches"]})
     return total
 
 
@@ -2243,6 +2472,9 @@ def _prove_rank(rank: int, world: int, port: int, backend: str, device: str, run
                        "plain_blake2s_cuda_calls": blake2s.PLAIN_CUDA_CALLS,
                        "plain_quotient_cuda_calls": quotients.PLAIN_CUDA_CALLS,
                        "plain_constraint_cuda_calls": framework.PLAIN_CUDA_CALLS,
+                       "plain_oods_fold_cuda_calls": poly.PLAIN_CUDA_CALLS + fri.PLAIN_CUDA_CALLS,
+                       "oods_pulls": timer.calls["oods"].get("oods_pulls", 0),
+                       "fri_layers": len(proof["fri"]["layer_roots"]),
                        "m31_launches": sum(m31_kernels.KERNELS.launches.values()),
                        "plain_m31_cuda_calls": m31_kernels.PLAIN_CUDA_CALLS}
                 if multihost.is_coordinator():
@@ -2302,7 +2534,10 @@ def _distributed_group(world: int, backend: str, device: str, runs: int) -> int:
         for r in ranks:
             r.update(_rank_counts(r["rank"], r["launches"], r["plain_fft_cuda_calls"],
                                   r["plain_blake2s_cuda_calls"], r["plain_quotient_cuda_calls"],
-                                  r["plain_constraint_cuda_calls"]))
+                                  r["plain_constraint_cuda_calls"],
+                                  r["plain_oods_fold_cuda_calls"]))
+            _oods_fri_per_prove(r["launches"], r["fri_layers"], 1, r["oods_pulls"],
+                                f"process {r['rank']}")
             r.update(_trees_per_commit(r["launches"], r["commits"], 1, f"process {r['rank']}"))
             r["decommit"] = _decommit_phase(r["phases_s"]["decommit"], r["decommit_calls"],
                                             f"process {r['rank']}", processes=True)
@@ -2321,7 +2556,8 @@ def _distributed_group(world: int, backend: str, device: str, runs: int) -> int:
             "processes": [{k: r[k] for k in ("rank", "device", "prove_s", "phases_s", "decommit",
                                          "peak_device_bytes", "fft_launches",
                                          "blake2s_launches", "quotient_launches",
-                                         "constraint_launches", "commits",
+                                         "constraint_launches", "oods_launches",
+                                         "fold_launches", "commits",
                                          "tree_launches_per_commit", "plain_fft_cuda_calls",
                                          "plain_blake2s_cuda_calls", "plain_quotient_cuda_calls",
                                          "plain_constraint_cuda_calls")} for r in ranks]})
@@ -2512,7 +2748,7 @@ def main(argv) -> int:
     max_mhz, sm_mhz = (float(v.split()[0]) for v in _smi("clocks.max.sm,clocks.sm").split(","))
     libs = (circle_fft.KERNEL.lib, m31_kernels.KERNELS.lib, blake2s_kernels.KERNELS.lib,
             quotient_kernels.KERNEL.lib, constraint_kernels.KERNELS.lib,
-            constraint_kernels.KERNELS.scan_lib)
+            constraint_kernels.KERNELS.scan_lib, oods_kernels.KERNEL.lib, fri_kernels.KERNEL.lib)
     nvcc.build_all(libs)
     for lib in libs:
         if lib.build_log.strip():
@@ -2565,6 +2801,9 @@ def main(argv) -> int:
     cons = phase_constraints(os.path.join(ROOT, "programs", "fib19_io.bf"),
                              os.path.join(ROOT, "programs", "big22.bf"), sass["per_mul"],
                              dispatch_per_s)
+    oods_fri = phase_oods_fri(os.path.join(ROOT, "programs", "fib19_io.bf"),
+                              os.path.join(ROOT, "programs", "big22.bf"), sass["per_mul"],
+                              dispatch_per_s)
 
     # the mesh prover: its transforms checked, then its path with the
     # counts at 0
@@ -2695,6 +2934,23 @@ def main(argv) -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t.get("library_ms"),
             **{k: t[k] for k in ("pair_ms", "mode") if k in t},
+        })
+    # the OODS and fold kernels: their largest launches (the production
+    # prove's), launched on every path
+    for name, source, replaces, kind in (("oods", "oods.cu", OODS_REPLACES, " oods: "),
+                                         ("fri_fold", "fri_fold.cu", FOLD_REPLACES, " fold: ")):
+        own = [k for k in oods_fri["times"] if kind in k]
+        head = max(own, key=lambda k: oods_fri["times"][k]["bytes"])
+        t = oods_fri["times"][head]
+        by_path = {"prover": main_path[name], "sharded_prover": sharded[name],
+                   "distributed_prover": distributed[name],
+                   "production": production["launches"][name], "bench": bench_path[name]}
+        kernels.append({
+            "name": name, "route": "cuda", "source": "stwo_brainfuck_tpu_torch/csrc/" + source,
+            "replaces": replaces, "shape": head, "launches": main_path[name],
+            "launches_by_path": by_path, "max_abs_err": oods_fri["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None,
         })
     if main_path["logup"] or main_path["scan"] or not (sharded["logup"] and sharded["scan"]
                                                        and distributed["logup"]

@@ -442,20 +442,23 @@ def sampling_plan(layout: SystemLayout) -> Dict[tuple, list]:
 
 def _sample_all_trees(trees, layout: SystemLayout, z, ops=None) -> List[List[List[tuple]]]:
     """OODS-sample every committed column of every tree at its mask points:
-    columns are grouped by (trace log, shift) across trees; each group is
-    one tensor-product contraction (poly.sample_tensor; with the mesh
-    backend `ops`, per-shard partial contractions summed mod p) with the
-    point's half-bases built on the host."""
+    columns are grouped by (trace log, shift) across trees, and every group
+    is sampled in one call (poly.sample_groups: one kernel launch on a card;
+    with the mesh backend `ops`, one a shard and one mesh sum), then pulled
+    to the host in one copy (poly.pull)."""
     sampled: List[List[List[Optional[tuple]]]] = [
         [[None] * len(meta.shifts) for meta in metas] for metas in layout.trees
     ]
-    sample = poly.sample_tensor if ops is None else ops.sample_tensor
-    for (log_size, s), members in sampling_plan(layout).items():
-        rows = [trees[ti].records[ci].coeffs for ti, ci, _ in members]
-        b_lo, b_hi = poly.half_bases_at_point(log_size, shifted_point(z, log_size, s))
-        arr = sample(rows, b_lo, b_hi).cpu().numpy()
-        for c, (ti, ci, pi) in enumerate(members):
+    plan = sampling_plan(layout)
+    groups = [(log_size, shifted_point(z, log_size, s),
+               [trees[ti].records[ci].coeffs for ti, ci, _ in members])
+              for (log_size, s), members in plan.items()]
+    arr = poly.pull(poly.sample_groups(groups) if ops is None else ops.sample_groups(groups))
+    c = 0
+    for members in plan.values():
+        for ti, ci, pi in members:
             sampled[ti][ci][pi] = tuple(int(arr[k, c]) for k in range(4))
+            c += 1
     return sampled  # type: ignore[return-value]
 
 

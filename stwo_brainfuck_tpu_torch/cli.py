@@ -38,10 +38,11 @@ import time
 import torch
 
 from . import air
-from .core import blake2s, fft, quotients
+from .core import blake2s, fft, fri, poly, quotients
 from .core.pcs import PcsConfig
 from .framework import component as framework
-from .ops import blake2s_kernels, circle_fft, constraint_kernels, quotient_kernels
+from .ops import (blake2s_kernels, circle_fft, constraint_kernels, fri_kernels, oods_kernels,
+                  quotient_kernels)
 from .vm.compiler import CompileError, compile_program
 from .vm.machine import DEFAULT_RAM_SIZE, Machine, MachineError
 from .vm.registers import TRACE_COLUMNS
@@ -150,6 +151,9 @@ def cmd_prove(args) -> int:
     log.info("constraint kernel launches: composition %d, interaction %d, logup %d, scan %d; "
              "plain constraint calls on CUDA tensors: %d", cons["composition"],
              cons["interaction"], cons["logup"], cons["scan"], framework.PLAIN_CUDA_CALLS)
+    log.info("OODS kernel launches: %d, fold kernel launches: %d; plain OODS and fold calls on "
+             "CUDA tensors: %d", oods_kernels.KERNEL.launches, fri_kernels.KERNEL.launches,
+             poly.PLAIN_CUDA_CALLS + fri.PLAIN_CUDA_CALLS)
     if not coordinator:
         return 0  # the proof is the same in every process; process 0 writes it
 

@@ -36,16 +36,40 @@ LOG_LAST_LAYER = 1  # stop at a 2-point line domain; send 1 (constant) coeff
 _INV2 = (P_INT + 1) // 2
 
 
+# Plain fold calls (_fold) on CUDA tensors: the fold kernel is the only
+# path there.
+PLAIN_CUDA_CALLS = 0
+
+
 @lru_cache(maxsize=64)
 def _fold_itw(kind: str, log: int, device) -> torch.Tensor:
     """inv(2*y_t) of the circle domain of size 2^log (kind "c"), or
     inv(2*x_t) of the line domain of size 2^log (kind "l": the x-projection
-    of the circle domain of size 2^(log+1)); int64 on `device`."""
+    of the circle domain of size 2^(log+1)); int32 on `device`. The plain
+    folds' twiddles (the kernel inverts the FFT's, fold_twiddles)."""
     if kind == "c":
         t = fft.get_twiddles(log, False, str(device))[0]
     else:
         t = fft.get_twiddles(log + 1, False, str(device))[1]
-    return m31.inv(2 * t % P_INT)
+    return m31.inv(2 * t % P_INT).to(torch.int32)
+
+
+def fold_twiddles(kind: str, log: int, top: int, device) -> Tuple[torch.Tensor, int]:
+    """Where the fold kernel reads the doubled twiddles 2 y_t (kind "c",
+    the circle domain of size 2^log) or 2 x_t (kind "l", the line domain of
+    size 2^log): (the FFT's int32 table, ops/circle_fft.twiddle_table, the
+    index of pair 0 in it). A circle fold's are stage 0 of the table of its
+    size; every line level's are a stage of the table of size 2^top (top >
+    log): the line domain of size 2^log is the x-projection of the circle
+    domain of size 2^(log + 1), whose x twiddles are stage top - log of the
+    size-2^top table, at 2^top - 2^log."""
+    from ..ops import circle_fft
+
+    if kind == "c":
+        return circle_fft.twiddle_table(log, False, str(device)), 0
+    if not 0 < log < top:
+        raise ValueError(f"line level {log} has no stage in the table of 2^{top}")
+    return circle_fft.twiddle_table(top, False, str(device)), (1 << top) - (1 << log)
 
 
 # A fold's int64 temporaries are (4, chunk): a fold of more output
@@ -56,7 +80,10 @@ _FOLD_CHUNK = 1 << 25
 
 def _fold(values: torch.Tensor, itw: torch.Tensor, beta: tuple) -> torch.Tensor:
     """One fold of a QM31 evaluation (4, 2N) -> (4, N) int64:
-    g = (a+b)/2 + beta * (a-b) * itw over adjacent pairs."""
+    g = (a+b)/2 + beta * (a-b) * itw over adjacent pairs. The plain version
+    of the fold kernel (fold_step)."""
+    global PLAIN_CUDA_CALLS
+    PLAIN_CUDA_CALLS += values.is_cuda
     n = values.shape[1] // 2
     if n <= _FOLD_CHUNK:
         return _fold_chunk(values, itw, beta)
@@ -73,6 +100,80 @@ def _fold_chunk(values: torch.Tensor, itw: torch.Tensor, beta: tuple) -> torch.T
     s = (a + b) % P_INT * _INV2 % P_INT
     d = (a - b) % P_INT * itw % P_INT
     return (s + qm31.mul(qm31.const(beta, values.device), d)) % P_INT
+
+
+@dataclass(frozen=True)
+class FoldStep:
+    """What fri_commit does between two committed layers, in one fold
+    launch: from `values` of 2^level positions (the circle input of size
+    2^level if `circle`, else a line layer), `folds` folds (0, 1 or 2: by
+    beta, then beta2), the circle-folded input of size 2^level added after
+    the first of two folds (inject_a: inputs[level], folded by beta0 to
+    line level level - 1), and the circle-folded input of size 2^(out + 1)
+    added at the output level out = level - folds (inject_b). Line twiddles
+    are read from the FFT table of size 2^top (fold_twiddles)."""
+    level: int
+    folds: int
+    circle: bool
+    beta: tuple
+    beta2: tuple
+    beta0: tuple
+    top: int
+
+    @property
+    def out_level(self) -> int:
+        return self.level - self.folds
+
+    def twiddles(self, inject_a: bool, inject_b: bool) -> list:
+        """(use, kind, log) of each twiddle the step reads, for output
+        position t: "fold1" (pair 2t + k with two folds, t with one),
+        "inject_a" (2t + k), "fold2" (t), "inject_b" (t)."""
+        uses = []
+        if self.folds:
+            uses.append(("fold1", "c" if self.circle else "l", self.level))
+        if self.folds == 2 and inject_a:
+            uses.append(("inject_a", "c", self.level))
+        if self.folds == 2:
+            uses.append(("fold2", "l", self.level - 1))
+        if inject_b:
+            uses.append(("inject_b", "c", self.out_level + 1))
+        return uses
+
+
+def fold_step_plain(values: torch.Tensor, step: FoldStep, inject_a=None, inject_b=None,
+                    offset: int = 0) -> torch.Tensor:
+    """The plain version of one fold launch (int64 torch ops, _fold):
+    (4, n) int32 at output positions offset .. offset + n - 1 of the level
+    step.out_level, from that chunk's values and injected inputs."""
+    dev = values.device
+    n = values.shape[1] >> step.folds
+    itw = {use: _fold_itw(kind, log, dev)
+           for use, kind, log in step.twiddles(inject_a is not None, inject_b is not None)}
+    width = 2 if step.folds == 2 else 1
+    cur = values
+    if step.folds:
+        cur = _fold(cur, itw["fold1"][width * offset:width * (offset + n)], step.beta)
+    if step.folds == 2:
+        if inject_a is not None:
+            cur = (cur + _fold(inject_a, itw["inject_a"][2 * offset:2 * (offset + n)],
+                               step.beta0)) % P_INT
+        cur = _fold(cur, itw["fold2"][offset:offset + n], step.beta2)
+    if inject_b is not None:
+        cur = (cur + _fold(inject_b, itw["inject_b"][offset:offset + n], step.beta0)) % P_INT
+    return cur.to(torch.int32)
+
+
+def fold_step(values: torch.Tensor, step: FoldStep, inject_a=None, inject_b=None,
+              offset: int = 0) -> torch.Tensor:
+    """One fold launch on CUDA tensors (ops/fri_kernels.py), its plain
+    version on CPU tensors: (4, n) int32 at output positions offset ..
+    offset + n - 1 of step.out_level (n = the values' positions /
+    2^folds; `offset` is a mesh shard's chunk)."""
+    if values.is_cuda:
+        from ..ops import fri_kernels
+
+        return fri_kernels.KERNEL.fold(values, step, inject_a, inject_b, offset)
+    return fold_step_plain(values, step, inject_a, inject_b, offset)
 
 
 @dataclass
@@ -123,37 +224,32 @@ def fri_commit(inputs: Dict[int, torch.Tensor], channel, ops=None) -> FriProver:
     Performs all folds, committing each intermediate line layer and mixing
     roots/last value into the channel. Radix-4: each committed layer folds
     twice (beta, then beta^2); a circle-folded input is injected (added)
-    when the running line evaluation reaches its size. With `ops` (the mesh
-    backend, parallel/prove.ShardedOps) the folds and layer commits run
-    sharded, both folds of a layer in one step where no input is injected
-    between them."""
+    when the running line evaluation reaches its size. From one committed
+    layer to the next is one FoldStep (fold_step: one kernel launch on a
+    card, int32 in and out), both folds and the injections between and
+    after them included; so are the first circle fold and the last fold to
+    LOG_LAST_LAYER. With `ops` (the mesh backend, parallel/prove.ShardedOps)
+    the steps and layer commits run sharded."""
     logs = sorted(inputs, reverse=True)
     if not logs:
         raise ValueError("no FRI inputs")
     max_log = logs[0]
-    dev = inputs[max_log].device if ops is None else ops.mesh.home
-    fold = _fold if ops is None else ops.fold
+    step_fn = fold_step if ops is None else ops.fold_step
+
+    def injected(level):
+        """The input circle-folded and added at line level `level`."""
+        return inputs.get(level + 1) if level + 1 != max_log else None
 
     beta0 = channel.draw_felt()  # circle fold coefficient for all injections
-    cur = fold(inputs[max_log], _fold_itw("c", max_log, dev), beta0)
+    cur = step_fn(inputs[max_log], FoldStep(max_log, 1, True, beta0, beta0, beta0, max_log),
+                  None, injected(max_log - 1))
     m = max_log - 1
     layers: List[merkle.MerkleTree] = []
     layer_evals: List[torch.Tensor] = []
     layer_levels: List[int] = []
     roots: List[bytes] = []
 
-    def inject(cur, m):
-        if m + 1 in inputs and m + 1 != max_log:
-            itw = _fold_itw("c", m + 1, dev)
-            if ops is not None:
-                return ops.fold_add(inputs[m + 1], itw, beta0, cur)
-            return (cur + _fold(inputs[m + 1], itw, beta0)) % P_INT
-        return cur
-
     while m > LOG_LAST_LAYER:
-        cur = inject(cur, m)
-        if ops is None:
-            cur = cur.to(torch.int32)
         tree = merkle.commit({m: cur}) if ops is None else ops.commit({m: cur})
         layers.append(tree)
         layer_evals.append(cur)
@@ -161,19 +257,11 @@ def fri_commit(inputs: Dict[int, torch.Tensor], channel, ops=None) -> FriProver:
         roots.append(tree.root)
         channel.mix_root(tree.root)
         beta = channel.draw_felt()
-        beta2 = qm31.h_mul(beta, beta)
-        if ops is not None and m - 1 > LOG_LAST_LAYER and m not in inputs:
-            cur = ops.fold2(cur, _fold_itw("l", m, dev), _fold_itw("l", m - 1, dev), beta, beta2)
-            m -= 2
-            continue
-        cur = fold(cur, _fold_itw("l", m, dev), beta)
-        m -= 1
-        if m > LOG_LAST_LAYER:
-            cur = inject(cur, m)
-            cur = fold(cur, _fold_itw("l", m, dev), beta2)
-            m -= 1
+        folds = 2 if m - 1 > LOG_LAST_LAYER else 1
+        step = FoldStep(m, folds, False, beta, qm31.h_mul(beta, beta), beta0, max_log)
+        cur = step_fn(cur, step, inputs.get(m) if folds == 2 else None, injected(m - folds))
+        m -= folds
 
-    cur = inject(cur, m)
     if ops is not None:
         cur = ops.mesh.full(cur)
     last = tuple(int(x) for x in cur[:, 0].cpu())

@@ -1,9 +1,10 @@
 """Polynomial utilities: out-of-domain evaluation and vanishing values.
 
 Counterpart of ``stwo_brainfuck_tpu/core/poly.py``: the OODS samples of
-committed coefficient rows (tensor-product basis split, host half-bases)
-and the vanishing polynomial of a canonic domain, on the host and on a
-device.
+committed coefficient rows (tensor-product basis split: the half bases on
+the host for the plain version, each group's basis factors for the OODS
+kernel, ``ops/oods_kernels.py``) and the vanishing polynomial of a canonic
+domain, on the host and on a device.
 """
 
 from __future__ import annotations
@@ -23,6 +24,11 @@ from .quotients import domain_points_storage
 # sample_tensor (512 MB).
 _SAMPLE_CHUNK = 1 << 26
 
+# Plain sample_tensor calls on CUDA tensors (the OODS kernel is the only
+# path there), and the device->host pulls of the samples (pull).
+PLAIN_CUDA_CALLS = 0
+PULLS = 0
+
 
 def _point_factors(log_size: int, point) -> list:
     """Host: the per-bit basis factors [y, x, pi(x), ...] at a QM31 point
@@ -41,17 +47,20 @@ def half_bases_at_point(log_size: int, point) -> Tuple[np.ndarray, np.ndarray]:
 
     basis_j(point) = y^{j0} x^{j1} pi(x)^{j2} ... is a product basis, so it
     factors exactly: basis[j] = b_lo[j % 2^lo] * b_hi[j >> lo] with
-    lo = log_size // 2. Returns host uint32 arrays (4, 2^lo), (4, 2^hi):
-    at most 2^12 host h_mul calls, so the device work per group is two
-    small modular contractions (sample_tensor)."""
+    lo = log_size // 2. Returns host uint32 arrays (4, 2^lo), (4, 2^hi).
+    Each doubling step is one vectorised QM31 product of the whole half
+    built so far by the next factor (qm31.npq_mul), so a half costs
+    log_size // 2 numpy products, not 2^lo host h_mul calls."""
     factors = _point_factors(log_size, point)
     lo = log_size // 2
 
     def build(fs):
-        basis = [qm31.ONE]
+        basis = np.zeros((4, 1), np.uint64)
+        basis[0] = 1
         for f in fs:
-            basis += [qm31.h_mul(b, f) for b in basis]
-        return np.array(basis, np.uint32).T.copy()  # (4, 2^len(fs))
+            basis = np.concatenate([basis, qm31.npq_mul(basis, np.array(f, np.uint64)[:, None])],
+                                   axis=1)
+        return basis.astype(np.uint32)  # (4, 2^len(fs))
 
     return build(factors[:lo]), build(factors[lo:])
 
@@ -61,13 +70,16 @@ def sample_tensor(rows: Sequence[torch.Tensor], b_lo: np.ndarray,
     """Evaluate C coefficient rows (each (N,) int32, N = 2^log) at one QM31
     point via the tensor-product basis split:
     out[:, c] = sum_hi b_hi * (sum_lo rows[c].(H, L) * b_lo). Exact mod p, so
-    bit-identical to the direct basis dot. Returns (4, C) int64.
+    bit-identical to the direct basis dot. Returns (4, C) int64. The plain
+    version of the OODS kernel (ops/oods_kernels.py).
 
     With `offset`, the rows are the coefficients [offset, offset + n) of
     longer rows (one shard's chunk, n and offset multiples of the same
     power of two) and the result is their part of the sum: the parts of
     all chunks add up mod p to the whole rows' values."""
+    global PLAIN_CUDA_CALLS
     dev = rows[0].device
+    PLAIN_CUDA_CALLS += dev.type == "cuda"
     n = rows[0].shape[0]
     big_l = b_lo.shape[1]
     w = min(n, big_l)                                            # lo terms a row of m3 takes
@@ -82,6 +94,58 @@ def sample_tensor(rows: Sequence[torch.Tensor], b_lo: np.ndarray,
         t = torch.stack([(m3 * lo[k] % P_INT).sum(-1) % P_INT for k in range(4)])
         outs.append(qm31.mul(t, hi[:, None, :]).sum(-1) % P_INT)  # (4, C)
     return torch.cat(outs, dim=1)
+
+
+def sample_groups(groups: Sequence[tuple], shard: int = 0) -> torch.Tensor:
+    """Every OODS group of a prove in one call: `groups` lists (log_size,
+    point, rows), a (trace log, shift) group's coefficient rows and its
+    QM31 point. Returns the (4, total rows) int32 samples, group after
+    group, a row's column in the order given (air.sampling_plan order).
+
+    A row may be None (its column is 0) or shorter than 2^log_size: then it
+    is chunk `shard` of its row (coefficients shard * n .. (shard + 1) * n
+    - 1) and its column is that chunk's part of the sum (sample_tensor's
+    offset); the parts of all chunks add up mod p to the row's value.
+
+    On CUDA rows this is one launch of the OODS kernel (the factor table of
+    every group in one small copy, the rows read in place); on CPU rows the
+    plain version, sample_groups_plain."""
+    live = [r for _, _, rows in groups for r in rows if r is not None]
+    if not live:
+        raise ValueError("sample_groups: no rows")
+    if live[0].is_cuda:
+        from ..ops import oods_kernels
+
+        return oods_kernels.KERNEL.sample(groups, shard)
+    return sample_groups_plain(groups, shard)
+
+
+def sample_groups_plain(groups: Sequence[tuple], shard: int = 0) -> torch.Tensor:
+    """The plain version of sample_groups on any device: sample_tensor, one
+    call a group and row length. (4, total rows) int32."""
+    live = [r for _, _, rows in groups for r in rows if r is not None]
+    total = sum(len(rows) for _, _, rows in groups)
+    out = torch.zeros((4, total), dtype=torch.int64, device=live[0].device)
+    col = 0
+    for log_size, point, rows in groups:
+        b_lo, b_hi = half_bases_at_point(log_size, point)
+        by_len: dict = {}
+        for k, r in enumerate(rows):
+            if r is not None:
+                by_len.setdefault(int(r.shape[0]), []).append(k)
+        for n, ks in by_len.items():
+            offset = shard * n if n < 1 << log_size else 0
+            vals = sample_tensor([rows[k] for k in ks], b_lo, b_hi, offset)
+            out[:, [col + k for k in ks]] = vals
+        col += len(rows)
+    return out.to(torch.int32)
+
+
+def pull(samples: torch.Tensor) -> np.ndarray:
+    """The samples on the host: one device->host copy (counted in PULLS)."""
+    global PULLS
+    PULLS += 1
+    return samples.cpu().numpy()
 
 
 def vanishing_at_point(log_size: int, point) -> tuple:

@@ -12,11 +12,11 @@ through this object:
   stages);
 - Merkle commitments: parallel/merkle_sharded.commit_sharded;
 - composition constraints, quotient accumulation and OODS sampling: per
-  shard (the samples as per-shard partial contractions, one mesh sum, mod
-  p);
-- FRI folds: per shard (fold pairs are adjacent in bit-reversed storage,
-  so a shard's chunk folds to a chunk, until the layer is smaller than the
-  mesh and finishes whole).
+  shard (the samples of every group as one partial contraction a shard,
+  one mesh sum, mod p);
+- FRI folds: one fold step a shard between committed layers (fold pairs
+  are adjacent in bit-reversed storage, so a shard's chunk folds to a
+  chunk, until the layer is smaller than the mesh and finishes whole).
 
 Each process works on the shards it owns (``Mesh.each``). All arithmetic
 is exact mod p, so the proof bytes are those of the single-device proof for
@@ -191,22 +191,23 @@ class ShardedOps:
 
     # -- OODS --------------------------------------------------------------
 
-    def sample_tensor(self, rows, b_lo, b_hi) -> torch.Tensor:
-        """poly.sample_tensor of rows that may be Sharded: each shard's
-        partial contraction, summed over the mesh (one reduction), mod p.
-        (4, C) int64 on the home device, the same in every process."""
-        dev = self.mesh.home
-        plain = [k for k, r in enumerate(rows) if isinstance(r, torch.Tensor)]
-        spread = [k for k, r in enumerate(rows) if not isinstance(r, torch.Tensor)]
-        out = torch.empty((4, len(rows)), dtype=torch.int64, device=dev)
-        if plain:
-            out[:, plain] = poly.sample_tensor([rows[k] for k in plain], b_lo, b_hi).to(dev)
-        if spread:
-            chunk = rows[spread[0]].chunk
-            parts = self.mesh.each(lambda i: poly.sample_tensor(
-                [rows[k].shards[i] for k in spread], b_lo, b_hi, offset=i * chunk))
-            out[:, spread] = self.mesh.sum(parts) % P_INT
-        return out
+    def sample_groups(self, groups) -> torch.Tensor:
+        """poly.sample_groups of groups whose rows may be Sharded: one call a
+        shard (one kernel launch on a card) at its chunks' offsets, the rows
+        that are not sharded in shard 0's (they are the same in every
+        process, so they count once), then one mesh sum, mod p. (4, total)
+        int32 on the home device, the same in every process."""
+        mesh = self.mesh
+        if not any(isinstance(r, Sharded) for _, _, rows in groups for r in rows):
+            return poly.sample_groups([(lg, pt, [mesh.full(r) for r in rows])
+                                       for lg, pt, rows in groups])
+
+        def part(i):
+            return poly.sample_groups(
+                [(lg, pt, [r.shards[i] if isinstance(r, Sharded)
+                           else mesh.full(r) if i == 0 else None for r in rows])
+                 for lg, pt, rows in groups], shard=i).to(torch.int64)
+        return (mesh.sum(mesh.each(part)) % P_INT).to(torch.int32)
 
     # -- Quotients ---------------------------------------------------------
 
@@ -223,30 +224,21 @@ class ShardedOps:
 
     # -- FRI ---------------------------------------------------------------
 
-    def fold(self, values, itw, beta):
-        """One FRI fold (4, 2M) -> (4, M), int32."""
-        if values.shape[1] // 2 < 2 * self.D:
-            return fri._fold(self.mesh.full(values), itw, beta).to(torch.int32)
-        v, t = self.mesh.as_sharded(values), self.mesh.shard(itw)
-        return Sharded(self.mesh, _int32(self.mesh.each(
-            lambda i: fri._fold(v.shards[i], t.shards[i], beta))))
-
-    def fold2(self, values, itw1, itw2, beta, beta2):
-        """Two folds (beta, then beta2): a radix-4 layer's body."""
-        if values.shape[1] // 4 < 2 * self.D:
-            full = fri._fold(fri._fold(self.mesh.full(values), itw1, beta), itw2, beta2)
-            return full.to(torch.int32)
-        v = self.mesh.as_sharded(values)
-        t1, t2 = self.mesh.shard(itw1), self.mesh.shard(itw2)
-        return Sharded(self.mesh, _int32(self.mesh.each(lambda i: fri._fold(
-            fri._fold(v.shards[i], t1.shards[i], beta), t2.shards[i], beta2))))
-
-    def fold_add(self, values, itw, beta, cur):
-        """cur + fold(values): an injected FRI input."""
-        if values.shape[1] // 2 < 2 * self.D:
-            folded = fri._fold(self.mesh.full(values), itw, beta)
-            return ((self.mesh.full(cur).to(torch.int64) + folded) % P_INT).to(torch.int32)
-        v, t = self.mesh.as_sharded(values), self.mesh.shard(itw)
-        c = self.mesh.as_sharded(cur)
-        return Sharded(self.mesh, _int32(self.mesh.each(lambda i: (
-            c.shards[i].to(torch.int64) + fri._fold(v.shards[i], t.shards[i], beta)) % P_INT)))
+    def fold_step(self, values, step: fri.FoldStep, inject_a=None, inject_b=None):
+        """fri.fold_step over the mesh: a chunk of the output level a shard
+        (one kernel launch on a card, at the chunk's offset, from the
+        matching chunks of the values and the injected inputs), until the
+        output is smaller than 2 positions a shard and the step runs whole
+        on the home device. int32."""
+        mesh = self.mesh
+        n = values.shape[1] >> step.folds
+        if n < 2 * self.D:
+            full = lambda x: None if x is None else mesh.full(x)  # noqa: E731
+            return fri.fold_step(full(values), step, full(inject_a), full(inject_b))
+        v = mesh.as_sharded(values)
+        a = None if inject_a is None else mesh.as_sharded(inject_a)
+        b = None if inject_b is None else mesh.as_sharded(inject_b)
+        chunk = n // self.D
+        return Sharded(mesh, mesh.each(lambda i: fri.fold_step(
+            v.shards[i], step, None if a is None else a.shards[i],
+            None if b is None else b.shards[i], offset=i * chunk)))

@@ -4,6 +4,8 @@ import no jax, so on a machine with a card and no jax they run with
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -776,3 +778,165 @@ def test_logup_kernel_with_zero_denominators_on_the_card(cuda):
             q, total = constraint_kernels.KERNELS.logup(comp, sub, isf[:rows], els)
             wq, wtotal = framework.logup_fractions_plain(comp, sub, isf[:rows], els)
             assert torch.equal(q, wq) and torch.equal(total.to(torch.int64), wtotal)
+
+
+# ---------------------------------------------------------------------------
+# The OODS kernel (csrc/oods.cu) and the FRI fold kernel (csrc/fri_fold.cu)
+# ---------------------------------------------------------------------------
+
+def _felt(rng):
+    return tuple(int(v) for v in rng.integers(0, P, 4))
+
+
+def _oods_groups(seed, logs, rows_each, dev):
+    rng = np.random.default_rng(seed)
+    return [(lg, (_felt(rng), _felt(rng)),
+             [torch.as_tensor(rng.integers(0, P, 1 << lg).astype(np.int32), device=dev)
+              for _ in range(rows_each)]) for lg in logs]
+
+
+@pytest.mark.parametrize("logs", [[1], [2, 3, 4, 5], [4, 8, 9, 12, 13], [16, 17, 18],
+                                  [20, 21], [22], [24]])
+def test_oods_kernel_matches_plain_on_the_card(cuda, logs):
+    from stwo_brainfuck_tpu_torch.core import poly
+    from stwo_brainfuck_tpu_torch.ops import oods_kernels
+
+    groups = _oods_groups(sum(logs), logs, 3, cuda)
+    before, plain = oods_kernels.KERNEL.launches, poly.PLAIN_CUDA_CALLS
+    got = poly.sample_groups(groups)
+    assert oods_kernels.KERNEL.launches - before == 1
+    assert poly.PLAIN_CUDA_CALLS == plain
+    cpu = [(lg, pt, [r.cpu() for r in rows]) for lg, pt, rows in groups]
+    assert torch.equal(got.cpu(), poly.sample_groups(cpu))
+    if max(logs) <= 18:
+        assert torch.equal(got, oods_kernels.emulate(groups))
+
+
+@pytest.mark.parametrize("d", [2, 4, 8])
+def test_oods_kernel_on_mesh_shards(cuda, d):
+    """ShardedOps.sample_groups: one launch a shard (shard 0's with the rows
+    that are not sharded), one sum, equal to the one-device launch."""
+    from stwo_brainfuck_tpu_torch.core import poly
+    from stwo_brainfuck_tpu_torch.ops import oods_kernels
+
+    groups = _oods_groups(d, [4, 10, 15, 18], 3, cuda)
+    ops = ShardedOps(make_mesh(d, "cuda"))
+    mixed = [(lg, pt, [ops.mesh.shard(rows[0]), rows[1], ops.mesh.shard(rows[2])])
+             for lg, pt, rows in groups]
+    before = oods_kernels.KERNEL.launches
+    got = ops.sample_groups(mixed)
+    assert oods_kernels.KERNEL.launches - before == d
+    assert torch.equal(got, poly.sample_groups(groups))
+
+
+def test_oods_schedule_mirrors_the_kernel_and_refusals(cuda):
+    import ctypes
+
+    from stwo_brainfuck_tpu_torch.core import poly
+    from stwo_brainfuck_tpu_torch.ops import oods_kernels
+
+    lib = oods_kernels.KERNEL.lib.load()
+    out = (ctypes.c_longlong * 5)()
+    for log_size in range(1, 29):
+        for log_n in range(0, log_size + 1):
+            assert lib.oods_schedule(log_size, log_n, ctypes.addressof(out)) == 0
+            assert tuple(out) == tuple(oods_kernels.schedule(log_size, log_n))
+    groups = _oods_groups(1, [8], 2, cuda)
+    lg, pt, rows = groups[0]
+    with pytest.raises(TypeError):
+        poly.sample_groups([(lg, pt, [r.to(torch.int64) for r in rows])])
+    with pytest.raises(ValueError):
+        poly.sample_groups([(lg, pt, [r[::2].contiguous()[:100] for r in rows])])
+    with pytest.raises(ValueError):
+        poly.sample_groups([(lg, pt, [rows[0], rows[1].cpu()])])
+
+
+def _fold_cases(seed, top, dev):
+    """(step, values, inject_a, inject_b) for every mode of the fold kernel
+    at levels up to 2^top."""
+    from stwo_brainfuck_tpu_torch.core import fri
+
+    rng = np.random.default_rng(seed)
+
+    def arr(n):
+        return torch.as_tensor(rng.integers(0, P, (4, n)).astype(np.int32), device=dev)
+
+    b, b2, b0 = _felt(rng), _felt(rng), _felt(rng)
+    cases = [(fri.FoldStep(top, 1, True, b0, b0, b0, top), arr(1 << top), None, None),
+             (fri.FoldStep(top - 1, 0, False, b, b2, b0, top), arr(1 << (top - 1)), None,
+              arr(1 << top))]
+    for level in sorted({top - 1, 3, 2} & set(range(2, top))):
+        for folds in (1, 2):
+            if level - folds < 1:
+                continue
+            n = 1 << (level - folds)
+            for with_a in ((False, True) if folds == 2 else (False,)):
+                for with_b in (False, True):
+                    cases.append((fri.FoldStep(level, folds, False, b, b2, b0, top),
+                                  arr(1 << level), arr(4 * n) if with_a else None,
+                                  arr(2 * n) if with_b else None))
+    return cases
+
+
+@pytest.mark.parametrize("top", [3, 10, 21])
+def test_fold_kernel_matches_plain_on_the_card(cuda, top):
+    from stwo_brainfuck_tpu_torch.core import fri
+    from stwo_brainfuck_tpu_torch.ops import fri_kernels
+
+    for step, v, a, b in _fold_cases(top, top, cuda):
+        before, plain = fri_kernels.KERNEL.launches, fri.PLAIN_CUDA_CALLS
+        got = fri_kernels.KERNEL.fold(v, step, a, b)
+        assert fri_kernels.KERNEL.launches - before == 1
+        assert fri.PLAIN_CUDA_CALLS == plain
+        cpu = lambda x: None if x is None else x.cpu()  # noqa: E731
+        assert torch.equal(got.cpu(), fri.fold_step_plain(v.cpu(), step, cpu(a), cpu(b))), step
+        if top <= 10:
+            assert torch.equal(got, fri_kernels.emulate(v, step, a, b))
+
+
+@pytest.mark.parametrize("d", [2, 4])
+def test_fold_kernel_on_mesh_shards(cuda, d):
+    """ShardedOps.fold_step: one launch a shard at its chunk's offset, equal
+    to the one-device launch, for every mode."""
+    from stwo_brainfuck_tpu_torch.core import fri
+    from stwo_brainfuck_tpu_torch.ops import fri_kernels
+
+    ops = ShardedOps(make_mesh(d, "cuda"))
+    for step, v, a, b in _fold_cases(d, 12, cuda):
+        want = fri.fold_step(v, step, a, b)
+        before = fri_kernels.KERNEL.launches
+        got = ops.fold_step(v, step, a, b)
+        sharded = (v.shape[1] >> step.folds) >= 2 * d
+        assert fri_kernels.KERNEL.launches - before == (d if sharded else 1)
+        assert torch.equal(got.full() if sharded else got, want), step
+
+
+def test_fold_kernel_refusals(cuda):
+    from stwo_brainfuck_tpu_torch.core import fri
+    from stwo_brainfuck_tpu_torch.ops import fri_kernels
+
+    step, v, a, b = _fold_cases(5, 8, cuda)[-1]
+    with pytest.raises(TypeError):
+        fri_kernels.KERNEL.fold(v.to(torch.int64), step, a, b)
+    with pytest.raises(ValueError):
+        fri_kernels.KERNEL.fold(v[:, :-1], step, a, b)
+    with pytest.raises(ValueError):
+        fri_kernels.KERNEL.fold(v, step, a, b.cpu())
+    with pytest.raises(ValueError):
+        fri_kernels.KERNEL.fold(v, dataclasses.replace(step, folds=0), None, None)
+
+
+def test_fib19_io_prove_makes_one_oods_launch_and_one_fold_launch_a_layer(cuda):
+    from stwo_brainfuck_tpu_torch.core import fri, poly
+    from stwo_brainfuck_tpu_torch.ops import fri_kernels, oods_kernels
+
+    with open(chip_smoke.os.path.join(chip_smoke.ROOT, "programs", "fib19_io.bf")) as f:
+        m = create_test_machine(compile_program(f.read()), chip_smoke.FIB_INPUT)
+    m.execute()
+    oods, folds = oods_kernels.KERNEL.launches, fri_kernels.KERNEL.launches
+    pulls, plain = poly.PULLS, (poly.PLAIN_CUDA_CALLS, fri.PLAIN_CUDA_CALLS)
+    proof = air.prove_brainfuck(m, device=cuda)
+    assert oods_kernels.KERNEL.launches - oods == 1 and poly.PULLS - pulls == 1
+    assert fri_kernels.KERNEL.launches - folds == len(proof["fri"]["layer_roots"]) + 1
+    assert (poly.PLAIN_CUDA_CALLS, fri.PLAIN_CUDA_CALLS) == plain
+    assert chip_smoke.proof_sha256(proof) == chip_smoke.REFERENCE_SHA256["fib19_io"]

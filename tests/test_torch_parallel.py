@@ -320,21 +320,26 @@ def test_sharded_ops_sample_and_folds_match_one_device(d):
     ops = ShardedOps(make_mesh(d, "cpu"))
     log_size = 8
     rows = [convert.to_torch(_vals(40 + k, 1 << log_size)) for k in range(3)]
-    b_lo, b_hi = tpoly.half_bases_at_point(log_size, ((1, 2, 3, 4), (5, 6, 7, 8)))
+    point = ((1, 2, 3, 4), (5, 6, 7, 8))
+    b_lo, b_hi = tpoly.half_bases_at_point(log_size, point)
     want = tpoly.sample_tensor(rows, b_lo, b_hi)
     mixed = [ops.mesh.shard(rows[0]), rows[1], ops.mesh.shard(rows[2])]
-    np.testing.assert_array_equal(ops.sample_tensor(mixed, b_lo, b_hi).numpy(), want.numpy())
+    np.testing.assert_array_equal(ops.sample_groups([(log_size, point, mixed)]).numpy(),
+                                  want.numpy())
 
     vals = convert.to_torch(_vals(50, (4, 1 << 9)))
     itw = tfri._fold_itw("c", 9, "cpu")
     beta, beta2 = (1, 2, 3, 4), (5, 6, 7, 8)
     want = tfri._fold(vals, itw, beta)
-    np.testing.assert_array_equal(_np(ops.fold(vals, itw, beta)), _np(want))
+    circle = tfri.FoldStep(9, 1, True, beta, beta, beta, 9)
+    np.testing.assert_array_equal(_np(ops.fold_step(vals, circle)), _np(want))
     cur = convert.to_torch(_vals(51, (4, 1 << 8)))
-    np.testing.assert_array_equal(_np(ops.fold_add(vals, itw, beta, cur)),
+    add = tfri.FoldStep(8, 0, False, beta, beta2, beta, 9)  # cur + the circle-folded vals
+    np.testing.assert_array_equal(_np(ops.fold_step(cur, add, None, vals)),
                                   _np((cur.to(torch.int64) + want) % P))
     line = convert.to_torch(_vals(52, (4, 1 << 9)))
     i1, i2 = tfri._fold_itw("l", 9, "cpu"), tfri._fold_itw("l", 8, "cpu")
+    two = tfri.FoldStep(9, 2, False, beta, beta2, beta, 10)
     np.testing.assert_array_equal(
-        _np(ops.fold2(line, i1, i2, beta, beta2)),
+        _np(ops.fold_step(line, two)),
         _np(tfri._fold(tfri._fold(line, i1, beta), i2, beta2)))
