@@ -1560,34 +1560,22 @@ def fold_work(step, n: int, has_a: bool, has_b: bool) -> tuple:
 
 
 def oods_device_ms(kernel, groups, want: torch.Tensor, shard: int = 0, reps: int = 5) -> float:
-    """The OODS kernel's device time on `groups` without its call's host
-    part (the table, 2-7 ms of Python a prove's launch, outruns a sleep
-    kernel): the table packed and staged once, one launch checked against
-    `want`, then `reps` launches of the library back to back between two
-    events."""
+    """The OODS kernel's device time on `groups` (one launch's worth)
+    without its call's host part: the table planned and staged once, one
+    launch checked against `want`, then `reps` launches back to back
+    between two events."""
     dev = want.device
-    mem = oods_kernels.members(groups, shard)
-    words, blocks = oods_kernels.pack(groups, mem)
-    table = torch.as_tensor(words.view(np.int32), device=dev)
+    lp = oods_kernels.plan(groups, shard, kernel.max_blocks)
+    table = torch.as_tensor(lp.words.view(np.int32), device=dev)
     out = torch.empty_like(want)
-    scratch = kernel.scratch(dev, want.shape[1])
-    lib = kernel.lib.load()
-
-    def launch():
-        rc = lib.oods_sample(table.data_ptr(), len(mem), len(groups), want.shape[1], blocks,
-                             scratch.data_ptr(), out.data_ptr(),
-                             torch.cuda.current_stream(dev).cuda_stream)
-        if rc:
-            raise RuntimeError(f"OODS launch failed: CUDA error {rc}")
-
-    launch()
+    kernel.enqueue(lp, table, out)
     torch.cuda.synchronize()
     if not torch.equal(out, want):
         raise AssertionError("OODS launch on a staged table != the wrapper's")
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
-        launch()
+        kernel.enqueue(lp, table, out)
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
@@ -1614,8 +1602,10 @@ def phase_oods_fri(fib_path: str, big_path: str, per_mul: float, dispatch_per_s:
     chunk's launch at its offset, their sums against the whole; folds: the
     second of CHECK_SHARDS output chunks at its offset). Each launch is
     timed (device time: an OODS launch on a table staged once, a fold's
-    calls queued behind a sleep; an OODS call's whole time too) beside its
-    bounds and the plain version's one call. Each proof keeps its
+    calls queued behind a sleep; an OODS call's whole time too, and its
+    host part, the call's time less the launch's) beside its bounds and the
+    plain version's one call; the line also gives the OODS kernel's
+    registers, static shared memory and spills. Each proof keeps its
     sha256."""
     real_sample, real_fold = poly.sample_groups, fri.fold_step
     times = {}
@@ -1645,10 +1635,11 @@ def phase_oods_fri(fib_path: str, big_path: str, per_mul: float, dispatch_per_s:
             parts.append(part.to(torch.int64))
         check(f"{what}, {CHECK_SHARDS} shards summed", (sum(parts) % P).to(torch.int32), got)
         nbytes, products = oods_work(groups)
+        ms = oods_device_ms(oods_kernels.KERNEL, groups, got, shard)
+        call_ms = _time_ms(lambda: real_sample(groups, shard))
         times[what] = {
             "groups": [[lg, len(r)] for lg, _, r in groups], "bytes": nbytes,
-            "ms": oods_device_ms(oods_kernels.KERNEL, groups, got, shard),
-            "call_ms": _time_ms(lambda: real_sample(groups, shard)),
+            "ms": ms, "call_ms": call_ms, "host_ms": call_ms - ms,
             "plain_ms": _time_ms(lambda: poly.sample_groups_plain(groups, shard), reps=1),
             **bound(nbytes, products * per_mul, dispatch_per_s)}
         return got
@@ -1691,7 +1682,8 @@ def phase_oods_fri(fib_path: str, big_path: str, per_mul: float, dispatch_per_s:
             raise AssertionError(f"{tag} (OODS and fold checks): sha256 {proof_sha256(proof)}")
         del proof
     _clear_prover_caches()
-    out = {"comparisons": len(times), "tolerance": 0, "max_abs_err": max_err, "times": times}
+    out = {"comparisons": len(times), "tolerance": 0, "max_abs_err": max_err,
+           "oods_kernel": oods_kernels.KERNEL.attributes(), "times": times}
     _line("oods_fri", out)
     return out
 

@@ -454,11 +454,10 @@ def _sample_all_trees(trees, layout: SystemLayout, z, ops=None) -> List[List[Lis
                [trees[ti].records[ci].coeffs for ti, ci, _ in members])
               for (log_size, s), members in plan.items()]
     arr = poly.pull(poly.sample_groups(groups) if ops is None else ops.sample_groups(groups))
-    c = 0
+    columns = iter(arr.T.tolist())  # one conversion, not one a word
     for members in plan.values():
         for ti, ci, pi in members:
-            sampled[ti][ci][pi] = tuple(int(arr[k, c]) for k in range(4))
-            c += 1
+            sampled[ti][ci][pi] = tuple(next(columns))
     return sampled  # type: ignore[return-value]
 
 

@@ -2,9 +2,9 @@
 
 Counterpart of ``stwo_brainfuck_tpu/core/poly.py``: the OODS samples of
 committed coefficient rows (tensor-product basis split: the half bases on
-the host for the plain version, each group's basis factors for the OODS
-kernel, ``ops/oods_kernels.py``) and the vanishing polynomial of a canonic
-domain, on the host and on a device.
+the host for the plain version; the OODS kernel, ``ops/oods_kernels.py``,
+builds each group's basis factors from its point on the card) and the
+vanishing polynomial of a canonic domain, on the host and on a device.
 """
 
 from __future__ import annotations
@@ -107,13 +107,14 @@ def sample_groups(groups: Sequence[tuple], shard: int = 0) -> torch.Tensor:
     - 1) and its column is that chunk's part of the sum (sample_tensor's
     offset); the parts of all chunks add up mod p to the row's value.
 
-    On CUDA rows this is one launch of the OODS kernel (the factor table of
-    every group in one small copy, the rows read in place); on CPU rows the
-    plain version, sample_groups_plain."""
-    live = [r for _, _, rows in groups for r in rows if r is not None]
-    if not live:
+    On CUDA rows this is one launch of the OODS kernel (a table of the rows'
+    pointers and the groups' points in one small copy, the rows read in
+    place, a row at two points read once); on CPU rows the plain version,
+    sample_groups_plain."""
+    first = next((r for _, _, rows in groups for r in rows if r is not None), None)
+    if first is None:
         raise ValueError("sample_groups: no rows")
-    if live[0].is_cuda:
+    if first.is_cuda:
         from ..ops import oods_kernels
 
         return oods_kernels.KERNEL.sample(groups, shard)

@@ -790,18 +790,23 @@ def _felt(rng):
 
 def _oods_groups(seed, logs, rows_each, dev):
     rng = np.random.default_rng(seed)
+    counts = rows_each if isinstance(rows_each, list) else [rows_each] * len(logs)
     return [(lg, (_felt(rng), _felt(rng)),
              [torch.as_tensor(rng.integers(0, P, 1 << lg).astype(np.int32), device=dev)
-              for _ in range(rows_each)]) for lg in logs]
+              for _ in range(k)]) for lg, k in zip(logs, counts)]
 
 
+# odd and even trace logs; (4, 5, 6, 21): many small rows packed beside one
+# 2^21 row, the mix a prove's launch has
 @pytest.mark.parametrize("logs", [[1], [2, 3, 4, 5], [4, 8, 9, 12, 13], [16, 17, 18],
-                                  [20, 21], [22], [24]])
+                                  [20, 21], [22], [24], [10, 11], [23],
+                                  [4, 5, 6, 21]])
 def test_oods_kernel_matches_plain_on_the_card(cuda, logs):
     from stwo_brainfuck_tpu_torch.core import poly
     from stwo_brainfuck_tpu_torch.ops import oods_kernels
 
-    groups = _oods_groups(sum(logs), logs, 3, cuda)
+    rows_each = [40, 30, 50, 1] if logs == [4, 5, 6, 21] else 3
+    groups = _oods_groups(sum(logs), logs, rows_each, cuda)
     before, plain = oods_kernels.KERNEL.launches, poly.PLAIN_CUDA_CALLS
     got = poly.sample_groups(groups)
     assert oods_kernels.KERNEL.launches - before == 1
@@ -829,6 +834,49 @@ def test_oods_kernel_on_mesh_shards(cuda, d):
     assert torch.equal(got, poly.sample_groups(groups))
 
 
+@pytest.mark.parametrize("points", [2, 3])
+def test_oods_kernel_reads_a_row_at_two_points_once(cuda, points):
+    """Rows opened at several points of one trace log, as a prove's shifted
+    groups have them (2^9 and longer: pairs; shorter: a member a point),
+    whole and as a shard's chunks: equal to the plain version."""
+    from stwo_brainfuck_tpu_torch.core import poly
+    from stwo_brainfuck_tpu_torch.ops import oods_kernels
+
+    base = _oods_groups(points, [4, 9, 12, 19], 3, cuda)
+    rng = np.random.default_rng(points)
+    groups = base + [(lg, (_felt(rng), _felt(rng)), rows[:2]) for lg, _, rows in base
+                     for _ in range(points - 1)]
+    lp = oods_kernels.plan(groups, 0, 8, cuda=True)
+    assert lp.n_pairs == 6  # the 2^9, 2^12 and 2^19 rows at a second point
+    cpu = [(lg, pt, [r.cpu() for r in rows]) for lg, pt, rows in groups]
+    assert torch.equal(poly.sample_groups(groups).cpu(), poly.sample_groups(cpu))
+    half = [(lg, pt, [r[:r.shape[0] // 2] for r in rows]) for lg, pt, rows in groups]
+    cpu = [(lg, pt, [r.cpu() for r in rows]) for lg, pt, rows in half]
+    assert torch.equal(poly.sample_groups(half, shard=1).cpu(), poly.sample_groups(cpu, shard=1))
+
+
+def test_oods_kernel_unaligned_rows_and_many_groups(cuda):
+    """A big row that does not start on 16 bytes (read from an aligned
+    copy), a group of all-None rows, and more than MAX_GROUPS groups (one
+    launch each MAX_GROUPS): equal to the plain version."""
+    from stwo_brainfuck_tpu_torch.core import poly
+    from stwo_brainfuck_tpu_torch.ops import oods_kernels
+
+    rng = np.random.default_rng(5)
+    long = torch.as_tensor(rng.integers(0, P, (1 << 12) + 4).astype(np.int32), device=cuda)
+    groups = _oods_groups(6, [12, 7], 2, cuda)
+    groups[0][2].append(long[1:1 + (1 << 12)])
+    groups.append((9, (_felt(rng), _felt(rng)), [None, None]))
+    many = groups + _oods_groups(7, [5 + k % 9 for k in range(oods_kernels.MAX_GROUPS + 3)], 1,
+                                 cuda)
+    for gs, launches in ((groups, 1), (many, 2)):
+        before = oods_kernels.KERNEL.launches
+        got = poly.sample_groups(gs)
+        assert oods_kernels.KERNEL.launches - before == launches
+        cpu = [(lg, pt, [None if r is None else r.cpu() for r in rows]) for lg, pt, rows in gs]
+        assert torch.equal(got.cpu(), poly.sample_groups(cpu))
+
+
 def test_oods_schedule_mirrors_the_kernel_and_refusals(cuda):
     import ctypes
 
@@ -836,11 +884,18 @@ def test_oods_schedule_mirrors_the_kernel_and_refusals(cuda):
     from stwo_brainfuck_tpu_torch.ops import oods_kernels
 
     lib = oods_kernels.KERNEL.lib.load()
-    out = (ctypes.c_longlong * 5)()
-    for log_size in range(1, 29):
-        for log_n in range(0, log_size + 1):
-            assert lib.oods_schedule(log_size, log_n, ctypes.addressof(out)) == 0
-            assert tuple(out) == tuple(oods_kernels.schedule(log_size, log_n))
+    blocks = oods_kernels.KERNEL.max_blocks(cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert blocks % sms == 0 and blocks >= sms
+    out = (ctypes.c_longlong * 6)()
+    for rows in ((0, 4, 0), (5, 0, 0), (0, 0, 8), (3, 42_600, 7_600), (1, 332_000, 126_000),
+                 (7, 2**24, 2**20)):
+        sch = oods_kernels.schedule(*rows, blocks)
+        for b in range(sch.grid):
+            assert lib.oods_schedule(b, sch.grid, *rows, ctypes.addressof(out)) == 0
+            assert tuple(out) == tuple(int(v[b]) for v in sch[1:])
+    attrs = oods_kernels.KERNEL.attributes()
+    assert attrs["registers"] > 0 and attrs["local_bytes"] == 0
     groups = _oods_groups(1, [8], 2, cuda)
     lg, pt, rows = groups[0]
     with pytest.raises(TypeError):
@@ -849,6 +904,8 @@ def test_oods_schedule_mirrors_the_kernel_and_refusals(cuda):
         poly.sample_groups([(lg, pt, [r[::2].contiguous()[:100] for r in rows])])
     with pytest.raises(ValueError):
         poly.sample_groups([(lg, pt, [rows[0], rows[1].cpu()])])
+    with pytest.raises(ValueError):
+        poly.sample_groups([(lg, pt, [rows[0][::2]])])
 
 
 def _fold_cases(seed, top, dev):

@@ -12,9 +12,11 @@ synchronizing).
 --production proves at chip_smoke.PRODUCTION (fib19_io at input 19,
 committed at 2^28). The split inside `oods` and `fri` times the prover's
 own functions as profiler ranges, each the host time of its calls less the
-ranges inside it: `oods` into its bases or factor table
-(poly.half_bases_at_point, or ops/oods_kernels.pack), its contraction
-(poly.sample_tensor, or the OODS kernel's call) and its pull (poly.pull);
+ranges inside it: `oods` into its bases or launch table
+(poly.half_bases_at_point; ops/oods_kernels.pack, the factor table of the
+first OODS kernel; ops/oods_kernels.plan, the table of the persistent one),
+its contraction (poly.sample_tensor, or the OODS kernel's call less its
+table) and its pull (poly.pull);
 `fri` into its folds (fri._fold, or fri.fold_step), its layer commits
 (merkle.commit) and their root pulls (blake2s.digest_to_bytes); what no
 range covers is `other`. Beside them, in each phase: its device->host
@@ -48,7 +50,8 @@ WARM_UP = 2
 PKG = "stwo_brainfuck_tpu_torch"
 # (phase, part) -> the functions timed as that part, where the checkout has them
 PARTS = {
-    ("oods", "bases"): [("core.poly", "half_bases_at_point"), ("ops.oods_kernels", "pack")],
+    ("oods", "bases"): [("core.poly", "half_bases_at_point"), ("ops.oods_kernels", "pack"),
+                        ("ops.oods_kernels", "plan")],
     ("oods", "contraction"): [("core.poly", "sample_tensor"),
                               ("ops.oods_kernels", "OodsKernel.sample")],
     ("oods", "pull"): [("core.poly", "pull")],
