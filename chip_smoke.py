@@ -27,8 +27,13 @@ Phases (any failure raises and the script exits non-zero):
      mul_chain at 2^24, then throughput_benchmark(24) (kernel and plain
      Gmul/s beside the bound). Each kernel's count must show its launches
      and the plain guard only the benchmark's own plain calls;
-  5. the device table build against the host builders on the card, bit for
-     bit, for the small program, fib19_io and big22; then the Blake2s
+  5. the table build on the card (components/device_build.build_tables:
+     the meta pass on the device, one pull, one launch of
+     csrc/tables.cu) for the small program, fib19_io and big22: the meta
+     pass against the host pass build_meta field by field, the kernel's 13
+     matrices against its plain version and the host builders, bit for
+     bit; the meta pass, its pull, the kernel (beside its bytes bound),
+     the plain build and build_meta timed; then the Blake2s
      kernels against their plain versions on the card, bit for bit: the
      level kernel (BLAKE_COLS columns, with and without children,
      BLAKE_SIZES nodes, a length override, hash_words), the tree kernel
@@ -117,9 +122,12 @@ Phases (any failure raises and the script exits non-zero):
      shard and once for the top on the mesh; the composition and
      interaction kernels once a component on one device and no logup or
      scan launch; on a mesh the logup kernel and the scan once a shard above
-     the sharded sizes), no plain FFT, Blake2s, quotient, constraint-path
-     (the prefix sum included), OODS or fold call may have run on a CUDA
-     tensor and no M31 kernel or plain M31 op;
+     the sharded sizes; the table kernel once a prove, on every path, its
+     counts pulled once), no plain FFT, Blake2s, quotient, constraint-path
+     (the prefix sum included), OODS, fold or table call may have run on a
+     CUDA tensor, no host table pass (build_meta), and no M31 kernel or
+     plain M31 op; the profiled prove's tables phase makes one host sync
+     and one device-to-host copy;
   9. production parameters (PcsConfig(log_blowup=4, n_queries=30,
      pow_bits=16)): the memory reading (production_memory: one cold
      fib19_io prove at input 19 under the allocator's history, its peak,
@@ -191,7 +199,7 @@ from stwo_brainfuck_tpu_torch.core.pcs import PcsConfig
 from stwo_brainfuck_tpu_torch.framework import component as framework
 from stwo_brainfuck_tpu_torch.ops import (blake2s_kernels, circle_fft, constraint_kernels,
                                            fri_kernels, m31_kernels, nvcc, oods_kernels,
-                                           quotient_kernels)
+                                           quotient_kernels, table_kernels)
 from stwo_brainfuck_tpu_torch.parallel import fft_sharded
 from stwo_brainfuck_tpu_torch.parallel import mesh as mesh_calls
 from stwo_brainfuck_tpu_torch.parallel.merkle_sharded import commit_sharded
@@ -267,6 +275,7 @@ M31_SIZES = (1, 127, 128, 4097, 1 << 20, 1 << 24)
 M31_EDGES = (0, 1, 2**16 - 1, 2**16, 2**31 - 2)
 P = 2**31 - 1
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
+TABLE_REPS = 3  # warm runs of the table build a program (phase_tables)
 MAX_SM_HZ = 1.98e9  # H100 SXM boost clock, for the length of a sleep kernel
 # the production memory reading: the largest live blocks listed at the
 # peak, and the allocator events recorded
@@ -957,16 +966,25 @@ def _reset_counts() -> None:
     fri_kernels.KERNEL.launches = 0
     poly.PLAIN_CUDA_CALLS = 0
     fri.PLAIN_CUDA_CALLS = 0
+    table_kernels.KERNEL.launches = 0
+    table_kernels.PLAIN_CUDA_CALLS = 0
+    device_build.META_CALLS = 0
 
 
 def _counts() -> dict:
     """The prover's kernels' launch counts: the FFT, each Blake2s entry, the
-    quotient kernel, the constraint kernels, the OODS kernel and the FRI
-    fold kernel."""
+    quotient kernel, the constraint kernels, the OODS kernel, the FRI
+    fold kernel and the table kernel."""
     return {"fft": circle_fft.KERNEL.launches, **blake2s_kernels.KERNELS.launches,
             "quotients": quotient_kernels.KERNEL.launches,
             **constraint_kernels.KERNELS.launches, "oods": oods_kernels.KERNEL.launches,
-            "fri_fold": fri_kernels.KERNEL.launches}
+            "fri_fold": fri_kernels.KERNEL.launches, "tables": table_kernels.KERNEL.launches}
+
+
+def _plain_tables() -> int:
+    """The host table pass (build_meta) and the plain table build on a CUDA
+    device, as run in this process: none on a prove with a card."""
+    return device_build.META_CALLS + table_kernels.PLAIN_CUDA_CALLS
 
 
 def _oods_fri_per_prove(launched: dict, layers: int, shards: int, oods_pulls: int,
@@ -1043,8 +1061,9 @@ def _trees_per_commit(launched: dict, commits: int, shards: int, what: str) -> d
 
 class _PhaseCalls(air.PhaseTimer):
     """air.PhaseTimer that also records, for each phase, the device->host
-    pulls of the decommitment's reads (core/merkle.PULLS) and of the OODS
-    samples (core/poly.PULLS) and the
+    pulls of the decommitment's reads (core/merkle.PULLS), of the OODS
+    samples (core/poly.PULLS) and of the table build's counts
+    (components/device_build.PULLS) and the
     torch.distributed calls of the process mesh (parallel/mesh.CALLS)
     made in it."""
 
@@ -1055,7 +1074,8 @@ class _PhaseCalls(air.PhaseTimer):
 
     @staticmethod
     def _now() -> dict:
-        return {"pulls": merkle.PULLS, "oods_pulls": poly.PULLS, **mesh_calls.CALLS}
+        return {"pulls": merkle.PULLS, "oods_pulls": poly.PULLS,
+                "table_pulls": device_build.PULLS, **mesh_calls.CALLS}
 
     def mark(self, name: str) -> None:
         super().mark(name)
@@ -1077,14 +1097,15 @@ def _decommit_phase(seconds: float, calls: dict, what: str, processes: bool = Fa
 
 def _require(launched: dict, plain_fft: int, plain_blake: int, what: str,
              grind: bool = False, plain_quotients: int = 0, plain_constraints: int = 0,
-             plain_oods_fri: int = 0) -> dict:
+             plain_oods_fri: int = 0, plain_tables: int = 0) -> dict:
     """A prove's launches: the FFT, the Blake2s tree kernel, the quotient
     kernel, the composition kernel, the LogUp interaction (the
     interaction kernel, or on a mesh's shards the logup kernel and the
-    scan), the OODS kernel and the fold kernel, and the grind where
-    pow_bits > 13, launched; no plain FFT, Blake2s, quotient, constraint,
-    OODS or fold call on a CUDA tensor."""
-    needed = (("fft", "tree", "quotients", "composition", "oods", "fri_fold")
+    scan), the OODS kernel, the fold kernel and the table kernel, and the
+    grind where pow_bits > 13, launched; no plain FFT, Blake2s, quotient,
+    constraint, OODS, fold or table call on a CUDA tensor and no host
+    table pass."""
+    needed = (("fft", "tree", "quotients", "composition", "oods", "fri_fold", "tables")
               + (("grind",) if grind else ()))
     missing = [k for k in needed if launched.get(k, 0) <= 0]
     if launched.get("interaction", 0) <= 0 and (launched.get("logup", 0) <= 0
@@ -1105,6 +1126,9 @@ def _require(launched: dict, plain_fft: int, plain_blake: int, what: str,
     if plain_oods_fri:
         raise AssertionError(f"{what}: the plain OODS sampling or FRI fold ran on a CUDA tensor "
                              f"{plain_oods_fri} times")
+    if plain_tables:
+        raise AssertionError(f"{what}: the host table pass or the plain table build ran "
+                             f"{plain_tables} times")
     return launched
 
 
@@ -1112,7 +1136,7 @@ def _require_here(launched: dict, what: str, grind: bool = False) -> dict:
     """_require with this process's plain-call counts."""
     return _require(launched, fft.PLAIN_CUDA_CALLS, blake2s.PLAIN_CUDA_CALLS, what, grind,
                     quotients.PLAIN_CUDA_CALLS, framework.PLAIN_CUDA_CALLS,
-                    poly.PLAIN_CUDA_CALLS + fri.PLAIN_CUDA_CALLS)
+                    poly.PLAIN_CUDA_CALLS + fri.PLAIN_CUDA_CALLS, _plain_tables())
 
 
 def _check_launches(before: dict, what: str, grind: bool = False) -> dict:
@@ -1169,6 +1193,7 @@ def phase_small(tag: str = "small", flags: tuple = (), reference: str = "small")
                 "quotient_launches": launched["quotients"],
                 "constraint_launches": _constraint_launches(launched),
                 "oods_launches": launched["oods"], "fold_launches": launched["fri_fold"],
+                "table_launches": launched["tables"],
                 **({"matches_cpu_proof": True} if pow16 else {})})
     return launched
 
@@ -1205,6 +1230,9 @@ def phase_program(name, path, inp, runs: int, expect_sha: str | None,
             prove_s = time.perf_counter() - t1
         launched = _check_launches(before, f"{name} prove", grind=grind)
         _constraints_per_prove(launched, len(mesh.local) if mesh else 0, f"{name} prove")
+        if launched["tables"] != 1 or timer.calls["tables"].get("table_pulls") != 1:
+            raise AssertionError(f"{name} prove: {launched['tables']} table launches and "
+                                 f"{timer.calls['tables']} in its tables phase, not one each")
         if grind and launched["grind"] != 1:
             raise AssertionError(f"{name} prove: {launched['grind']} grind launches, not one")
         trees = _trees_per_commit(launched, counted["commits"], len(mesh.local) if mesh else 0,
@@ -1215,6 +1243,7 @@ def phase_program(name, path, inp, runs: int, expect_sha: str | None,
                             len(mesh.local) if mesh else 0,
                             timer.calls["oods"].get("oods_pulls", 0), f"{name} prove")
         peak = torch.cuda.max_memory_allocated()
+        peak_requested = torch.cuda.memory_stats().get("requested_bytes.all.peak")
         t2 = time.perf_counter()
         air.verify_brainfuck(proof, device="cuda")
         verify_s = time.perf_counter() - t2
@@ -1234,11 +1263,12 @@ def phase_program(name, path, inp, runs: int, expect_sha: str | None,
             "khz": steps / prove_s / 1e3, "proof_bytes": len(json.dumps(proof)),
             "claim_max_log": max(proof["claim"].values()),
             "phases_s": timer.seconds, "decommit": decommit, "peak_device_bytes": peak,
-            "fft_launches": launched["fft"],
+            "peak_requested_bytes": peak_requested, "fft_launches": launched["fft"],
             "blake2s_launches": {k: launched[k] for k in blake2s_kernels.ENTRIES},
             "quotient_launches": launched["quotients"],
             "constraint_launches": _constraint_launches(launched),
-            "oods_launches": launched["oods"], "fold_launches": launched["fri_fold"], **trees,
+            "oods_launches": launched["oods"], "fold_launches": launched["fri_fold"],
+            "table_launches": launched["tables"], **trees,
             "sha256": sha, "matches_jax": None if expect_sha is None else True,
             **({"matches_recorded": True} if recorded else {}),
         })
@@ -1322,7 +1352,9 @@ def phase_split(name: str, path: str, inp: bytes) -> dict:
     garbage-collection pauses, and the decommit phase: its seconds,
     device->host pulls (one: every gather in one copy; also read as the
     device-to-host copies in its range), host syncs and collection
-    pauses."""
+    pauses; and the tables phase: its seconds, host syncs (one: the
+    counts' pull), device-to-host copies (one) and host-to-device copies
+    issued in it (two: the staged trace and the kernel's launch table)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1339,11 +1371,13 @@ def phase_split(name: str, path: str, inp: bytes) -> dict:
         phases.close()
     ranges = {f"prove phase {k}": n for k, n in enumerate(phases.names)}
     spans, syncs, wait_us, by_kernel, kernels = [], {}, 0.0, {}, 0
-    sync_at, dtoh_at, decommit = [], [], None
+    sync_at, dtoh_at, htod_at, decommit, tables_at = [], [], [], None, None
     for ev in prof.events():
         if ev.name in ranges:  # the phase ranges (on the host, and their device annotations)
             if ev.device_type == DeviceType.CPU and ranges[ev.name] == "decommit":
                 decommit = ev.time_range
+            if ev.device_type == DeviceType.CPU and ranges[ev.name] == "tables":
+                tables_at = ev.time_range
         elif ev.device_type == DeviceType.CUDA:
             spans.append((ev.time_range.start, ev.time_range.end))
             kernels += not ev.name.startswith(("Memcpy", "Memset"))
@@ -1354,8 +1388,14 @@ def phase_split(name: str, path: str, inp: bytes) -> dict:
             syncs[ev.name] = syncs.get(ev.name, 0) + 1
             wait_us += ev.time_range.elapsed_us()
             sync_at.append(ev.time_range.start)
-    if decommit is None:
-        raise AssertionError(f"{name}: no decommit range among the profiler's events")
+        if ev.device_type == DeviceType.CPU and ev.kernels:
+            # a host-to-device copy counts where the host op that issued it
+            # started (the launch table's copy may start on the card after
+            # the phase's range has closed)
+            htod_at += [ev.time_range.start for k in ev.kernels
+                        if k.name.startswith("Memcpy HtoD")]
+    if decommit is None or tables_at is None:
+        raise AssertionError(f"{name}: no decommit or tables range among the profiler's events")
     busy_us, end = 0.0, None
     for a, b in sorted(spans):
         if end is None or a > end:
@@ -1370,6 +1410,14 @@ def phase_split(name: str, path: str, inp: bytes) -> dict:
              "gc_s": phases.gc_s["decommit"]}
     if split["pulls"] != 1 or split["device_to_host_copies"] != 1:
         raise AssertionError(f"{name}: decommit made {split}, not one pull")
+    within = lambda ts: sum(tables_at.start <= t <= tables_at.end for t in ts)  # noqa: E731
+    table_split = {"s": tables_at.elapsed_us() / 1e6, "host_syncs": within(sync_at),
+                   "device_to_host_copies": within(dtoh_at),
+                   "host_to_device_copies": within(htod_at), "gc_s": phases.gc_s["tables"]}
+    if (table_split["host_syncs"] != 1 or table_split["device_to_host_copies"] != 1
+            or table_split["host_to_device_copies"] != 2):
+        raise AssertionError(f"{name}: the tables phase made {table_split}, not one sync, one "
+                             f"pull and two uploads (the staged trace, the launch table)")
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
     out = {"program": name, "run": "warm, profiled", "prove_s": wall_s,
            "device_busy_s": busy_us / 1e6 if spans else None,
@@ -1377,6 +1425,7 @@ def phase_split(name: str, path: str, inp: bytes) -> dict:
            "device_events": len(spans), "device_kernels": kernels,
            "host_syncs": sum(syncs.values()), "syncs_by_call": syncs,
            "sync_wait_s": wait_us / 1e6, "gc_s": sum(phases.gc_s.values()), "decommit": split,
+           "tables": table_split,
            "top_device_us": dict(top)}
     _line("phase_split", out)
     return out
@@ -1390,7 +1439,7 @@ def production_extends(fib_path: str) -> list:
     with open(fib_path) as f:
         machine = create_test_machine(compile_program(f.read()), FIB_INPUT)
     machine.execute()
-    claim = device_build.build_meta(machine.trace(), machine.program()).claim
+    claim = device_build.device_meta(machine.trace(), machine.program(), "cuda").claim
     layout = air.build_layout(claim, PRODUCTION)
     groups: dict = {}
     for ti in (1, 2, 3):
@@ -1528,6 +1577,7 @@ def phase_quotients(fib_path: str, per_mul: float, dispatch_per_s: float) -> dic
 OODS_REPLACES = "stwo_brainfuck_tpu/core/poly.py:76 (_sample_tensor_jit)"
 FOLD_REPLACES = ("stwo_brainfuck_tpu/core/fri.py:67 (_fold_jit), :77 (_fold2_jit), "
                  ":85 (_fold_add_jit)")
+TABLES_REPLACES = "stwo_brainfuck_tpu/components/device_build.py:176 (_build_tables_jit)"
 CHECK_SHARDS = 4  # the OODS and fold checks' shard chunks
 FOLD_PRODUCTS = 24  # a fold: 4 (a + b) / 2, 4 (a - b) itw, 16 beta (a - b) itw
 
@@ -2291,7 +2341,7 @@ def phase_bench() -> dict:
     plain = head["plain_cuda_calls"]
     _require(launched, plain["fft"], plain["blake2s"], "the bench's headline",
              plain_quotients=plain["quotients"], plain_constraints=plain["constraints"],
-             plain_oods_fri=plain["oods"] + plain["fri"])
+             plain_oods_fri=plain["oods"] + plain["fri"], plain_tables=plain["tables"])
     return launched
 
 
@@ -2303,13 +2353,15 @@ def _free_port() -> int:
 
 def _rank_counts(rank: int, launches: dict, plain_fft: int, plain_blake: int,
                  plain_quotients: int, plain_constraints: int, plain_oods_fri: int,
-                 grind: bool = False) -> dict:
-    """A process's kernel launches and plain FFT, Blake2s, quotient and
-    constraint calls on CUDA tensors over one prove: the FFT, tree,
-    quotient and constraint kernels (and the grind where pow_bits > 13)
-    launched, no plain call."""
+                 plain_tables: int, grind: bool = False) -> dict:
+    """A process's kernel launches and plain FFT, Blake2s, quotient,
+    constraint and table calls over one prove: the FFT, tree, quotient,
+    constraint and table kernels (and the grind where pow_bits > 13)
+    launched, the table kernel once, no plain call."""
     _require(launches, plain_fft, plain_blake, f"process {rank}", grind, plain_quotients,
-             plain_constraints, plain_oods_fri)
+             plain_constraints, plain_oods_fri, plain_tables)
+    if launches["tables"] != 1:
+        raise AssertionError(f"process {rank}: {launches['tables']} table launches a prove")
     return {"fft_launches": launches["fft"],
             "blake2s_launches": {k: launches[k] for k in blake2s_kernels.ENTRIES},
             "quotient_launches": launches["quotients"],
@@ -2318,7 +2370,8 @@ def _rank_counts(rank: int, launches: dict, plain_fft: int, plain_blake: int,
             "plain_fft_cuda_calls": plain_fft, "plain_blake2s_cuda_calls": plain_blake,
             "plain_quotient_cuda_calls": plain_quotients,
             "plain_constraint_cuda_calls": plain_constraints,
-            "plain_oods_fold_cuda_calls": plain_oods_fri}
+            "plain_oods_fold_cuda_calls": plain_oods_fri, "table_launches": launches["tables"],
+            "plain_table_calls": plain_tables}
 
 
 _CLI_COUNTS = re.compile(r"Circle FFT kernel launches: (\d+); plain FFT calls on CUDA "
@@ -2332,6 +2385,8 @@ _CLI_CONSTRAINTS = re.compile(r"constraint kernel launches: composition (\d+), i
                               r"tensors: (\d+)")
 _CLI_OODS_FRI = re.compile(r"OODS kernel launches: (\d+), fold kernel launches: (\d+); plain "
                            r"OODS and fold calls on CUDA tensors: (\d+)")
+_CLI_TABLES = re.compile(r"Table kernel launches: (\d+); host table passes and plain table "
+                         r"builds on CUDA: (\d+)")
 
 
 def _distributed_cli(world: int, backend: str, torchrun: bool = False,
@@ -2385,25 +2440,26 @@ def _distributed_cli(world: int, backend: str, torchrun: bool = False,
         quots = [q for _, err in outs for q in _CLI_QUOTIENTS.findall(err)]
         cons = [c for _, err in outs for c in _CLI_CONSTRAINTS.findall(err)]
         folds = [c for _, err in outs for c in _CLI_OODS_FRI.findall(err)]
+        tabs = [c for _, err in outs for c in _CLI_TABLES.findall(err)]
         times = [float(t) for _, err in outs for t in re.findall(r"proof time: ([0-9.]+) s", err)]
         written = sum(err.count("Proof written") for _, err in outs)
         if (len(counts) != world or len(hashes) != world or len(quots) != world
-                or len(cons) != world or len(folds) != world or len(times) != world
-                or written != 1):
+                or len(cons) != world or len(folds) != world or len(tabs) != world
+                or len(times) != world or written != 1):
             raise AssertionError(f"distributed CLI ({world} x {backend}): {len(counts)} counts, "
                                  f"{len(hashes)} hash counts, {len(quots)} quotient counts, "
                                  f"{len(cons)} constraint counts, {len(folds)} OODS and fold "
-                                 f"counts, {len(times)} times and {written} proofs written in "
-                                 f"the logs")
+                                 f"counts, {len(tabs)} table counts, {len(times)} times and "
+                                 f"{written} proofs written in the logs")
         ranks = [{"prove_s": t, **_rank_counts(
                      i, {"fft": int(c[0]), **dict(zip(("tree", "level", "grind"), map(int, h[:3]))),
                          "quotients": int(q[0]), "composition": int(k[0]),
                          "interaction": int(k[1]), "logup": int(k[2]), "scan": int(k[3]),
-                         "oods": int(o[0]), "fri_fold": int(o[1])},
-                     int(c[1]), int(h[3]), int(q[1]), int(k[4]), int(o[2]),
+                         "oods": int(o[0]), "fri_fold": int(o[1]), "tables": int(b[0])},
+                     int(c[1]), int(h[3]), int(q[1]), int(k[4]), int(o[2]), int(b[1]),
                      grind=bool(pow_bits and pow_bits > 13))}
-                 for i, (c, h, q, k, o, t) in enumerate(zip(counts, hashes, quots, cons, folds,
-                                                            times))]
+                 for i, (c, h, q, k, o, b, t) in enumerate(zip(counts, hashes, quots, cons, folds,
+                                                               tabs, times))]
         files = sorted(os.listdir(tmp))
         if files != (["proof.json"] if torchrun else ["rank0.json"]):
             raise AssertionError(f"distributed CLI: wrote {files}, only the coordinator writes")
@@ -2424,7 +2480,8 @@ def _distributed_cli(world: int, backend: str, torchrun: bool = False,
         total = _add_counts(total, {"fft": r["fft_launches"], **r["blake2s_launches"],
                                     "quotients": r["quotient_launches"],
                                     **r["constraint_launches"], "oods": r["oods_launches"],
-                                    "fri_fold": r["fold_launches"]})
+                                    "fri_fold": r["fold_launches"],
+                                    "tables": r["table_launches"]})
     return total
 
 
@@ -2465,6 +2522,7 @@ def _prove_rank(rank: int, world: int, port: int, backend: str, device: str, run
                        "plain_quotient_cuda_calls": quotients.PLAIN_CUDA_CALLS,
                        "plain_constraint_cuda_calls": framework.PLAIN_CUDA_CALLS,
                        "plain_oods_fold_cuda_calls": poly.PLAIN_CUDA_CALLS + fri.PLAIN_CUDA_CALLS,
+                       "plain_table_calls": _plain_tables(),
                        "oods_pulls": timer.calls["oods"].get("oods_pulls", 0),
                        "fri_layers": len(proof["fri"]["layer_roots"]),
                        "m31_launches": sum(m31_kernels.KERNELS.launches.values()),
@@ -2527,7 +2585,7 @@ def _distributed_group(world: int, backend: str, device: str, runs: int) -> int:
             r.update(_rank_counts(r["rank"], r["launches"], r["plain_fft_cuda_calls"],
                                   r["plain_blake2s_cuda_calls"], r["plain_quotient_cuda_calls"],
                                   r["plain_constraint_cuda_calls"],
-                                  r["plain_oods_fold_cuda_calls"]))
+                                  r["plain_oods_fold_cuda_calls"], r["plain_table_calls"]))
             _oods_fri_per_prove(r["launches"], r["fri_layers"], 1, r["oods_pulls"],
                                 f"process {r['rank']}")
             r.update(_trees_per_commit(r["launches"], r["commits"], 1, f"process {r['rank']}"))
@@ -2549,7 +2607,7 @@ def _distributed_group(world: int, backend: str, device: str, runs: int) -> int:
                                          "peak_device_bytes", "fft_launches",
                                          "blake2s_launches", "quotient_launches",
                                          "constraint_launches", "oods_launches",
-                                         "fold_launches", "commits",
+                                         "fold_launches", "table_launches", "commits",
                                          "tree_launches_per_commit", "plain_fft_cuda_calls",
                                          "plain_blake2s_cuda_calls", "plain_quotient_cuda_calls",
                                          "plain_constraint_cuda_calls")} for r in ranks]})
@@ -2667,34 +2725,100 @@ def phase_m31(per_mul: float, dispatch_per_s: float) -> dict:
             "issue_share": share}
 
 
+def _meta_fields(dm, hm, name: str) -> None:
+    """The device meta pass's fields against the host pass's, bit for bit."""
+    if list(dm.claim.items()) != list(hm.claim.items()) or dm.k != hm.k:
+        raise AssertionError(f"{name}: device meta claim {dm.claim} / {dm.k} != host {hm.claim} "
+                             f"/ {hm.k}")
+    for field in ("order_mem", "counts_mem", "order_ins", "prog_cols", "eoe_cols"):
+        got = getattr(dm, field).cpu().numpy().astype(np.int64)
+        want = getattr(hm, field).astype(np.int64)
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"{name}: device meta {field} != build_meta's")
+    sel = dm.sel
+    for key, want in hm.sel.items():
+        if not np.array_equal(sel[key].cpu().numpy(), want):
+            raise AssertionError(f"{name}: device meta sel[{key}] != build_meta's")
+
+
 def phase_tables(programs) -> dict:
-    """Device tables vs the host builders on the card, bit for bit."""
+    """The table build on the card (device_build.build_tables' two steps):
+    the meta pass (device_meta) against the host pass (build_meta) field by
+    field; the table kernel's 13 matrices against its plain version
+    (table_kernels.tables_plain) and the host builders, bit for bit. Times,
+    warm (the best of TABLE_REPS): the meta pass less its pull (host and
+    device, to the synchronization the pull begins with), the pull, the
+    kernel (device time: 10 launches on one staged launch table, queued
+    behind a sleep) beside its bytes bound, the plain build and build_meta;
+    the whole build_tables call."""
     out = {}
+    real_pull = device_build._pull
     for name, code, inp in programs:
         m = create_test_machine(compile_program(code), inp)
         m.execute()
         trace, program = m.trace(), m.program()
-        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        meta = device_build.build_meta(trace, program)
-        t1 = time.perf_counter()
-        mats = device_build.build_device_tables(trace, meta, "cuda")
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
+        hm = device_build.build_meta(trace, program)
+        build_meta_s = time.perf_counter() - t0
         host = tables.all_tables(trace, program)
-        t3 = time.perf_counter()
+        meta_s, pull_s, whole_s = [], [], []
+
+        def timed_pull(vec):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            got = real_pull(vec)
+            pull_s.append(time.perf_counter() - t)
+            return got
+
+        for _ in range(TABLE_REPS):
+            torch.cuda.synchronize()
+            with mock.patch.object(device_build, "_pull", timed_pull):
+                t0 = time.perf_counter()
+                dm = device_build.device_meta(trace, program, "cuda")
+                meta_s.append(time.perf_counter() - t0 - pull_s[-1])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            claim, mats = device_build.build_tables(trace, program, "cuda")
+            torch.cuda.synchronize()
+            whole_s.append(time.perf_counter() - t0)
+            del mats
+        _meta_fields(dm, hm, name)
+        if claim != dm.claim:
+            raise AssertionError(f"{name}: build_tables' claim != device_meta's")
+        launches = table_kernels.KERNEL.launches
+        mats = table_kernels.KERNEL.build(dm)
+        if table_kernels.KERNEL.launches != launches + 1:
+            raise AssertionError(f"{name}: the table kernel launched "
+                                 f"{table_kernels.KERNEL.launches - launches} times, not once")
+        plain = table_kernels.tables_plain(dm.rows.T, dm, "cuda")
+        torch.cuda.synchronize()
         elements = 0
         for cls in COMPONENT_CLASSES:
-            comp = cls(meta.claim[cls.name])
+            comp = cls(dm.claim[cls.name])
             want = np.stack([host[comp.name][col] for col in comp.columns]).view(np.int32)
             got = mats[comp.name].cpu().numpy()
             if got.shape != want.shape or not np.array_equal(got, want):
-                raise AssertionError(f"{name}: device table {comp.name} != host builder")
+                raise AssertionError(f"{name}: table kernel {comp.name} != host builder")
+            if not torch.equal(mats[comp.name], plain[comp.name]):
+                raise AssertionError(f"{name}: table kernel {comp.name} != its plain version")
             elements += got.size
-        out[name] = {"steps": len(trace), "max_log": max(meta.claim.values()),
-                     "meta_s": t1 - t0, "device_build_s": t2 - t1, "host_build_s": t3 - t2,
-                     "elements": elements, "bit_identical": True}
-        del mats, host
+        del mats, plain
+        # the kernel alone: one launch table staged once, its outputs reused
+        words, _ = table_kernels.KERNEL.prepare(dm)
+        table = torch.as_tensor(words.view(np.int32), device="cuda")
+        ms = _time_ms(lambda: table_kernels.KERNEL.enqueue(table, int(words[11])), reps=10,
+                      queued=True)
+        del table, _
+        plain_ms = _time_ms(lambda: table_kernels.tables_plain(dm.rows.T, dm, "cuda"), reps=3)
+        nbytes = table_kernels.bound_bytes(dm)
+        out[name] = {"steps": len(trace), "max_log": max(dm.claim.values()),
+                     "meta_s": min(meta_s), "pull_s": min(pull_s), "build_tables_s": min(whole_s),
+                     "runs_s": {"meta": meta_s, "pull": pull_s, "build_tables": whole_s},
+                     "build_meta_s": build_meta_s, "ms": ms, "plain_ms": plain_ms,
+                     "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                     "bound_by": "bytes", "elements": elements, "bit_identical": True,
+                     "max_abs_err": 0}
+        del dm, host
         torch.cuda.empty_cache()
     _line("tables", out)
     return out
@@ -2740,7 +2864,8 @@ def main(argv) -> int:
     max_mhz, sm_mhz = (float(v.split()[0]) for v in _smi("clocks.max.sm,clocks.sm").split(","))
     libs = (circle_fft.KERNEL.lib, m31_kernels.KERNELS.lib, blake2s_kernels.KERNELS.lib,
             quotient_kernels.KERNEL.lib, constraint_kernels.KERNELS.lib,
-            constraint_kernels.KERNELS.scan_lib, oods_kernels.KERNEL.lib, fri_kernels.KERNEL.lib)
+            constraint_kernels.KERNELS.scan_lib, oods_kernels.KERNEL.lib, fri_kernels.KERNEL.lib,
+            table_kernels.KERNEL.lib)
     nvcc.build_all(libs)
     for lib in libs:
         if lib.build_log.strip():
@@ -2785,8 +2910,8 @@ def main(argv) -> int:
         fib_code = f.read()
     with open(os.path.join(ROOT, "programs", "big22.bf")) as f:
         big_code = f.read()
-    phase_tables([("small", SMALL_CODE, SMALL_INPUT.encode()),
-                  ("fib19_io", fib_code, FIB_INPUT), ("big22", big_code, b"")])
+    table_times = phase_tables([("small", SMALL_CODE, SMALL_INPUT.encode()),
+                                ("fib19_io", fib_code, FIB_INPUT), ("big22", big_code, b"")])
     blake = phase_blake2s(sass["per_compress"], dispatch_per_s, fib_code, SMALL_CODE)
     quot = phase_quotients(os.path.join(ROOT, "programs", "fib19_io.bf"), sass["per_mul"],
                            dispatch_per_s)
@@ -2944,6 +3069,20 @@ def main(argv) -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None,
         })
+    # the table kernel: big22's build, the largest; one launch a prove on every path
+    t = table_times["big22"]
+    kernels.append({
+        "name": "tables", "route": "cuda", "source": "stwo_brainfuck_tpu_torch/csrc/tables.cu",
+        "replaces": TABLES_REPLACES, "shape": f"big22: 13 matrices, 2^{t['max_log']} largest",
+        "launches": main_path["tables"],
+        "launches_by_path": {"prover": main_path["tables"], "sharded_prover": sharded["tables"],
+                             "distributed_prover": distributed["tables"],
+                             "production": production["launches"]["tables"],
+                             "bench": bench_path["tables"]},
+        "max_abs_err": max(v["max_abs_err"] for v in table_times.values()), "ms": t["ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "library_ms": None,
+    })
     if main_path["logup"] or main_path["scan"] or not (sharded["logup"] and sharded["scan"]
                                                        and distributed["logup"]
                                                        and distributed["scan"]):

@@ -5,8 +5,9 @@ path its mesh prover takes; proof bytes are the same as its single-chip
 path): the 4-phase pipeline (preprocessed / main / interaction commitments,
 then composition, OODS sampling, quotients, FRI, PoW, query decommitment)
 and its mirror verifier. As on the JAX package's single-device path, the
-tables are built on `device` from the uploaded trace
-(``components/device_build.py``); the transcript runs on the host; every
+tables are built on `device` from the trace uploaded once
+(``components/device_build.build_tables``: the meta pass on the device,
+then one table-kernel launch); the transcript runs on the host; every
 bulk array lives on `device`.
 """
 
@@ -246,11 +247,10 @@ def prove_brainfuck(machine, config: Optional[PcsConfig] = None, device="cuda",
     device = canonical_device(device) if mesh is None else mesh.home
     trace = machine.trace()
     mark("trace")
-    meta = device_build.build_meta(trace, machine.program())
-    assert tuple(meta.claim) == CLAIM_ORDER, list(meta.claim)
-    mats = device_build.build_device_tables(trace, meta, device)
+    claim, mats = device_build.build_tables(trace, machine.program(), device)
+    assert tuple(claim) == CLAIM_ORDER, list(claim)
     mark("tables")
-    return _prove_tables(mats, meta.claim, config, device, mark, mesh)
+    return _prove_tables(mats, claim, config, device, mark, mesh)
 
 
 def _prove_tables(mats: Dict[str, torch.Tensor], claim: Dict[str, int],

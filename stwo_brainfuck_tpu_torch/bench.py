@@ -282,22 +282,26 @@ def _sync(devices) -> None:
 
 def _launch_counts() -> Dict[str, int]:
     from .ops import (blake2s_kernels, circle_fft, constraint_kernels, fri_kernels, oods_kernels,
-                      quotient_kernels)
+                      quotient_kernels, table_kernels)
 
     return {"fft": circle_fft.KERNEL.launches, **blake2s_kernels.KERNELS.launches,
             "quotients": quotient_kernels.KERNEL.launches,
             **constraint_kernels.KERNELS.launches, "oods": oods_kernels.KERNEL.launches,
-            "fri_fold": fri_kernels.KERNEL.launches}
+            "fri_fold": fri_kernels.KERNEL.launches, "tables": table_kernels.KERNEL.launches}
 
 
 def _plain_cuda_calls() -> Dict[str, int]:
-    """The plain versions' calls on CUDA tensors (0 on a card's prove path)."""
+    """The plain versions' calls on CUDA tensors and the host table pass's
+    calls (0 on a card's prove path)."""
+    from .components import device_build
     from .core import blake2s, fft, fri, poly, quotients
     from .framework import component
+    from .ops import table_kernels
 
     return {"fft": fft.PLAIN_CUDA_CALLS, "blake2s": blake2s.PLAIN_CUDA_CALLS,
             "quotients": quotients.PLAIN_CUDA_CALLS, "constraints": component.PLAIN_CUDA_CALLS,
-            "oods": poly.PLAIN_CUDA_CALLS, "fri": fri.PLAIN_CUDA_CALLS}
+            "oods": poly.PLAIN_CUDA_CALLS, "fri": fri.PLAIN_CUDA_CALLS,
+            "tables": device_build.META_CALLS + table_kernels.PLAIN_CUDA_CALLS}
 
 
 def fresh_verify(proof: dict, device: torch.device, children: Children) -> dict:

@@ -41,8 +41,9 @@ from . import air
 from .core import blake2s, fft, fri, poly, quotients
 from .core.pcs import PcsConfig
 from .framework import component as framework
+from .components import device_build
 from .ops import (blake2s_kernels, circle_fft, constraint_kernels, fri_kernels, oods_kernels,
-                  quotient_kernels)
+                  quotient_kernels, table_kernels)
 from .vm.compiler import CompileError, compile_program
 from .vm.machine import DEFAULT_RAM_SIZE, Machine, MachineError
 from .vm.registers import TRACE_COLUMNS
@@ -154,6 +155,9 @@ def cmd_prove(args) -> int:
     log.info("OODS kernel launches: %d, fold kernel launches: %d; plain OODS and fold calls on "
              "CUDA tensors: %d", oods_kernels.KERNEL.launches, fri_kernels.KERNEL.launches,
              poly.PLAIN_CUDA_CALLS + fri.PLAIN_CUDA_CALLS)
+    log.info("Table kernel launches: %d; host table passes and plain table builds on CUDA: %d",
+             table_kernels.KERNEL.launches,
+             device_build.META_CALLS + table_kernels.PLAIN_CUDA_CALLS)
     if not coordinator:
         return 0  # the proof is the same in every process; process 0 writes it
 

@@ -1,32 +1,47 @@
-"""Table building on the device: the raw VM trace and a few small
-permutation / count arrays are the only bulk upload, and all 13 component
-matrices are built from them on `device`.
+"""Table building on the device: the raw VM trace is uploaded once, the
+sorts, clk gaps and opcode selections run on `device`, and all 13
+component matrices are built there from them.
 
 Counterpart of ``stwo_brainfuck_tpu/components/device_build.py``.
-``build_meta`` is its host pass, copied as it is (the memory lexsort and clk
-gaps, the instruction order, the per-opcode selectors, the claim).
-``build_device_tables`` rebuilds every matrix with torch ops, bit-identical
-to the host builders (``components/tables.py``): gathers through the sort
-permutations, ``repeat_interleave`` for the clk-gap rows, power-of-two
-pads, successor rolls. The step and match counts stay host ints, so no
-shape depends on device data and nothing is read back.
+
+``build_tables(trace, program, device)`` is the prover's entry point. Its
+meta pass (``device_meta``) stages the trace rows, the program table and a
+256-word opcode lookup through pinned memory in one copy, then on the
+device: a stable sort of the 64-bit key (mp << 32) | clk (the memory order,
+np.lexsort((clk, mp))'s permutation, ties included), the clk gaps where mp
+repeats, their exclusive prefix; a stable sort of (ip << 32) | clk over
+concat(program rows at clk 0, trace rows) (the instruction order, program
+rows first on ties); a stable sort of each row's opcode table (ci[:-1]
+through the lookup), which groups every table's rows in row order, its
+counts from a search of the sorted keys. One pull of a small int64 vector
+(the gap sum, the tables' bounds in the grouped rows, the end-of-execution
+rows) is the phase's only host sync; the claim is computed from it on the
+host. The matrices are then one launch of ``csrc/tables.cu``
+(``ops/table_kernels.KERNEL``) on a CUDA device, its plain version
+``table_kernels.tables_plain`` on the CPU.
+
+``build_meta`` is the JAX package's host numpy pass, copied as it is (the
+plain version of the meta pass; ``META_CALLS`` counts its calls), and
+``build_device_tables(trace, meta, device)`` uploads its arrays and runs
+the plain build. Neither runs on a prove.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
-from ..core import m31
-from ..vm.instruction import InstructionType
+from ..ops import table_kernels
+from ..ops.staging import PinnedRing
 from . import tables as T
 
-_JUMPS = [("jump_if_not_zero", int(InstructionType.JumpIfNotZero)),
-          ("jump_if_zero", int(InstructionType.JumpIfZero))]
-_OPS = [(f"{name}_instruction", int(op)) for name, op in T.OPCODES.items()]
+_JUMPS, _OPS = table_kernels.JUMPS, table_kernels.OPS
+
+META_CALLS = 0   # build_meta calls (the host pass; none on a prove)
+PULLS = 0        # the meta pass's device->host pulls (one a build)
 
 
 @dataclass
@@ -48,6 +63,8 @@ class TraceMeta:
 
 def build_meta(trace: np.ndarray, program: List[int],
                bucket: bool = True) -> TraceMeta:
+    global META_CALLS
+    META_CALLS += 1
     n = len(trace)
     clk, ip, ci = trace[:, 0], trace[:, 1], trace[:, 2]
     mp = trace[:, 4]
@@ -114,125 +131,186 @@ def build_meta(trace: np.ndarray, program: List[int],
     )
 
 
-def _upload(a: np.ndarray, device) -> torch.Tensor:
-    """int32 copy of a host array (uint32 values < 2^31) on `device`."""
-    return torch.as_tensor(np.ascontiguousarray(a).astype(np.int32, copy=False)).to(device)
-
-
-def _roll_next(col: torch.Tensor, kind: str) -> torch.Tensor:
-    """Successor column: col shifted up by one, the last entry filled by
-    `kind` (inc: last + 1, hold: last, zero, one)."""
-    nxt = torch.roll(col, -1)
-    if kind == "inc":
-        nxt[-1:] = col[-1:] + 1
-    elif kind == "hold":
-        nxt[-1:] = col[-1:]
-    else:
-        nxt[-1] = {"zero": 0, "one": 1}[kind]
-    return nxt
-
-
-def _pad_clk(last: torch.Tensor, start: int, count: int, step: int,
-             device) -> torch.Tensor:
-    """last + start + step * i for i < count (int32)."""
-    return last + start + step * torch.arange(count, dtype=torch.int32, device=device)
-
-
 def build_device_tables(trace: np.ndarray, meta: TraceMeta,
                         device) -> Dict[str, torch.Tensor]:
-    """name -> (n_cols, N) int32 matrix on `device`, rows in the host
-    builders' column order (the component's column order)."""
+    """name -> (n_cols, N) int32 matrix on `device` from the host pass's
+    meta: its arrays uploaded, then the plain build
+    (``table_kernels.tables_plain``)."""
     device = torch.device(device)
-    n = meta.n_steps
-    tr = _upload(trace, device).T           # (7, n) clk ip ci ni mp mv mvi
-    tclk, tip, tci, tni, tmp, tmv, tmvi = tr.contiguous()
-    ar = lambda k, dt=torch.int64: torch.arange(k, dtype=dt, device=device)  # noqa: E731
-    out: Dict[str, torch.Tensor] = {}
+    tr = torch.as_tensor(np.ascontiguousarray(trace).view(np.int32)).to(device).T
+    return table_kernels.tables_plain(tr, meta, device)
 
-    # memory: each sorted row followed by its clk-gap rows (and, after the
-    # last row, the power-of-two pad), which continue its clk with mp/mv held
-    n_mem = 1 << meta.claim["memory"]
-    order = _upload(meta.order_mem, device).long()
-    counts = _upload(meta.counts_mem, device).long()
-    src = torch.repeat_interleave(ar(n), counts, output_size=n_mem)
+
+# ---------------------------------------------------------------------------
+# The meta pass on the device
+# ---------------------------------------------------------------------------
+
+# The trace's pinned staging: one buffer a device, grown to the largest
+# trace; a build waits for the previous build's copy only if it is still
+# in flight.
+_STAGING = PinnedRing(slots=1)
+
+
+def _slot_lookup() -> np.ndarray:
+    """ci -> the opcode table's index in SELECTIONS (len(SELECTIONS) for
+    any other value), for ci < 256 (larger ci are clamped to 255, no
+    opcode)."""
+    lut = np.full(256, len(table_kernels.SELECTIONS), np.int32)
+    for j, (_, op) in enumerate(table_kernels.SELECTIONS):
+        lut[op] = j
+    return lut
+
+
+_SLOT_LOOKUP = _slot_lookup()
+
+
+@dataclass
+class DeviceMeta:
+    """The meta pass's result: the claim and counts on the host, every
+    array on the device. The kernel reads the first group of arrays; the
+    properties rebuild ``TraceMeta``'s arrays from them (the plain build
+    and the tests read those)."""
+    claim: Dict[str, int]
+    n_steps: int
+    plen: int
+    prog_cap: int
+    k: Dict[str, int]          # opcode rows a table
+    op_start: Dict[str, int]   # each table's first position in `ops`
+    n_mem_real: int
+    rows: torch.Tensor         # (n, 7) int32 trace rows, as uploaded
+    order_mem: torch.Tensor    # (n,) int64 trace rows sorted by (mp, clk)
+    starts_mem: torch.Tensor   # (n,) int64 first memory row of each sorted row
+    counts: torch.Tensor       # (n,) int64 1 + the clk gap after each sorted row
+    order_cat: torch.Tensor    # (plen + n,) int64 concat(program, trace) by (ip, clk)
+    ops: torch.Tensor          # (n - 1,) int64 rows of ci[:-1], grouped by table
+    prog_cols: torch.Tensor    # (4, prog_cap) int32 program table
+    end_row: torch.Tensor      # () int64 the row with ci = 0
+
+    @property
+    def counts_mem(self) -> torch.Tensor:
+        """(n,) int32: the counts with the power-of-two pad on the last."""
+        counts = self.counts.clone()
+        counts[-1] += (1 << self.claim["memory"]) - self.n_mem_real
+        return counts.to(torch.int32)
+
+    @property
+    def order_ins(self) -> torch.Tensor:
+        """(N_ins,) int32 global indices (program i -> i, trace j ->
+        prog_cap + j), the pad repeating the last."""
+        g = self.order_cat
+        glob = torch.where(g < self.plen, g, g + (self.prog_cap - self.plen)).to(torch.int32)
+        pad = (1 << self.claim["instruction"]) - len(glob)
+        return torch.cat([glob, glob[-1:].expand(pad)])
+
+    @property
+    def sel(self) -> Dict[str, torch.Tensor]:
+        """Per opcode table: (rows,) int32 matched row indices, 0-padded."""
+        out = {}
+        for name, _ in table_kernels.SELECTIONS:
+            kk, st = self.k[name], self.op_start[name]
+            s = torch.zeros(1 << self.claim[name], dtype=torch.int32, device=self.rows.device)
+            s[:kk] = self.ops[st:st + kk]
+            out[name] = s
+        return out
+
+    @property
+    def eoe_cols(self) -> torch.Tensor:
+        """(7, 16) int32: the end row, then zeros."""
+        cols = torch.zeros((7, 1 << T.MIN_LOG_SIZE), dtype=torch.int32, device=self.rows.device)
+        cols[:, 0] = self.rows[self.end_row]
+        return cols
+
+
+def _stage(parts: List[np.ndarray], device: torch.device) -> torch.Tensor:
+    """The int32 words of `parts`, back to back, on `device`: one pinned
+    non-blocking copy on CUDA."""
+    if device.type == "cuda":
+        with torch.cuda.device(device):
+            return _STAGING.stage(parts, device)
+    return torch.from_numpy(np.concatenate([np.ascontiguousarray(p).reshape(-1).view(np.int32)
+                                            for p in parts]))
+
+
+def _pull(vec: torch.Tensor) -> List[int]:
+    """The meta pass's one device->host copy (and host sync)."""
+    global PULLS
+    PULLS += 1
+    return vec.tolist()
+
+
+def device_meta(trace: np.ndarray, program: List[int], device,
+                bucket: bool = True) -> DeviceMeta:
+    """The meta pass on `device`: one staged upload, the sorts, gaps and
+    selections as device ops, one pull of the counts."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    trace = np.ascontiguousarray(trace, dtype=np.uint32)
+    n, plen = len(trace), len(program)
+    prog_cols = np.stack(list(T.program_table(program, bucket).values()))
+    prog_cap = prog_cols.shape[1]
+    buf = _stage([trace, prog_cols, _SLOT_LOOKUP], device)
+    rows = buf[:7 * n].view(n, 7)
+    prog = buf[7 * n:7 * n + 4 * prog_cap].view(4, prog_cap)
+    lookup = buf[7 * n + 4 * prog_cap:]
+    clk, ip, mp = (rows[:, c].to(torch.int64) for c in (0, 1, 4))
+    ci = rows[:, 2]
+
+    # memory: (mp, clk) order, 1 + the clk gap after each sorted row
+    key, order_mem = torch.sort((mp << 32) | clk, stable=True)
+    counts = torch.ones(n, dtype=torch.int64, device=device)
+    if n > 1:
+        mp_s, clk_s = key >> 32, key & 0xFFFFFFFF
+        counts[:-1] += torch.where(mp_s[1:] == mp_s[:-1], clk_s[1:] - clk_s[:-1] - 1,
+                                   0).clamp_(min=0)
     starts = torch.cumsum(counts, 0) - counts
-    within = (ar(n_mem) - starts[src]).to(torch.int32)
-    row = order[src]
-    clk_o = tclk[row] + within
-    mp_o = tmp[row]
-    mv_o = tmv[row]
-    d_o = (within > 0).to(torch.int32)
-    out["memory"] = torch.stack([
-        clk_o, mp_o, mv_o, d_o, _roll_next(clk_o, "inc"),
-        _roll_next(mp_o, "hold"), _roll_next(mv_o, "hold"),
-        _roll_next(d_o, "one")])
-    del src, starts, within, row
 
-    # instruction: program rows and trace rows in (ip, clk) order, then pad
-    # rows (ip held, the rest 0, d = 1)
-    n_real = meta.plen + n
-    prog = _upload(meta.prog_cols, device)
-    gi = _upload(meta.order_ins, device).long()
-    ip_o = torch.cat([prog[0], tip])[gi]
-    ci_o = torch.cat([prog[1], tci])[gi]
-    ni_o = torch.cat([prog[2], tni])[gi]
-    ci_o[n_real:] = 0
-    ni_o[n_real:] = 0
-    di_o = torch.zeros_like(ip_o)
-    di_o[n_real:] = 1
-    out["instruction"] = torch.stack([
-        ip_o, ci_o, ni_o, di_o, _roll_next(ip_o, "hold"),
-        _roll_next(ci_o, "zero"), _roll_next(ni_o, "zero"),
-        _roll_next(di_o, "one")])
-    del gi
+    # instruction: concat(program rows at clk 0, trace rows) by (ip, clk)
+    cat = torch.cat([torch.arange(plen, dtype=torch.int64, device=device) << 32,
+                     (ip << 32) | clk])
+    order_cat = torch.sort(cat, stable=True)[1]
 
-    out["program"] = prog
+    # opcode tables: ci[:-1]'s table index, stably sorted; a table's rows
+    # are one run of it, its bounds a search of the sorted keys
+    slot = lookup[ci[:-1].clamp(0, 255).to(torch.int64)]
+    slot_s, ops = torch.sort(slot, stable=True)
+    m = len(table_kernels.SELECTIONS)
+    bounds = torch.searchsorted(slot_s, torch.arange(m + 1, dtype=slot_s.dtype, device=device))
+    is_end = ci == 0
+    end_row = is_end.to(torch.int32).argmax()
 
-    # processor: the trace, then pad rows continuing clk with ip held
-    tp = 1 << meta.claim["processor"]
-    proc = torch.zeros((9, tp), dtype=torch.int32, device=device)
-    proc[:7, :n] = tr
-    proc[0, n:] = _pad_clk(tclk[n - 1], 1, tp - n, 1, device)
-    proc[1, n:] = tip[n - 1]
-    proc[7, n:] = 1
-    proc[8] = _roll_next(proc[0], "inc")
-    out["processor"] = proc
+    # the one pull: the gap sum, the bounds, the end rows
+    pulled = _pull(torch.cat([(starts[-1:] + counts[-1:] - n), bounds.to(torch.int64),
+                              is_end.sum().view(1)]))
+    gap_sum, bounds, ends = pulled[0], pulled[1:m + 2], pulled[-1]
+    if ends != 1:
+        raise T.InvalidEndOfExecution(f"{ends} end-of-execution rows")
+    k = {name: bounds[j + 1] - bounds[j] for j, (name, _) in enumerate(table_kernels.SELECTIONS)}
+    op_start = {name: bounds[j] for j, (name, _) in enumerate(table_kernels.SELECTIONS)}
+    n_mem_real = n + gap_sum
+    claim = {
+        "memory": T._next_pow2_len(n_mem_real, bucket).bit_length() - 1,
+        "instruction": T._next_pow2_len(plen + n, bucket).bit_length() - 1,
+        "program": prog_cap.bit_length() - 1,
+        "processor": T._next_pow2_len(n, bucket).bit_length() - 1,
+        "end_of_execution": T.MIN_LOG_SIZE,
+    }
+    for name, kk in k.items():
+        # mirror _pad_entries: table rows = target_entries / 2
+        claim[name] = T._next_pow2_len(max(1, 2 * kk) // 2 + (2 * kk) % 2,
+                                       bucket).bit_length() - 1
+    return DeviceMeta(claim=claim, n_steps=n, plen=plen, prog_cap=prog_cap, k=k,
+                      op_start=op_start, n_mem_real=n_mem_real, rows=rows, order_mem=order_mem,
+                      starts_mem=starts, counts=counts, order_cat=order_cat, ops=ops, prog_cols=prog,
+                      end_row=end_row)
 
-    out["end_of_execution"] = _upload(meta.eoe_cols, device)
 
-    # jump + opcode tables: matched row i paired with row i + 1, then pad
-    # entries (clk = last e2 clk + 2(r - k) and + 1, ip = last e2 ip)
-    for name, _ in _JUMPS + _OPS:
-        kk = meta.k[name]
-        rows = len(meta.sel[name])
-        s = _upload(meta.sel[name][:kk], device).long()
-        e1 = tr[:, s]
-        e2 = tr[:, s + 1]
-        if kk:
-            last = int(meta.sel[name][kk - 1]) + 1
-            lk, li = tclk[last], tip[last]
-        else:
-            lk = li = torch.zeros((), dtype=torch.int32, device=device)
-        jump = name in ("jump_if_not_zero", "jump_if_zero")
-        mat = torch.zeros((13 if jump else 11, rows), dtype=torch.int32, device=device)
-        mat[:7, :kk] = e1
-        mat[0, kk:] = _pad_clk(lk, 0, rows - kk, 2, device)
-        mat[1, kk:] = li
-        mat[8, kk:] = li  # next_ip in both layouts
-        if jump:
-            # clk ip ci ni mp mv mvi next_clk next_ip next_mp next_mv d is_mv_zero
-            mat[7, :kk] = e2[0]
-            mat[7, kk:] = _pad_clk(lk, 1, rows - kk, 2, device)
-            mat[8, :kk] = e2[1]
-            mat[9, :kk] = e2[4]
-            mat[10, :kk] = e2[5]
-            mat[11, kk:] = 1
-            mat[12] = m31.sub(1, m31.mul(mat[5], mat[6])).to(torch.int32)
-        else:
-            # clk ip ci ni mp mv mvi d next_ip next_mp next_mv
-            mat[7, kk:] = 1
-            mat[8, :kk] = e2[1]
-            mat[9, :kk] = e2[4]
-            mat[10, :kk] = e2[5]
-        out[name] = mat
-    return {name: out[name] for name in meta.claim}
+def build_tables(trace: np.ndarray, program: List[int], device,
+                 bucket: bool = True) -> Tuple[Dict[str, int], Dict[str, torch.Tensor]]:
+    """(claim, name -> (n_cols, N) int32 matrix on `device`): the meta pass
+    on the device, then one table-kernel launch (the plain build on the
+    CPU)."""
+    meta = device_meta(trace, program, device, bucket)
+    if meta.rows.is_cuda:
+        return meta.claim, table_kernels.KERNEL.build(meta)
+    return meta.claim, table_kernels.tables_plain(meta.rows.T, meta, meta.rows.device)

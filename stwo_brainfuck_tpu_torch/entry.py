@@ -40,9 +40,8 @@ def entry(device="cuda"):
     from .framework.component import LookupElements, build_interaction_trace
 
     m = _small_machine()
-    meta = device_build.build_meta(m.trace(), m.program())
-    mats = device_build.build_device_tables(m.trace(), meta, torch.device(device))
-    comp = MemoryComponent(meta.claim[MemoryComponent.name])
+    claim, mats = device_build.build_tables(m.trace(), m.program(), torch.device(device))
+    comp = MemoryComponent(claim[MemoryComponent.name])
     main = {c: mats[comp.name][i] for i, c in enumerate(comp.columns)}
     els = {k: LookupElements.dummy(s) for k, s in ELEMENT_SIZES.items()}
     return build_interaction_trace, (comp, main, els)

@@ -19,7 +19,7 @@ from stwo_brainfuck_tpu_torch.core.circle import point_from_t
 from stwo_brainfuck_tpu_torch.core.pcs import PcsConfig, shifted_point
 from stwo_brainfuck_tpu_torch.framework import component as framework
 from stwo_brainfuck_tpu_torch.ops import (blake2s_kernels, circle_fft, constraint_kernels,
-                                           m31_kernels, quotient_kernels)
+                                           m31_kernels, quotient_kernels, table_kernels)
 from stwo_brainfuck_tpu_torch.parallel import fft_sharded
 from stwo_brainfuck_tpu_torch.parallel.prove import ShardedOps
 from stwo_brainfuck_tpu_torch.parallel.merkle_sharded import commit_sharded
@@ -244,6 +244,54 @@ def test_device_tables_match_host_on_the_card(cuda):
         want = np.stack([host[comp.name][col] for col in comp.columns]).astype(np.int32)
         assert mats[comp.name].is_cuda
         np.testing.assert_array_equal(mats[comp.name].cpu().numpy(), want, err_msg=comp.name)
+
+
+def _table_trace(name: str, clk_factor: int):
+    """A program's trace (the small program, or fib19_io at input 19), its
+    clk multiplied by clk_factor (clk gaps of clk_factor - 1 rows)."""
+    if name == "small":
+        code, inp = chip_smoke.SMALL_CODE, chip_smoke.SMALL_INPUT.encode()
+    else:
+        with open(f"{chip_smoke.ROOT}/programs/{name}.bf") as f:
+            code, inp = f.read(), chip_smoke.FIB_INPUT
+    m = create_test_machine(compile_program(code), inp)
+    m.execute()
+    trace = m.trace().copy()
+    trace[:, 0] *= np.uint32(clk_factor)
+    return trace, m.program()
+
+
+@pytest.mark.parametrize("name, clk_factor", [("small", 1), ("fib19_io", 1), ("small", 1000),
+                                              ("fib19_io", 5)])
+def test_table_kernel_matches_plain_and_host_on_the_card(cuda, name, clk_factor):
+    trace, program = _table_trace(name, clk_factor)
+    dm = device_build.device_meta(trace, program, cuda)
+    assert dm.claim == device_build.build_meta(trace, program).claim
+    launches = table_kernels.KERNEL.launches
+    mats = table_kernels.KERNEL.build(dm)
+    assert table_kernels.KERNEL.launches == launches + 1
+    plain = table_kernels.tables_plain(dm.rows.T, dm, cuda)
+    claim, again = device_build.build_tables(trace, program, cuda)
+    assert claim == dm.claim and table_kernels.KERNEL.launches == launches + 2
+    host = tables.all_tables(trace, program)
+    for cls in COMPONENT_CLASSES:
+        got = mats[cls.name]
+        assert got.is_cuda and got.dtype == torch.int32
+        assert torch.equal(got, plain[cls.name]), cls.name
+        assert torch.equal(got, again[cls.name]), cls.name
+        want = np.stack([host[cls.name][col] for col in cls.columns]).astype(np.int32)
+        np.testing.assert_array_equal(got.cpu().numpy(), want, err_msg=cls.name)
+
+
+def test_table_kernel_refuses_wrapping_shapes(cuda):
+    trace, program = _table_trace("small", 1)
+    dm = device_build.device_meta(trace, program, cuda)
+    launches = table_kernels.KERNEL.launches
+    for field, log in (("memory", 30), ("processor", 29), ("output_instruction", 29)):
+        dm.claim = {**device_build.device_meta(trace, program, cuda).claim, field: log}
+        with pytest.raises(ValueError, match="32 bits"):
+            table_kernels.KERNEL.build(dm)
+    assert table_kernels.KERNEL.launches == launches
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """The device memory at the peak of one cold production prove of fib19_io
 (input 19, PcsConfig(log_blowup=4, n_queries=30, pow_bits=16)) on one
-CUDA card, for the checkout of the current directory, in a fresh process:
+CUDA card, for the checkout of the current directory, in a fresh process
+(or of another program or config, or a warm prove, as the options say):
 
 - the allocator's peak allocated bytes (torch.cuda.max_memory_allocated,
   the peaks PERF.md records) beside its peak requested bytes (the
@@ -15,7 +16,12 @@ CUDA card, for the checkout of the current directory, in a fresh process:
   larger than its request (a cached block it did not split), with its
   site.
 
-    python3 <this checkout>/tools/peak_blocks.py
+    python3 <this checkout>/tools/peak_blocks.py [--program big22] [--default] [--warm]
+
+--program big22 proves programs/big22.bf (no input); --default proves at
+the prover's default config; --warm proves once first and empties the
+allocator's cache, as chip_smoke.py does between its proves, and reads the
+second prove.
 
 Started from another checkout's root (an older commit unpacked) it reads
 that commit's prover, so parent and change compare in one call. Prints the
@@ -24,6 +30,7 @@ card and one JSON line.
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import sys
@@ -82,18 +89,32 @@ class _MemoryTimer(air.PhaseTimer):
         torch.cuda.reset_peak_memory_stats()
 
 
-def main() -> int:
+def main(argv) -> int:
+    ap = argparse.ArgumentParser(prog="peak_blocks.py")
+    ap.add_argument("--program", choices=["fib19_io", "big22"], default="fib19_io")
+    ap.add_argument("--default", action="store_true")
+    ap.add_argument("--warm", action="store_true")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("peak_blocks: no CUDA device", file=sys.stderr)
         return 1
-    with open(os.path.join(os.getcwd(), "programs", "fib19_io.bf")) as f:
-        machine = create_test_machine(compile_program(f.read()), chip_smoke.FIB_INPUT)
+    config = None if args.default else chip_smoke.PRODUCTION
+    inp = chip_smoke.FIB_INPUT if args.program == "fib19_io" else b""
+    with open(os.path.join(os.getcwd(), "programs", f"{args.program}.bf")) as f:
+        code = compile_program(f.read())
+    if args.warm:
+        machine = create_test_machine(code, inp)
+        machine.execute()
+        air.prove_brainfuck(machine, config, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    machine = create_test_machine(code, inp)
     machine.execute()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.memory._record_memory_history(enabled="all", context="alloc", stacks="python",
                                              max_entries=EVENTS)
     timer = _MemoryTimer("cuda")
-    proof = air.prove_brainfuck(machine, chip_smoke.PRODUCTION, device="cuda", timer=timer)
+    proof = air.prove_brainfuck(machine, config, device="cuda", timer=timer)
     torch.cuda.synchronize()
     snapshot = torch.cuda.memory._snapshot()
     torch.cuda.memory._record_memory_history(enabled=None)
@@ -106,7 +127,9 @@ def main() -> int:
         count_bytes[1] += ev["size"]
     print(chip_smoke._smi("name,power.limit"))
     print(json.dumps({
-        "checkout": os.getcwd(), "sha256": chip_smoke.proof_sha256(proof),
+        "checkout": os.getcwd(), "program": args.program,
+        "config": "default" if args.default else "production", "warm": args.warm,
+        "sha256": chip_smoke.proof_sha256(proof),
         "allocated_peak": max(m["allocated_peak"] for m in timer.memory.values()),
         "requested_peak": max(m["requested_peak"] for m in timer.memory.values()),
         "phases": timer.memory,
@@ -116,4 +139,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -1,18 +1,26 @@
-"""Where a warm fib19_io prove's time goes, for the checkout of the current
-directory: its kernels built, two warm-up proves of fib19_io (input 19),
-then one profiled prove (chip_smoke.phase_split of that checkout: the
-device-busy share, the host synchronizations and their wait, device events
-and kernels, the kernels that take the most device time; default config
-only), one more profiled prove split inside its `oods` and `fri` phases,
-and the phases of one more prove (air.PhaseTimer, each mark
-synchronizing).
+"""Where a warm prove's time goes, for the checkout of the current
+directory: its kernels built, two warm-up proves of the program (fib19_io
+at input 19, or big22), then one profiled prove (chip_smoke.phase_split
+of that checkout: the device-busy share, the host synchronizations and
+their wait, device events and kernels, the kernels that take the most
+device time; default config only), one more profiled prove split inside
+its `tables`, `oods` and `fri` phases, and the phases of one more prove
+(air.PhaseTimer, each mark synchronizing).
 
-    python3 <this checkout>/tools/split_times.py [--production]
+    python3 <this checkout>/tools/split_times.py [--production] [--program big22] [--empty-cache]
 
 --production proves at chip_smoke.PRODUCTION (fib19_io at input 19,
-committed at 2^28). The split inside `oods` and `fri` times the prover's
-own functions as profiler ranges, each the host time of its calls less the
-ranges inside it: `oods` into its bases or launch table
+committed at 2^28); --program big22 proves programs/big22.bf;
+--empty-cache empties the allocator's cache before each measured prove,
+as chip_smoke.py does after each of its proves, so every block a prove
+takes is a fresh cudaMalloc. The split
+inside the phases times the prover's own functions as profiler ranges,
+each the host time of its calls less the ranges inside it: `tables` into
+its meta pass (components/device_build.build_meta, the host pass, or
+device_meta, the pass on the device), its uploads (device_build._upload,
+one an array, or _stage, the one staged copy), its pull (_pull) and its
+build (build_device_tables, the torch-ops build, or
+ops/table_kernels.TableKernel.build, the kernel); `oods` into its bases or launch table
 (poly.half_bases_at_point; ops/oods_kernels.pack, the factor table of the
 first OODS kernel; ops/oods_kernels.plan, the table of the persistent one),
 its contraction (poly.sample_tensor, or the OODS kernel's call less its
@@ -21,7 +29,10 @@ table) and its pull (poly.pull);
 (merkle.commit) and their root pulls (blake2s.digest_to_bytes); what no
 range covers is `other`. Beside them, in each phase: its device->host
 copies, host syncs and their wait, and the device time of the kernels and
-copies that start in it. A function the checkout lacks is left out, so
+copies that start in it; and in each part: its host-to-device and
+device-to-host copies, host syncs, cudaMalloc calls and their host time, and the device
+time of its kernels and copies (each device event counted where the host
+op that issued it started, in the innermost part around it). A function the checkout lacks is left out, so
 started from another checkout's root (an older commit unpacked) it reads
 that commit's prover: parent and change compare in one call. Prints the
 card and one JSON line.
@@ -29,6 +40,7 @@ card and one JSON line.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import importlib
 import io
@@ -48,8 +60,16 @@ from stwo_brainfuck_tpu_torch.vm.machine import create_test_machine  # noqa: E40
 
 WARM_UP = 2
 PKG = "stwo_brainfuck_tpu_torch"
+PROGRAMS = {"fib19_io": chip_smoke.FIB_INPUT, "big22": b""}  # program -> input
 # (phase, part) -> the functions timed as that part, where the checkout has them
 PARTS = {
+    ("tables", "meta"): [("components.device_build", "build_meta"),
+                         ("components.device_build", "device_meta")],
+    ("tables", "upload"): [("components.device_build", "_upload"),
+                           ("components.device_build", "_stage")],
+    ("tables", "pull"): [("components.device_build", "_pull")],
+    ("tables", "build"): [("components.device_build", "build_device_tables"),
+                          ("ops.table_kernels", "TableKernel.build")],
     ("oods", "bases"): [("core.poly", "half_bases_at_point"), ("ops.oods_kernels", "pack"),
                         ("ops.oods_kernels", "plan")],
     ("oods", "contraction"): [("core.poly", "sample_tensor"),
@@ -89,9 +109,16 @@ def _timed_parts():
         yield
 
 
+def _innermost(parts: list, t: float):
+    """The label of the innermost part range around host time t, or None."""
+    around = [(s, -e, label) for label, s, e in parts if s <= t <= e]
+    return max(around)[2] if around else None
+
+
 def _inside_split(code, inp: bytes, config) -> dict:
     """One profiled prove: the host seconds of each PARTS range less the
-    ranges inside it, within the `oods` and `fri` phases."""
+    ranges inside it, within the `tables`, `oods` and `fri` phases, and
+    each part's copies, host syncs and device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -104,7 +131,7 @@ def _inside_split(code, inp: bytes, config) -> dict:
         torch.cuda.synchronize()
         phases.close()
     names = {f"prove phase {k}": n for k, n in enumerate(phases.names)}
-    ranges, parts, device, syncs, dtoh = {}, [], [], [], []
+    ranges, parts, device, syncs, dtoh, issued, mallocs = {}, [], [], [], [], [], []
     for ev in prof.events():
         tr = ev.time_range
         if ev.device_type == DeviceType.CPU and ev.name in names:
@@ -117,8 +144,30 @@ def _inside_split(code, inp: bytes, config) -> dict:
                 dtoh.append(tr.start)
         elif "Synchronize" in ev.name:
             syncs.append((tr.start, tr.elapsed_us()))
+        elif ev.name == "cudaMalloc":
+            mallocs.append((tr.start, tr.elapsed_us()))
+        if ev.device_type == DeviceType.CPU and ev.kernels:
+            issued += [(tr.start, k.name, k.duration) for k in ev.kernels]
+    by_part = {}
+
+    def part_at(t):
+        return by_part.setdefault(_innermost(parts, t), {
+            "host_to_device_copies": 0, "device_to_host_copies": 0, "host_syncs": 0,
+            "mallocs": 0, "malloc_s": 0.0, "device_s": 0.0})
+
+    for t, kname, us in issued:
+        part = part_at(t)
+        part["host_to_device_copies"] += kname.startswith("Memcpy HtoD")
+        part["device_to_host_copies"] += kname.startswith("Memcpy DtoH")
+        part["device_s"] += us / 1e6
+    for t, _ in syncs:
+        part_at(t)["host_syncs"] += 1
+    for t, us in mallocs:
+        part = part_at(t)
+        part["mallocs"] += 1
+        part["malloc_s"] += us / 1e6
     out = {}
-    for phase in ("oods", "fri"):
+    for phase in ("tables", "oods", "fri"):
         r = ranges[phase]
         inside = [p for p in parts if p[0].startswith(phase + "/") and r.start <= p[1] <= r.end]
         own = {}
@@ -135,39 +184,53 @@ def _inside_split(code, inp: bytes, config) -> dict:
             "device_to_host_copies": sum(r.start <= t <= r.end for t in dtoh),
             "host_syncs": sum(r.start <= t <= r.end for t, _ in syncs),
             "sync_wait_s": sum(w for t, w in syncs if r.start <= t <= r.end) / 1e6,
-            "device_s": sum(w for t, w in device if r.start <= t <= r.end) / 1e6}
+            "mallocs": sum(r.start <= t <= r.end for t, _ in mallocs),
+            "malloc_s": sum(w for t, w in mallocs if r.start <= t <= r.end) / 1e6,
+            "device_s": sum(w for t, w in device if r.start <= t <= r.end) / 1e6,
+            "by_part": {label.split("/", 1)[1]: v for label, v in by_part.items()
+                        if label is not None and label.startswith(phase + "/")}}
     return out
 
 
 def main(argv) -> int:
-    if argv not in ([], ["--production"]):
-        print(f"usage: {sys.argv[0]} [--production]", file=sys.stderr)
-        return 2
+    ap = argparse.ArgumentParser(prog="split_times.py")
+    ap.add_argument("--production", action="store_true")
+    ap.add_argument("--program", choices=list(PROGRAMS), default="fib19_io")
+    ap.add_argument("--empty-cache", action="store_true")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("split_times: no CUDA device", file=sys.stderr)
         return 1
-    config = chip_smoke.PRODUCTION if argv else None
-    path = os.path.join(os.getcwd(), "programs", "fib19_io.bf")
+    program = args.program
+    config = chip_smoke.PRODUCTION if args.production else None
+    fresh = torch.cuda.empty_cache if args.empty_cache else (lambda: None)
+    path = os.path.join(os.getcwd(), "programs", f"{program}.bf")
+    inp = PROGRAMS[program]
     with open(path) as f:
         code = compile_program(f.read())
     for _ in range(WARM_UP):
-        m = create_test_machine(code, chip_smoke.FIB_INPUT)
+        m = create_test_machine(code, inp)
         m.execute()
         air.prove_brainfuck(m, config, device="cuda")
     torch.cuda.synchronize()
     split = None
     if config is None:
+        fresh()
         with contextlib.redirect_stdout(io.StringIO()):
-            split = chip_smoke.phase_split("fib19_io", path, chip_smoke.FIB_INPUT)
-    inside = _inside_split(code, chip_smoke.FIB_INPUT, config)
-    m = create_test_machine(code, chip_smoke.FIB_INPUT)
+            split = chip_smoke.phase_split(program, path, inp)
+    fresh()
+    inside = _inside_split(code, inp, config)
+    m = create_test_machine(code, inp)
     m.execute()
+    fresh()
     timer = air.PhaseTimer("cuda")
     torch.cuda.reset_peak_memory_stats()
     air.prove_brainfuck(m, config, device="cuda", timer=timer)
     torch.cuda.synchronize()
     print(chip_smoke._smi("name,power.limit"))
-    print(json.dumps({"checkout": os.getcwd(), "config": "production" if config else "default",
+    print(json.dumps({"checkout": os.getcwd(), "program": program,
+                      "config": "production" if config else "default",
+                      "empty_cache": args.empty_cache,
                       "phase_split": split, "inside": inside, "phases_s": timer.seconds,
                       "peak_device_bytes": torch.cuda.max_memory_allocated()}))
     return 0
