@@ -56,13 +56,15 @@ Phases (any failure raises and the script exits non-zero):
      the plain version in 2^24-position ranges), the default shapes and
      the 2^28 one timed beside the bounds, each launch's schedule against
      the wrapper's mirror; then the constraint kernels (csrc/constraints.cu:
-     composition against the plain Expr path, interaction, the whole LogUp
+     composition, one launch a prove, against the plain Expr path summed a
+     size, interaction, the whole LogUp
      interaction trace, against framework.interaction_plain, and on its
      inputs the mesh's pair: logup against the plain fractions and the
      LogUp scan, csrc/logup_scan.cu, against the plain prefix sum), bit for
      bit, for every component at every shape of a default fib19_io, a big22
      and a production fib19_io prove: on the proves' own inputs (each shape
-     timed beside its bounds and the plain version's time; the interaction
+     and each prove's composition launch timed beside its bounds and the
+     plain version's time; the interaction
      beside the logup + scan pair; the scan as the mesh runs it, the second
      of 2 and of 4 linear chunks with its carry, and in coset mode, which
      no prove path runs, each beside torch.cumsum of the same rows), on
@@ -119,9 +121,10 @@ Phases (any failure raises and the script exits non-zero):
      fold kernel's launch counts must have risen (on one device one OODS
      launch, its samples pulled once, and one fold launch a committed FRI
      layer plus the last fold) (the tree kernel once a commit on one device, at most once a
-     shard and once for the top on the mesh; the composition and
-     interaction kernels once a component on one device and no logup or
-     scan launch; on a mesh the logup kernel and the scan once a shard above
+     shard and once for the top on the mesh; the composition kernel once a
+     prove and the interaction kernel once a component on one device and no
+     logup or scan launch, the composition kernel once a device of the
+     mesh's shards; on a mesh the logup kernel and the scan once a shard above
      the sharded sizes; the table kernel once a prove, on every path, its
      counts pulled once), no plain FFT, Blake2s, quotient, constraint-path
      (the prefix sum included), OODS, fold or table call may have run on a
@@ -1010,20 +1013,21 @@ def _constraint_launches(launched: dict) -> dict:
 
 
 def _constraints_per_prove(launched: dict, shards: int, what: str) -> None:
-    """The constraint kernels of one prove. One device: composition and
-    interaction once a component, no logup or scan launch. A mesh: a
+    """The constraint kernels of one prove. One device: composition once a
+    prove, interaction once a component, no logup or scan launch. A mesh: a
     component below the sharded sizes takes one interaction launch, one
-    above a logup and a scan launch a shard; composition once a component
-    below its sharded size and once a shard above."""
+    above a logup and a scan launch a shard; composition once a device of
+    the shards (every size's segments, a shard's chunks among them, in one
+    launch)."""
     n = len(COMPONENT_CLASSES)
     comp, inter, logup, scan = (launched[k] for k in ("composition", "interaction", "logup",
                                                       "scan"))
     if not shards:
-        ok = comp == inter == n and logup == scan == 0
+        ok = comp == 1 and inter == n and logup == scan == 0
     else:
         big = n - inter
         ok = (0 <= big <= n and logup == scan and big <= logup <= big * shards
-              and n <= comp <= n * shards)
+              and 1 <= comp <= shards)
     if not ok:
         raise AssertionError(f"{what}: constraint launches {_constraint_launches(launched)} for "
                              f"{n} components" + (f" on {shards} shards" if shards else ""))
@@ -1739,16 +1743,14 @@ def phase_oods_fri(fib_path: str, big_path: str, per_mul: float, dispatch_per_s:
 
 
 def _constraint_bound(component, family: str, rows: int, per_mul: float, dispatch_per_s: float,
-                      accumulate: bool = True, rotation: bool = True,
-                      log_blowup: int = 0, batch: int = constraint_kernels.BATCH_ROWS) -> dict:
-    """A launch's bounds: bytes (each input word read once, each output word
-    written once) at the memory rate; the M31 products the function needs
-    (the program's distinct ops, the weights, V_n^-1, the inverses batched
-    as the kernels batch them, or each on its own with batch 0:
+                      batch: int = constraint_kernels.BATCH_ROWS) -> dict:
+    """A logup, interaction or scan launch's bounds: bytes (each input word
+    read once, each output word written once) at the memory rate; the M31
+    products the function needs (the program's distinct ops, the inverses
+    batched as the kernels batch them, or each on its own with batch 0:
     constraint_kernels.launch_work) at per_mul instructions and its adds at
     2 at the dispatch rate."""
-    nbytes, products, adds = constraint_kernels.launch_work(component, family, rows, accumulate,
-                                                            rotation, log_blowup, batch)
+    nbytes, products, adds = constraint_kernels.launch_work(component, family, rows, batch)
     return {"products": products, "adds": adds,
             **bound(nbytes, products * per_mul + 2 * adds, dispatch_per_s)}
 
@@ -1807,28 +1809,32 @@ def zero_den_elements(component, main_cols: dict, elements: dict, rows: list) ->
 def phase_constraints(fib_path: str, big_path: str, per_mul: float,
                       dispatch_per_s: float) -> dict:
     """The constraint kernels against their plain versions on the card, bit
-    for bit, for every component: the composition kernel against the Expr
-    path; the interaction kernel (the whole LogUp interaction trace: Q_k, S
+    for bit, for every component: the composition kernel (one launch a
+    prove, every size a segment) against the Expr path summed a size
+    (framework.composition_segment_plain); the interaction kernel (the whole LogUp interaction trace: Q_k, S
     and the claimed sum) against framework.interaction_plain; on the same
     inputs the mesh's pair, the logup kernel against logup_fractions_plain
     and the LogUp scan against prefix_sum_plain:
 
     - on the prove's own inputs, recorded from a default fib19_io prove, a
-      big22 prove and a PRODUCTION fib19_io prove at input 19 (each launch's
-      inputs also through framework.composition_plain in ranges of
-      2^CONSTRAINT_CHUNK_LOG rows); every shape timed (the kernel's device
-      time behind a sleep, mean of 5, into a scratch accumulator; the plain
+      big22 prove and a PRODUCTION fib19_io prove at input 19 (the
+      composition launch's segments also through the plain version in
+      ranges of 2^CONSTRAINT_CHUNK_LOG rows); every shape and the
+      composition launch timed (the kernel's device time behind a sleep,
+      mean of 5; the composition call's host part, `host_ms`; the plain
       version's one pass) beside its bounds, the interaction beside the
       logup + scan pair on its inputs (`pair_ms`);
-    - at each of those shapes on random canonical inputs and on edge values
-      (0, 1, p - 2, p - 1, with 0 and p - 1 in every row; the lookup
-      elements' z moved so that some denominators are 0) from a numpy
-      seed, the kernel over the whole shape and the plain version (the
-      composition and logup kernels: on its first and last
-      2^CONSTRAINT_SAMPLE_LOG rows, all of a smaller shape);
-    - the default fib19_io shapes also as CONSTRAINT_CHUNKS chunks (their
-      offsets, S(p - g) given as rows as the mesh gives them and through the
-      rotation index) against the one launch; the scan's as
+    - at each of those shapes (the composition: the prove's segments) on
+      random canonical inputs and on edge values (0, 1, p - 2, p - 1, with
+      0 and p - 1 in every row; the lookup elements' z moved so that some
+      denominators are 0) from a numpy seed, the kernel over the whole
+      shape and the plain version (the composition and logup kernels: on
+      its first and last 2^CONSTRAINT_SAMPLE_LOG rows, all of a smaller
+      shape);
+    - the default fib19_io composition launch also as CONSTRAINT_CHUNKS
+      chunks a segment in one launch (their offsets, S(p - g) given as rows
+      as the mesh gives them and through the rotation index) against the
+      whole launch; the scan's as
       CONSTRAINT_CHUNKS linear chunks, each launch's carry the claimed sum
       of the one before, against the plain prefix sum in linear order.
     The scan is timed as the mesh runs it, the second of MESH_SHARDS
@@ -1861,28 +1867,32 @@ def phase_constraints(fib_path: str, big_path: str, per_mul: float,
             return [slice(0, step), slice(m - step, m)]
         return [slice(s, s + step) for s in range(0, m, step)]
 
-    def check_composition(what, args, out, before, sample=False):
-        """out: the kernel's (4, m) result of composition(*args), before:
-        the accumulator before it (None: written). Returns the plain ms."""
-        (component, main, inter, s_rows, rot, isf, claimed, els, alpha, aoff, blow, _,
-         offset) = args
-        wants = []
-        ranges = plain_ranges(isf.shape[0], sample)
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for sl in ranges:
-            want, _ = framework.composition_plain(
-                component, {k: v[sl] for k, v in main.items()}, [r[sl] for r in inter],
-                s_rows if rot is not None else [r[sl] for r in s_rows], rot, isf[sl], claimed,
-                els, alpha, aoff, blow, offset + sl.start)
-            wants.append(want)
-        end.record()
-        torch.cuda.synchronize()
-        for sl, want in zip(ranges, wants):
-            if before is not None:
-                want = (want + before[:, sl]) % P
-            same(f"{what}, rows {sl.start} .. {sl.stop - 1}", out[:, sl], want)
-        return start.elapsed_time(end)
+    def check_composition(what, args, outs, sample=False):
+        """outs: the kernel's (4, m) result a segment of composition(*args),
+        against framework.composition_plain summed a segment (in ranges of
+        rows at their offsets). Returns the plain ms."""
+        segments, els, alpha, blow = args
+        plain_ms = 0.0
+        for k, seg in enumerate(segments):
+            for sl in plain_ranges(seg.is_first.shape[0], sample):
+                part = framework.CompositionSegment(
+                    seg.log_size, [framework.CompositionMember(
+                        m.component, {c: v[sl] for c, v in m.main_cols.items()},
+                        [r[sl] for r in m.inter_rows],
+                        m.s_rows if seg.rotation is not None else [r[sl] for r in m.s_rows],
+                        m.claimed_sum, m.alpha_offset) for m in seg.members],
+                    seg.is_first[sl], seg.rotation, seg.offset + sl.start)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                want = framework.composition_segment_plain(part, els, alpha, blow)
+                end.record()
+                torch.cuda.synchronize()
+                plain_ms += start.elapsed_time(end)
+                same(f"{what}, segment 2^{seg.log_size} rows {sl.start} .. {sl.stop - 1}",
+                     outs[k][:, sl], want)
+                del want
+        return plain_ms
 
     def check_logup(what, args, q, total, sample=False):
         component, main, isf, els = args
@@ -1925,23 +1935,25 @@ def phase_constraints(fib_path: str, big_path: str, per_mul: float,
         same(f"{what} claimed sum", claimed, want_claimed)
         return start.elapsed_time(end)
 
-    def composition(component, main_cols, inter_rows, s_rows, rotation, is_first, claimed_sum,
-                    elements, alpha, alpha_offset, log_blowup, acc, offset=0):
-        args = (component, main_cols, inter_rows, s_rows, rotation, is_first, claimed_sum,
-                elements, alpha, alpha_offset, log_blowup, acc, offset)
-        before = None if acc is None else acc.clone()
-        out, nxt = real_comp(*args)
-        key = f"{prove} composition {component.name} 2^{component.log_size} blowup {log_blowup}"
-        plain_ms = check_composition(key, args, out, before)
-        scratch = out.clone()
-        call = lambda: real_comp(*args[:11], scratch, offset)  # noqa: E731
-        shapes[key] = ("composition", component, out.shape[1], len(inter_rows), log_blowup)
-        times[key] = {"rows": out.shape[1], "ms": _time_ms(call, reps=5, queued=True),
-                      "plain_ms": plain_ms, **_constraint_bound(
-                          component, "composition", out.shape[1], per_mul, dispatch_per_s,
-                          accumulate=True, rotation=rotation is not None,
-                          log_blowup=log_blowup)}
-        return out, nxt
+    def composition(segments, elements, alpha, log_blowup):
+        args = (segments, elements, alpha, log_blowup)
+        outs = real_comp(*args)
+        key = f"{prove} composition launch"
+        plain_ms = check_composition(key, args, outs)
+        spec = [(seg.log_size, seg.is_first.shape[0], [m.component for m in seg.members],
+                 seg.rotation is not None) for seg in segments]
+        shapes[key] = ("composition", spec, log_blowup)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real_comp(*args)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        times[key] = {"rows": sum(m for _, m, _, _ in spec), "launches": 1,
+                      "segments": [{"log_size": n, "rows": m, "components": [c.name for c in cs]}
+                                   for n, m, cs, _ in spec],
+                      "ms": _time_ms(lambda: real_comp(*args), reps=5, queued=True),
+                      "host_ms": host_ms, "plain_ms": plain_ms,
+                      **_composition_bound(spec, log_blowup, per_mul, dispatch_per_s)}
+        return outs
 
     def pair(what, component, main, els, timed):
         """The mesh's pair on the interaction's inputs: the logup kernel
@@ -2048,12 +2060,17 @@ def phase_constraints(fib_path: str, big_path: str, per_mul: float,
         rng = np.random.default_rng(len(times))
         gen = torch.Generator(device="cuda")
         dev = torch.device("cuda", torch.cuda.current_device())
-        for key, (family, component, m, n_inter_rows, blow) in list(shapes.items()):
+        for key, shape in list(shapes.items()):
+            family = shape[0]
+            if family == "composition":
+                _, spec, blow = shape
+            else:
+                _, component, m, _, _ = shape
             for edge in (False, True):
                 gen.manual_seed(int(rng.integers(1 << 62)))
-                main = dict(zip(component.columns, _rows_like(gen, len(component.columns), m,
-                                                              dev, edge)))
-                isf = _rows_like(gen, 1, m, dev, edge)[0]
+                if family != "composition":
+                    main = dict(zip(component.columns, _rows_like(gen, len(component.columns), m,
+                                                                  dev, edge)))
                 els = _elements(rng)
                 what = f"{key} on {'edge' if edge else 'random'} inputs"
                 if family == "interaction":
@@ -2068,16 +2085,12 @@ def phase_constraints(fib_path: str, big_path: str, per_mul: float,
                     check_interaction(what, iargs, real_inter(*iargs))
                     pair(what, component, main, els, False)
                 else:
-                    inter = _rows_like(gen, n_inter_rows, m, dev, edge)
-                    acc = torch.stack(_rows_like(gen, 4, m, dev, edge))
-                    rot = fft.rotation_index(component.log_size, blow, dev)
-                    cargs = (component, main, inter, inter[-4:], rot, isf, _felt(rng), els,
-                             _felt(rng), int(rng.integers(100)), blow, acc, 0)
-                    before = acc.clone()
-                    out, _ = real_comp(*cargs)
-                    check_composition(what, cargs, out, before, sample=True)
+                    cargs = (_random_segments(gen, spec, blow, dev, edge, rng), els, _felt(rng),
+                             blow)
+                    outs = real_comp(*cargs)
+                    check_composition(what, cargs, outs, sample=True)
                     if prove == "fib19_io" and not edge:
-                        chunks_check(what, cargs, before, out)
+                        chunks_check(what, cargs, outs)
                 inputs_checked += 1
         shapes.clear()
     _clear_prover_caches()
@@ -2106,26 +2119,72 @@ def scan_chunks_check(what: str, total: torch.Tensor) -> None:
         raise AssertionError(f"{what}: the chained linear scans' claimed sum != plain")
 
 
-def chunks_check(what: str, args: tuple, before: torch.Tensor, whole: torch.Tensor) -> None:
+def _composition_bound(spec: list, log_blowup: int, per_mul: float,
+                       dispatch_per_s: float) -> dict:
+    """A composition launch's bounds (constraint_kernels.composition_work
+    over its segments, (log_size, rows, components, rotation) each): bytes
+    at the memory rate; its products at per_mul instructions and its adds
+    at 2 at the dispatch rate."""
+    nbytes, products, adds = constraint_kernels.composition_work(spec, log_blowup)
+    return {"products": products, "adds": adds,
+            **bound(nbytes, products * per_mul + 2 * adds, dispatch_per_s)}
+
+
+def _random_segments(gen, spec: list, blow: int, dev, edge: bool, rng) -> list:
+    """Composition segments of the shapes `spec` ((log_size, rows,
+    components, rotation) each) on random or edge rows: each component's
+    columns and interaction rows, a claimed sum, the alpha offsets of the
+    claim's order; is_first a segment, S(p - g) through the rotation
+    index."""
+    offsets, off = {}, 0
+    for cls in COMPONENT_CLASSES:
+        offsets[cls.name] = off
+        off += len(framework.constraint_program(cls).constraints)
+    segments = []
+    for n, m, components, _ in spec:
+        members = []
+        for comp in components:
+            main = dict(zip(comp.columns, _rows_like(gen, len(comp.columns), m, dev, edge)))
+            inter = _rows_like(gen, 4 * (comp.relation_count() + 1), m, dev, edge)
+            members.append(framework.CompositionMember(comp, main, inter, inter[-4:], _felt(rng),
+                                                       offsets[comp.name]))
+        segments.append(framework.CompositionSegment(n, members,
+                                                     _rows_like(gen, 1, m, dev, edge)[0],
+                                                     fft.rotation_index(n, blow, dev)))
+    return segments
+
+
+def chunks_check(what: str, args: tuple, whole: list) -> None:
     """The composition launch of `args` (S(p - g) through the rotation
-    index, accumulated onto `before`) as CONSTRAINT_CHUNKS launches at their
-    offsets, S(p - g) once given as rows (the mesh's form) and once through
-    the rotation index, each equal to the whole launch's rows."""
-    (component, main, inter, s_rows, rot, isf, claimed, els, alpha, aoff, blow, _, _) = args
-    m = isf.shape[0]
-    c = m // CONSTRAINT_CHUNKS
-    s_prev = torch.stack(s_rows)[:, rot.to(torch.int64)]
-    for i in range(CONSTRAINT_CHUNKS):
-        sl = slice(i * c, (i + 1) * c)
-        sub = {k: v[sl] for k, v in main.items()}
-        for given, rotation in (([r[sl] for r in s_prev], None), (s_rows, rot)):
-            acc = before[:, sl].contiguous()
-            constraint_kernels.KERNELS.composition(
-                component, sub, [r[sl] for r in inter], given, rotation, isf[sl], claimed, els,
-                alpha, aoff, blow, acc, i * c)
-            if not torch.equal(acc, whole[:, sl]):
-                raise AssertionError(f"{what}: chunk {i} of {CONSTRAINT_CHUNKS} "
-                                     f"({'rows' if rotation is None else 'rotation'}) != whole")
+    index) as one launch of CONSTRAINT_CHUNKS chunks a segment at their
+    offsets, S(p - g) once given as rows (the mesh's form) and once
+    through the rotation index, each equal to the whole launch's rows."""
+    segments, els, alpha, blow = args
+    chunks, where = [], []
+    for k, seg in enumerate(segments):
+        c = seg.is_first.shape[0] // CONSTRAINT_CHUNKS
+        for i in range(CONSTRAINT_CHUNKS):
+            sl = slice(i * c, (i + 1) * c)
+            for given in (True, False):
+                members = []
+                for mem in seg.members:
+                    s_rows = mem.s_rows
+                    if given:
+                        s_prev = torch.stack(s_rows)[:, seg.rotation[sl].to(torch.int64)]
+                        s_rows = list(s_prev)
+                    members.append(framework.CompositionMember(
+                        mem.component, {n: v[sl] for n, v in mem.main_cols.items()},
+                        [r[sl] for r in mem.inter_rows], s_rows, mem.claimed_sum,
+                        mem.alpha_offset))
+                chunks.append(framework.CompositionSegment(
+                    seg.log_size, members, seg.is_first[sl], None if given else seg.rotation,
+                    i * c))
+                where.append((k, sl, given))
+    for got, (k, sl, given) in zip(
+            constraint_kernels.KERNELS.composition(chunks, els, alpha, blow), where):
+        if not torch.equal(got, whole[k][:, sl]):
+            raise AssertionError(f"{what}: segment 2^{segments[k].log_size} chunk at {sl.start} "
+                                 f"({'rows' if given else 'rotation'}) != whole")
 
 
 def phase_production(fib_path: str) -> dict:
@@ -3050,8 +3109,13 @@ def main(argv) -> int:
             "max_abs_err": cons["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t.get("library_ms"),
-            **{k: t[k] for k in ("pair_ms", "mode") if k in t},
+            **{k: t[k] for k in ("pair_ms", "mode", "host_ms") if k in t},
         })
+        if family == "composition":  # the one launch of each prove
+            kernels[-1]["launch_by_prove"] = {
+                k.split(" composition")[0]: {f: v[f] for f in ("ms", "bound_ms", "bound_by",
+                                                               "plain_ms", "host_ms", "rows")}
+                for k, v in cons["times"].items() if k.endswith(" composition launch")}
     # the OODS and fold kernels: their largest launches (the production
     # prove's), launched on every path
     for name, source, replaces, kind in (("oods", "oods.cu", OODS_REPLACES, " oods: "),

@@ -38,9 +38,11 @@ from .core.pcs import (
     shifted_point,
 )
 from .framework.component import (
+    CompositionMember,
+    CompositionSegment,
     LookupElements,
     build_interaction_trace_async,
-    composition_accumulate,
+    composition_evaluate,
     evaluate_constraints_at_point,
 )
 
@@ -315,12 +317,13 @@ def _prove_tables(mats: Dict[str, torch.Tensor], claim: Dict[str, int],
     log.info("Composition polynomial")
     alpha_comp = channel.draw_felt()
     tree0_index = {lg: i for i, lg in enumerate(layout.ladder)}
-    acc: Dict[int, object] = {}
+    # every component's inputs by size, in the claim's order: one composition
+    # launch a prove on the card (S(p - g) read through the rotation index)
+    members: Dict[int, List[CompositionMember]] = {}
     alpha_idx = 0
     t1 = 0
     t2 = 0
     for comp in comps:
-        n = comp.log_size
         ext_main = {}
         for col in comp.columns:
             ext_main[col] = tree1.records[t1].extended
@@ -328,20 +331,20 @@ def _prove_tables(mats: Dict[str, torch.Tensor], claim: Dict[str, int],
         n_rows = 4 * (comp.relation_count() + 1)
         inter_rows = [tree2.records[t2 + i].extended for i in range(n_rows)]
         t2 += n_rows
-        isf_ext = tree0.records[tree0_index[n]].extended
-        lg = n + blow
-        # acc[lg] += the component's contribution, in place (one kernel
-        # launch on the card; S(p - g) read through the rotation index)
-        if ops is None:
-            acc[lg], alpha_idx = composition_accumulate(
-                comp, ext_main, inter_rows, inter_rows[-4:], fft.rotation_index(n, blow, device),
-                isf_ext, iclaim[comp.name], elements, alpha_comp, alpha_idx, blow, acc.get(lg))
-        else:
-            acc[lg], alpha_idx = ops.composition_accumulate(
-                comp, ext_main, inter_rows, isf_ext, iclaim[comp.name], elements, alpha_comp,
-                alpha_idx, blow, acc.get(lg))
-        del inter_rows
-
+        members.setdefault(comp.log_size, []).append(CompositionMember(
+            comp, ext_main, inter_rows, inter_rows[-4:], iclaim[comp.name], alpha_idx))
+        alpha_idx += comp.constraint_count()
+    isf = {n: tree0.records[tree0_index[n]].extended for n in members}
+    if ops is None:
+        segments = [CompositionSegment(n, mems, isf[n], fft.rotation_index(n, blow, device))
+                    for n, mems in members.items()]
+        acc: Dict[int, object] = {
+            n + blow: out for n, out in zip(members, composition_evaluate(
+                segments, elements, alpha_comp, blow))}
+        del segments
+    else:
+        acc = ops.composition(members, isf, elements, alpha_comp, blow)
+    del members, isf
     comp_log = layout.composition_log
     # per-size interpolate, zero-pad + modular add, one evaluate on the
     # composition domain (the circle-FFT basis is nested across sizes)

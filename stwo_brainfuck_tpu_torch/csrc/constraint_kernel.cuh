@@ -3,20 +3,27 @@
 // ops/constraint_codegen.py) in between.
 //
 // composition replaces stwo_brainfuck_tpu/framework/component.py:520
-// _constraints_fn, the JAX package's one fused executable a component: at
-// each storage position i = offset + t of the component's blown-up domain
-// (size 2^(n + log_blowup), n its log_size)
+// _constraints_fn, the JAX package's one fused executable a component, for
+// every component of a prove in one launch: at each storage position
+// i = offset + t of a segment (the rows of one size's blown-up domain of
+// 2^(n + log_blowup) positions, n its log_size, or a shard's chunk of them)
 //
-//   acc[:, t] (+)= (sum_i alpha^(a + i) * C_i(p)) * V_n(p)^-1
+//   acc[:, t] = (sum_components sum_i alpha^(a + i) * C_i(p)) * V_n(p)^-1
 //
-// with V_n(p) = pi^(n - 1)(p.x), pi(x) = 2x^2 - 1. On the blown-up domain
+// with V_n(p) = pi^(n - 1)(p.x), pi(x) = 2x^2 - 1. The launch's table
+// (ops/constraint_kernels.py plan_composition) lists the segments, each
+// with its components in the claim's order; the grid is flat, a block
+// kThreads rows of one segment (each segment's blocks after the last's),
+// and a thread evaluates every component of its segment at its row and
+// sums them in registers. All of them share n, so the thread multiplies by
+// V_n^-1 once and writes acc once, never reading it. On the blown-up domain
 // V_n takes 2^log_blowup values, one a block of 2^n storage positions
-// (core/poly.py vanishing_inverse_blocks): the host puts their inverses at
-// the end of the launch's constant table and a row reads word i >> n, so
-// no vanishing or domain-point array exists and no row inverts. S(p - g),
-// the one masked value, is read from 4 rows at rot[i] (rot the int32
-// rotation index of the whole domain) or, with rot null, at t (rows a
-// shard was given).
+// (core/poly.py vanishing_inverse_blocks): the host puts their inverses in
+// the table and a row reads word i >> n, so no vanishing or domain-point
+// array exists and no row inverts. S(p - g), the one masked value, is read
+// from 4 rows at rot[i] (rot the int32 rotation index of the whole domain)
+// or, with rot null, at t (rows a shard was given); is_first and the
+// rotation are read once a row for all the segment's components.
 //
 // interaction replaces the whole of :372 _build_interaction_fn on one
 // device, in one launch: at each row t, den_k = sum_j alpha^j v_j - z and
@@ -44,15 +51,20 @@
 // canonical mod p, so any exact evaluation order gives the same words.
 //
 // What bounds them on the card: bytes or integer instructions, by component
-// (chip_smoke.py's constraints line says which). A row reads 4 bytes a
-// column (C main columns, is_first, 4 (K + 1) interaction rows, the rotation
-// index, the accumulator) and writes 16; it takes the program's products (a
-// QM31 product 16, a QM31 x M31 4, a relation's denominator 4 a value, the
-// QM31 inverse 20 and its share of a batch's) and, for composition, 4 or 16
-// a constraint's weight and 4 for V_n^-1. The design spends nothing else: every value in
-// registers, the constants (weights, alpha powers, z, claimed sum, V_n^-1)
-// read through the read-only path at one address a warp, the columns' loads
-// and the stores coalesced, one launch a component.
+// (chip_smoke.py's constraints line says which). A composition row reads 4
+// bytes a column (each component's C main columns and 4 (K + 1)
+// interaction rows, and once is_first and the rotation index) and writes
+// 16; it takes the program's products (a QM31 product 16, a QM31 x M31 4,
+// a relation's denominator 4 a value, the QM31 inverse 20 and its share of
+// a batch's), 4 or 16 a constraint's weight and 4 a segment for V_n^-1.
+// The design spends nothing else: every value in registers, the constants
+// (weights, alpha powers, z, claimed sum, V_n^-1) read through the
+// read-only path at one address a warp, the columns' loads and the stores
+// coalesced, the weighted sum of all the constraints one 64-bit sum of
+// products a coordinate (a QM31-valued constraint's weight as the 4 x 4
+// matrix of the product by it), folded every four products and reduced
+// once, the LogUp denominators reduced every four, one composition launch
+// a prove.
 
 #pragma once
 
@@ -69,12 +81,26 @@ using qm31::Qm;
 
 constexpr int kThreads = 256;
 
-// One row's view of a launch's tables.
+// The constant words (ops/constraint_codegen.py): the lookup elements
+// (memory 3 powers and z, instruction 3 and z, processor 7 and z), shared;
+// a component's own composition words: the claimed sum, then its weights
+// (an M31-valued constraint's alpha^(a + i), 4 words; a QM31-valued one's
+// 4 x 4 matrix of the product by it, row-major).
+constexpr int kElementWords = 64;
+constexpr int kOwnWeights = 4;
+
+// The product policy of the composition bodies' QM31 products (m31.cuh:
+// Product or Doubled).
+using CompositionProduct = m31::Doubled;
+
+// One row's view of a component in the composition launch.
 struct Row {
-  const unsigned long long* ptrs;  // the column pointers
-  const uint32_t* consts;          // the constant words
+  const unsigned long long* ptrs;  // the component's column pointers
+  const uint32_t* consts;          // the lookup elements' words
+  const uint32_t* own;             // the component's claimed sum and weights
   uint32_t t;                      // this row in every column
   uint32_t s_row;                  // the row of S(p - g) in its rows
+  uint32_t first;                  // is_first at this row
 
   __device__ __forceinline__ const uint32_t* ptr(int slot) const {
     return reinterpret_cast<const uint32_t*>(__ldg(ptrs + slot));
@@ -87,43 +113,74 @@ struct Row {
     return {__ldg(ptr(slot) + s_row), __ldg(ptr(slot + 1) + s_row), __ldg(ptr(slot + 2) + s_row),
             __ldg(ptr(slot + 3) + s_row)};
   }
-  __device__ __forceinline__ Qm konst(int word) const { return qm31::load_qm(consts + word); }
+  __device__ __forceinline__ uint32_t is_first() const { return first; }
+  __device__ __forceinline__ Qm own_qm(int word) const { return qm31::load_qm(own + word); }
+  // word w of the weights (ops/constraint_codegen.py weight_words)
+  __device__ __forceinline__ uint32_t weight(int w) const { return __ldg(own + kOwnWeights + w); }
 };
 
-// The constant table's layout (ops/constraint_codegen.py): the lookup
-// elements (memory 3 powers and z, instruction 3 and z, processor 7 and z),
-// the claimed sum, the weights, then (composition) the 2^log_blowup words
-// of V_n^-1.
-constexpr int kElementWords = 64;
-constexpr int kClaimedWord = kElementWords;
-constexpr int kWeightsWord = kClaimedWord + 4;
-
-struct CompositionArgs {
-  const unsigned long long* ptrs;
-  const uint32_t* consts;
-  const uint32_t* v_inv;  // V_n^-1 of the 2^log_blowup blocks of 2^n positions
-  const int32_t* rot;     // null: S(p - g) at row t of its rows
-  int log_size;           // n
-  uint32_t offset;
-  uint32_t n;     // rows
-  uint32_t* acc;  // (4, rows)
-  int accumulate;
+// The composition launch's table (ops/constraint_kernels.py
+// plan_composition), 8-byte words: a header, a segment's words each, a
+// component's words each, the column pointers, then the uint32 constant
+// words (the lookup elements first; each component's own words; each
+// segment's 2^log_blowup words of V_n^-1).
+constexpr int kCompHeaderWords = 4;
+constexpr int kSegmentWords = 10;
+constexpr int kMemberWords = 3;
+enum : int { kCompSegments = 0, kCompBlocks, kCompMembers, kCompConsts };
+enum : int {
+  kSegFirstBlock = 0, kSegRows, kSegOffset, kSegLogSize, kSegRot, kSegAcc, kSegIsFirst,
+  kSegFirstMember, kSegMembers, kSegVinv,
 };
+// a component's index, its first pointer's word, its own words' first word
+enum : int { kMemComponent = 0, kMemPtrs, kMemOwn };
 
-template <class C>
-__global__ void __launch_bounds__(kThreads) composition_kernel(const CompositionArgs a) {
-  const uint32_t t = blockIdx.x * kThreads + threadIdx.x;
-  if (t >= a.n) return;
-  const uint32_t pos = a.offset + t;
-  const Row r{a.ptrs, a.consts, t, a.rot ? static_cast<uint32_t>(__ldg(a.rot + pos)) : t};
-  Qm acc = qm31::qm_mul_m31(C::composition(r), __ldg(a.v_inv + (pos >> a.log_size)));
-  uint32_t* out = a.acc + t;
-  const size_t n = a.n;
-  if (a.accumulate) acc = qm31::qm_add(acc, {out[0], out[n], out[2 * n], out[3 * n]});
+// A thread's row: its segment by blockIdx.x, the segment's components by
+// D::composition(id, row).
+template <class D>
+__device__ __forceinline__ void composition_row(const unsigned long long* __restrict__ table) {
+  const uint32_t b = blockIdx.x;
+  const int segments = static_cast<int>(__ldg(table + kCompSegments));
+  const unsigned long long* seg = table + kCompHeaderWords;
+  int s = 0;
+  while (s + 1 < segments && __ldg(seg + (s + 1) * kSegmentWords + kSegFirstBlock) <= b) ++s;
+  seg += s * kSegmentWords;
+  const uint32_t t =
+      (b - static_cast<uint32_t>(__ldg(seg + kSegFirstBlock))) * kThreads + threadIdx.x;
+  const uint32_t rows = static_cast<uint32_t>(__ldg(seg + kSegRows));
+  if (t >= rows) return;
+  const uint32_t pos = static_cast<uint32_t>(__ldg(seg + kSegOffset)) + t;
+  const uint32_t* consts = reinterpret_cast<const uint32_t*>(table + __ldg(table + kCompConsts));
+  const unsigned long long* members = table + kCompHeaderWords + segments * kSegmentWords;
+  const int32_t* rot = reinterpret_cast<const int32_t*>(__ldg(seg + kSegRot));
+  const uint32_t s_row = rot ? static_cast<uint32_t>(__ldg(rot + pos)) : t;
+  const uint32_t first = __ldg(reinterpret_cast<const uint32_t*>(__ldg(seg + kSegIsFirst)) + t);
+  const int m0 = static_cast<int>(__ldg(seg + kSegFirstMember));
+  const int m1 = m0 + static_cast<int>(__ldg(seg + kSegMembers));
+  Qm sum = {0u, 0u, 0u, 0u};
+  for (int j = m0; j < m1; ++j) {
+    const unsigned long long* mem = members + j * kMemberWords;
+    const Row r{table + __ldg(mem + kMemPtrs), consts, consts + __ldg(mem + kMemOwn), t, s_row,
+                first};
+    sum = qm31::qm_add(sum, D::composition(static_cast<int>(__ldg(mem + kMemComponent)), r));
+  }
+  const int log_size = static_cast<int>(__ldg(seg + kSegLogSize));
+  const uint32_t v_inv = __ldg(consts + __ldg(seg + kSegVinv) + (pos >> log_size));
+  const Qm acc = qm31::qm_mul_m31<CompositionProduct>(sum, v_inv);
+  uint32_t* out = reinterpret_cast<uint32_t*>(__ldg(seg + kSegAcc)) + t;
+  const size_t n = rows;
   out[0] = acc.a;
   out[n] = acc.b;
   out[2 * n] = acc.c;
   out[3 * n] = acc.d;
+}
+
+// 4 blocks an SM (at most 64 registers, no spills): measured faster than
+// the 3 that the bodies' 80 registers allow (tools/composition_limiter.py).
+template <class D>
+__global__ void __launch_bounds__(kThreads, 4) composition_kernel(
+    const unsigned long long* __restrict__ table) {
+  composition_row<D>(table);
 }
 
 constexpr int kBatchRows = 4;  // rows whose norms one m31_inv inverts (1, 2 or 4)
@@ -281,7 +338,7 @@ struct FractionSource {
 
 template <class C>
 constexpr int composition_slots() {
-  return C::kColumns + 1 + 4 * (C::kRelations + 1) + 4;
+  return C::kColumns + 4 * (C::kRelations + 1) + 4;
 }
 
 template <class C>
@@ -290,7 +347,7 @@ int shape_of(int* out) {
   out[1] = C::kRelations;
   out[2] = C::kConstraints;
   out[3] = composition_slots<C>();
-  out[4] = kWeightsWord + 4 * C::kConstraints;  // and 2^log_blowup words of V_n^-1
+  out[4] = C::kOwnWords;
   return 0;
 }
 
@@ -298,31 +355,17 @@ inline unsigned int blocks(long long n) {
   return static_cast<unsigned int>((n + kThreads - 1) / kThreads);
 }
 
-// table: n_ptrs column pointers (8 bytes each), then n_words constant
-// words, in device memory. Returns the CUDA error (cudaErrorInvalidValue for
-// arguments the kernel does not take).
-template <class C>
-int composition_entry(const void* table, int n_ptrs, int n_words, const void* rot, int log_size,
-                      int log_blowup, long long offset, long long n, void* acc, int accumulate,
-                      void* stream) {
-  const int eval_log = log_size + log_blowup;
-  if (n_ptrs != composition_slots<C>() || log_size < 1 || log_blowup < 0 ||
-      eval_log > qm31::kMaxLogSize ||
-      n_words != kWeightsWord + 4 * C::kConstraints + (1 << log_blowup) || n < 1 || offset < 0 ||
-      offset + n > (1ll << eval_log)) {
+// table: the composition launch's table in device memory
+// (plan_composition), `blocks` its blocks. Returns the CUDA error
+// (cudaErrorInvalidValue for arguments the kernel does not take).
+template <class D>
+int composition_entry(const void* table, long long blocks, void* stream) {
+  if (table == nullptr || blocks < 1 || blocks > 0x7fffffffll) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  CompositionArgs a;
-  a.ptrs = static_cast<const unsigned long long*>(table);
-  a.consts = reinterpret_cast<const uint32_t*>(a.ptrs + n_ptrs);
-  a.v_inv = a.consts + kWeightsWord + 4 * C::kConstraints;
-  a.rot = static_cast<const int32_t*>(rot);
-  a.log_size = log_size;
-  a.offset = static_cast<uint32_t>(offset);
-  a.n = static_cast<uint32_t>(n);
-  a.acc = static_cast<uint32_t*>(acc);
-  a.accumulate = accumulate;
-  composition_kernel<C><<<blocks(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  composition_kernel<D><<<static_cast<unsigned>(blocks), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const unsigned long long*>(table));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -5,12 +5,13 @@
 //
 // The constraint kernels of the 13 components for Hopper (sm_90a): the
 // bodies below, one struct a component, plug into the hand-written
-// skeletons csrc/constraint_kernel.cuh (composition: one thread a row, the
-// loads, the vanishing inverse, the weighted accumulation, the stores;
-// logup and interaction: the batched inversion between the denominators
-// and the fractions) and csrc/logup_scan.cuh (interaction: the coset
-// scan). Each body is the component's recorded constraint program
-// (framework/component.py ConstraintProgram), one statement an op.
+// skeletons csrc/constraint_kernel.cuh (composition: one launch a prove,
+// a thread a row of one segment, every component of the segment summed in
+// registers, the vanishing inverse, the stores; logup and interaction: the
+// batched inversion between the denominators and the fractions) and
+// csrc/logup_scan.cuh (interaction: the coset scan). Each body is the
+// component's recorded constraint program (framework/component.py
+// ConstraintProgram), one statement an op.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -27,13 +28,14 @@ struct MemoryComponent {
   static constexpr int kColumns = 8;
   static constexpr int kRelations = 1;
   static constexpr int kConstraints = 13;
+  static constexpr int kOwnWords = 80;
 
-  // sum_i w_i * C_i at one row (w_i the weights in the constant table)
+  // sum_i w_i * C_i at one row (w_i the component's weights)
   __device__ __forceinline__ static Qm composition(const Row& r) {
-    const Qm v0 = r.qcol(9);
-    const Qm v1 = r.qcol(13);
-    const Qm v2 = r.s_prev(17);
-    const Qm v3 = r.konst(64);
+    const Qm v0 = r.qcol(8);
+    const Qm v1 = r.qcol(12);
+    const Qm v2 = r.s_prev(16);
+    const Qm v3 = r.own_qm(0);
     const uint32_t v4 = r.col(0);
     const uint32_t v5 = r.col(1);
     const uint32_t v6 = r.col(2);
@@ -42,7 +44,7 @@ struct MemoryComponent {
     const uint32_t v9 = r.col(5);
     const uint32_t v10 = r.col(6);
     const uint32_t v11 = r.col(7);
-    const uint32_t v12 = r.col(8);
+    const uint32_t v12 = r.is_first();
     const uint32_t v13 = m31::mul(v12, v4);
     const uint32_t v14 = m31::mul(v12, v5);
     const uint32_t v15 = m31::mul(v12, v6);
@@ -62,27 +64,42 @@ struct MemoryComponent {
     const uint32_t v29 = m31::mul(v7, v22);
     const uint32_t v30 = m31::sub(v10, v6);
     const uint32_t v31 = m31::mul(v7, v30);
-    const Qm v32 = qm31::qm_sub(qm31::qm_add(qm31::qm_add(qm31::qm_mul_m31(r.konst(0), v4), qm31::qm_mul_m31(r.konst(4), v5)), qm31::qm_mul_m31(r.konst(8), v6)), r.konst(12));
-    const Qm v33 = qm31::qm_mul(v0, v32);
+    const Qm v32 = qm31::qm_combine<3>(r.consts, 0, {v4, v5, v6}, 12);
+    const Qm v33 = qm31::qm_mul<CompositionProduct>(v0, v32);
     const Qm v34 = qm31::qm_sub(v33, qm31::qm_from_m31(v18));
     const Qm v35 = qm31::qm_sub(v1, v2);
     const Qm v36 = qm31::qm_sub(v35, v0);
-    const Qm v37 = qm31::qm_mul_m31(v3, v12);
+    const Qm v37 = qm31::qm_mul_m31<CompositionProduct>(v3, v12);
     const Qm v38 = qm31::qm_add(v36, v37);
-    Qm acc = qm31::qm_mul_m31(r.konst(68), v13);
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(72), v14));
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(76), v15));
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(80), v16));
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(84), v19));
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(88), v21));
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(92), v24));
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(96), v27));
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(100), v28));
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(104), v29));
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(108), v31));
-    acc = qm31::qm_add(acc, qm31::qm_mul(r.konst(112), v34));
-    acc = qm31::qm_add(acc, qm31::qm_mul(r.konst(116), v38));
-    return acc;
+    uint32_t s[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      uint64_t x = m31::mac(0, r.weight(0 + c), v13);
+      x = m31::mac(x, r.weight(4 + c), v14);
+      x = m31::mac(x, r.weight(8 + c), v15);
+      x = m31::mac(x, r.weight(12 + c), v16);
+      x = m31::fold64(x);
+      x = m31::mac(x, r.weight(16 + c), v19);
+      x = m31::mac(x, r.weight(20 + c), v21);
+      x = m31::mac(x, r.weight(24 + c), v24);
+      x = m31::mac(x, r.weight(28 + c), v27);
+      x = m31::fold64(x);
+      x = m31::mac(x, r.weight(32 + c), v28);
+      x = m31::mac(x, r.weight(36 + c), v29);
+      x = m31::mac(x, r.weight(40 + c), v31);
+      x = m31::mac(x, r.weight(44 + 4 * c + 0), v34.a);
+      x = m31::fold64(x);
+      x = m31::mac(x, r.weight(44 + 4 * c + 1), v34.b);
+      x = m31::mac(x, r.weight(44 + 4 * c + 2), v34.c);
+      x = m31::mac(x, r.weight(44 + 4 * c + 3), v34.d);
+      x = m31::mac(x, r.weight(60 + 4 * c + 0), v38.a);
+      x = m31::fold64(x);
+      x = m31::mac(x, r.weight(60 + 4 * c + 1), v38.b);
+      x = m31::mac(x, r.weight(60 + 4 * c + 2), v38.c);
+      x = m31::mac(x, r.weight(60 + 4 * c + 3), v38.d);
+      s[c] = m31::reduce64(x);
+    }
+    return {s[0], s[1], s[2], s[3]};
   }
 
   // den_k of each relation at one row
@@ -112,13 +129,14 @@ struct InstructionComponent {
   static constexpr int kColumns = 8;
   static constexpr int kRelations = 1;
   static constexpr int kConstraints = 12;
+  static constexpr int kOwnWords = 76;
 
-  // sum_i w_i * C_i at one row (w_i the weights in the constant table)
+  // sum_i w_i * C_i at one row (w_i the component's weights)
   __device__ __forceinline__ static Qm composition(const Row& r) {
-    const Qm v0 = r.qcol(9);
-    const Qm v1 = r.qcol(13);
-    const Qm v2 = r.s_prev(17);
-    const Qm v3 = r.konst(64);
+    const Qm v0 = r.qcol(8);
+    const Qm v1 = r.qcol(12);
+    const Qm v2 = r.s_prev(16);
+    const Qm v3 = r.own_qm(0);
     const uint32_t v4 = r.col(0);
     const uint32_t v5 = r.col(1);
     const uint32_t v6 = r.col(2);
@@ -127,7 +145,7 @@ struct InstructionComponent {
     const uint32_t v9 = r.col(5);
     const uint32_t v10 = r.col(6);
     const uint32_t v11 = r.col(7);
-    const uint32_t v12 = r.col(8);
+    const uint32_t v12 = r.is_first();
     const uint32_t v13 = m31::mul(v12, v4);
     const uint32_t v14 = 1u;
     const uint32_t v15 = m31::sub(v7, v14);
@@ -145,26 +163,41 @@ struct InstructionComponent {
     const uint32_t v27 = m31::mul(v24, v26);
     const uint32_t v28 = m31::sub(v10, v6);
     const uint32_t v29 = m31::mul(v24, v28);
-    const Qm v30 = qm31::qm_sub(qm31::qm_add(qm31::qm_add(qm31::qm_mul_m31(r.konst(16), v4), qm31::qm_mul_m31(r.konst(20), v5)), qm31::qm_mul_m31(r.konst(24), v6)), r.konst(28));
-    const Qm v31 = qm31::qm_mul(v0, v30);
+    const Qm v30 = qm31::qm_combine<3>(r.consts, 16, {v4, v5, v6}, 28);
+    const Qm v31 = qm31::qm_mul<CompositionProduct>(v0, v30);
     const Qm v32 = qm31::qm_sub(v31, qm31::qm_from_m31(v15));
     const Qm v33 = qm31::qm_sub(v1, v2);
     const Qm v34 = qm31::qm_sub(v33, v0);
-    const Qm v35 = qm31::qm_mul_m31(v3, v12);
+    const Qm v35 = qm31::qm_mul_m31<CompositionProduct>(v3, v12);
     const Qm v36 = qm31::qm_add(v34, v35);
-    Qm acc = qm31::qm_mul_m31(r.konst(68), v13);
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(72), v16));
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(76), v18));
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(80), v19));
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(84), v20));
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(88), v21));
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(92), v22));
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(96), v25));
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(100), v27));
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(104), v29));
-    acc = qm31::qm_add(acc, qm31::qm_mul(r.konst(108), v32));
-    acc = qm31::qm_add(acc, qm31::qm_mul(r.konst(112), v36));
-    return acc;
+    uint32_t s[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      uint64_t x = m31::mac(0, r.weight(0 + c), v13);
+      x = m31::mac(x, r.weight(4 + c), v16);
+      x = m31::mac(x, r.weight(8 + c), v18);
+      x = m31::mac(x, r.weight(12 + c), v19);
+      x = m31::fold64(x);
+      x = m31::mac(x, r.weight(16 + c), v20);
+      x = m31::mac(x, r.weight(20 + c), v21);
+      x = m31::mac(x, r.weight(24 + c), v22);
+      x = m31::mac(x, r.weight(28 + c), v25);
+      x = m31::fold64(x);
+      x = m31::mac(x, r.weight(32 + c), v27);
+      x = m31::mac(x, r.weight(36 + c), v29);
+      x = m31::mac(x, r.weight(40 + 4 * c + 0), v32.a);
+      x = m31::mac(x, r.weight(40 + 4 * c + 1), v32.b);
+      x = m31::fold64(x);
+      x = m31::mac(x, r.weight(40 + 4 * c + 2), v32.c);
+      x = m31::mac(x, r.weight(40 + 4 * c + 3), v32.d);
+      x = m31::mac(x, r.weight(56 + 4 * c + 0), v36.a);
+      x = m31::mac(x, r.weight(56 + 4 * c + 1), v36.b);
+      x = m31::fold64(x);
+      x = m31::mac(x, r.weight(56 + 4 * c + 2), v36.c);
+      x = m31::mac(x, r.weight(56 + 4 * c + 3), v36.d);
+      s[c] = m31::reduce64(x);
+    }
+    return {s[0], s[1], s[2], s[3]};
   }
 
   // den_k of each relation at one row
@@ -194,18 +227,19 @@ struct ProgramComponent {
   static constexpr int kColumns = 4;
   static constexpr int kRelations = 1;
   static constexpr int kConstraints = 6;
+  static constexpr int kOwnWords = 52;
 
-  // sum_i w_i * C_i at one row (w_i the weights in the constant table)
+  // sum_i w_i * C_i at one row (w_i the component's weights)
   __device__ __forceinline__ static Qm composition(const Row& r) {
-    const Qm v0 = r.qcol(5);
-    const Qm v1 = r.qcol(9);
-    const Qm v2 = r.s_prev(13);
-    const Qm v3 = r.konst(64);
+    const Qm v0 = r.qcol(4);
+    const Qm v1 = r.qcol(8);
+    const Qm v2 = r.s_prev(12);
+    const Qm v3 = r.own_qm(0);
     const uint32_t v4 = r.col(0);
     const uint32_t v5 = r.col(1);
     const uint32_t v6 = r.col(2);
     const uint32_t v7 = r.col(3);
-    const uint32_t v8 = r.col(4);
+    const uint32_t v8 = r.is_first();
     const uint32_t v9 = m31::mul(v8, v4);
     const uint32_t v10 = 1u;
     const uint32_t v11 = m31::sub(v7, v10);
@@ -213,20 +247,33 @@ struct ProgramComponent {
     const uint32_t v13 = m31::mul(v7, v5);
     const uint32_t v14 = m31::mul(v7, v6);
     const uint32_t v15 = m31::sub(v10, v7);
-    const Qm v16 = qm31::qm_sub(qm31::qm_add(qm31::qm_add(qm31::qm_mul_m31(r.konst(16), v4), qm31::qm_mul_m31(r.konst(20), v5)), qm31::qm_mul_m31(r.konst(24), v6)), r.konst(28));
-    const Qm v17 = qm31::qm_mul(v0, v16);
+    const Qm v16 = qm31::qm_combine<3>(r.consts, 16, {v4, v5, v6}, 28);
+    const Qm v17 = qm31::qm_mul<CompositionProduct>(v0, v16);
     const Qm v18 = qm31::qm_sub(v17, qm31::qm_from_m31(v15));
     const Qm v19 = qm31::qm_sub(v1, v2);
     const Qm v20 = qm31::qm_sub(v19, v0);
-    const Qm v21 = qm31::qm_mul_m31(v3, v8);
+    const Qm v21 = qm31::qm_mul_m31<CompositionProduct>(v3, v8);
     const Qm v22 = qm31::qm_add(v20, v21);
-    Qm acc = qm31::qm_mul_m31(r.konst(68), v9);
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(72), v12));
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(76), v13));
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(80), v14));
-    acc = qm31::qm_add(acc, qm31::qm_mul(r.konst(84), v18));
-    acc = qm31::qm_add(acc, qm31::qm_mul(r.konst(88), v22));
-    return acc;
+    uint32_t s[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      uint64_t x = m31::mac(0, r.weight(0 + c), v9);
+      x = m31::mac(x, r.weight(4 + c), v12);
+      x = m31::mac(x, r.weight(8 + c), v13);
+      x = m31::mac(x, r.weight(12 + c), v14);
+      x = m31::fold64(x);
+      x = m31::mac(x, r.weight(16 + 4 * c + 0), v18.a);
+      x = m31::mac(x, r.weight(16 + 4 * c + 1), v18.b);
+      x = m31::mac(x, r.weight(16 + 4 * c + 2), v18.c);
+      x = m31::mac(x, r.weight(16 + 4 * c + 3), v18.d);
+      x = m31::fold64(x);
+      x = m31::mac(x, r.weight(32 + 4 * c + 0), v22.a);
+      x = m31::mac(x, r.weight(32 + 4 * c + 1), v22.b);
+      x = m31::mac(x, r.weight(32 + 4 * c + 2), v22.c);
+      x = m31::mac(x, r.weight(32 + 4 * c + 3), v22.d);
+      s[c] = m31::reduce64(x);
+    }
+    return {s[0], s[1], s[2], s[3]};
   }
 
   // den_k of each relation at one row
@@ -256,15 +303,16 @@ struct ProcessorComponent {
   static constexpr int kColumns = 9;
   static constexpr int kRelations = 3;
   static constexpr int kConstraints = 11;
+  static constexpr int kOwnWords = 96;
 
-  // sum_i w_i * C_i at one row (w_i the weights in the constant table)
+  // sum_i w_i * C_i at one row (w_i the component's weights)
   __device__ __forceinline__ static Qm composition(const Row& r) {
-    const Qm v0 = r.qcol(10);
-    const Qm v1 = r.qcol(14);
-    const Qm v2 = r.qcol(18);
-    const Qm v3 = r.qcol(22);
-    const Qm v4 = r.s_prev(26);
-    const Qm v5 = r.konst(64);
+    const Qm v0 = r.qcol(9);
+    const Qm v1 = r.qcol(13);
+    const Qm v2 = r.qcol(17);
+    const Qm v3 = r.qcol(21);
+    const Qm v4 = r.s_prev(25);
+    const Qm v5 = r.own_qm(0);
     const uint32_t v6 = r.col(0);
     const uint32_t v7 = r.col(1);
     const uint32_t v8 = r.col(2);
@@ -274,7 +322,7 @@ struct ProcessorComponent {
     const uint32_t v12 = r.col(6);
     const uint32_t v13 = r.col(7);
     const uint32_t v14 = r.col(8);
-    const uint32_t v15 = r.col(9);
+    const uint32_t v15 = r.is_first();
     const uint32_t v16 = m31::mul(v15, v6);
     const uint32_t v17 = m31::mul(v15, v7);
     const uint32_t v18 = m31::mul(v15, v10);
@@ -287,33 +335,55 @@ struct ProcessorComponent {
     const uint32_t v25 = m31::sub(v14, v6);
     const uint32_t v26 = m31::sub(v25, v21);
     const uint32_t v27 = m31::sub(v21, v13);
-    const Qm v28 = qm31::qm_sub(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_mul_m31(r.konst(32), v6), qm31::qm_mul_m31(r.konst(36), v7)), qm31::qm_mul_m31(r.konst(40), v8)), qm31::qm_mul_m31(r.konst(44), v9)), qm31::qm_mul_m31(r.konst(48), v10)), qm31::qm_mul_m31(r.konst(52), v11)), qm31::qm_mul_m31(r.konst(56), v12)), r.konst(60));
-    const Qm v29 = qm31::qm_mul(v0, v28);
+    const Qm v28 = qm31::qm_combine<7>(r.consts, 32, {v6, v7, v8, v9, v10, v11, v12}, 60);
+    const Qm v29 = qm31::qm_mul<CompositionProduct>(v0, v28);
     const Qm v30 = qm31::qm_sub(v29, qm31::qm_from_m31(v27));
-    const Qm v31 = qm31::qm_sub(qm31::qm_add(qm31::qm_add(qm31::qm_mul_m31(r.konst(16), v7), qm31::qm_mul_m31(r.konst(20), v8)), qm31::qm_mul_m31(r.konst(24), v9)), r.konst(28));
-    const Qm v32 = qm31::qm_mul(v1, v31);
+    const Qm v31 = qm31::qm_combine<3>(r.consts, 16, {v7, v8, v9}, 28);
+    const Qm v32 = qm31::qm_mul<CompositionProduct>(v1, v31);
     const Qm v33 = qm31::qm_sub(v32, qm31::qm_from_m31(v27));
     const Qm v34 = qm31::qm_add(v0, v1);
-    const Qm v35 = qm31::qm_sub(qm31::qm_add(qm31::qm_add(qm31::qm_mul_m31(r.konst(0), v6), qm31::qm_mul_m31(r.konst(4), v10)), qm31::qm_mul_m31(r.konst(8), v11)), r.konst(12));
-    const Qm v36 = qm31::qm_mul(v2, v35);
+    const Qm v35 = qm31::qm_combine<3>(r.consts, 0, {v6, v10, v11}, 12);
+    const Qm v36 = qm31::qm_mul<CompositionProduct>(v2, v35);
     const Qm v37 = qm31::qm_sub(v36, qm31::qm_from_m31(v27));
     const Qm v38 = qm31::qm_add(v34, v2);
     const Qm v39 = qm31::qm_sub(v3, v4);
     const Qm v40 = qm31::qm_sub(v39, v38);
-    const Qm v41 = qm31::qm_mul_m31(v5, v15);
+    const Qm v41 = qm31::qm_mul_m31<CompositionProduct>(v5, v15);
     const Qm v42 = qm31::qm_add(v40, v41);
-    Qm acc = qm31::qm_mul_m31(r.konst(68), v16);
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(72), v17));
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(76), v18));
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(80), v19));
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(84), v23));
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(88), v24));
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(92), v26));
-    acc = qm31::qm_add(acc, qm31::qm_mul(r.konst(96), v30));
-    acc = qm31::qm_add(acc, qm31::qm_mul(r.konst(100), v33));
-    acc = qm31::qm_add(acc, qm31::qm_mul(r.konst(104), v37));
-    acc = qm31::qm_add(acc, qm31::qm_mul(r.konst(108), v42));
-    return acc;
+    uint32_t s[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      uint64_t x = m31::mac(0, r.weight(0 + c), v16);
+      x = m31::mac(x, r.weight(4 + c), v17);
+      x = m31::mac(x, r.weight(8 + c), v18);
+      x = m31::mac(x, r.weight(12 + c), v19);
+      x = m31::fold64(x);
+      x = m31::mac(x, r.weight(16 + c), v23);
+      x = m31::mac(x, r.weight(20 + c), v24);
+      x = m31::mac(x, r.weight(24 + c), v26);
+      x = m31::mac(x, r.weight(28 + 4 * c + 0), v30.a);
+      x = m31::fold64(x);
+      x = m31::mac(x, r.weight(28 + 4 * c + 1), v30.b);
+      x = m31::mac(x, r.weight(28 + 4 * c + 2), v30.c);
+      x = m31::mac(x, r.weight(28 + 4 * c + 3), v30.d);
+      x = m31::mac(x, r.weight(44 + 4 * c + 0), v33.a);
+      x = m31::fold64(x);
+      x = m31::mac(x, r.weight(44 + 4 * c + 1), v33.b);
+      x = m31::mac(x, r.weight(44 + 4 * c + 2), v33.c);
+      x = m31::mac(x, r.weight(44 + 4 * c + 3), v33.d);
+      x = m31::mac(x, r.weight(60 + 4 * c + 0), v37.a);
+      x = m31::fold64(x);
+      x = m31::mac(x, r.weight(60 + 4 * c + 1), v37.b);
+      x = m31::mac(x, r.weight(60 + 4 * c + 2), v37.c);
+      x = m31::mac(x, r.weight(60 + 4 * c + 3), v37.d);
+      x = m31::mac(x, r.weight(76 + 4 * c + 0), v42.a);
+      x = m31::fold64(x);
+      x = m31::mac(x, r.weight(76 + 4 * c + 1), v42.b);
+      x = m31::mac(x, r.weight(76 + 4 * c + 2), v42.c);
+      x = m31::mac(x, r.weight(76 + 4 * c + 3), v42.d);
+      s[c] = m31::reduce64(x);
+    }
+    return {s[0], s[1], s[2], s[3]};
   }
 
   // den_k of each relation at one row
@@ -357,13 +427,14 @@ struct JumpIfNotZeroComponent {
   static constexpr int kColumns = 13;
   static constexpr int kRelations = 1;
   static constexpr int kConstraints = 10;
+  static constexpr int kOwnWords = 68;
 
-  // sum_i w_i * C_i at one row (w_i the weights in the constant table)
+  // sum_i w_i * C_i at one row (w_i the component's weights)
   __device__ __forceinline__ static Qm composition(const Row& r) {
-    const Qm v0 = r.qcol(14);
-    const Qm v1 = r.qcol(18);
-    const Qm v2 = r.s_prev(22);
-    const Qm v3 = r.konst(64);
+    const Qm v0 = r.qcol(13);
+    const Qm v1 = r.qcol(17);
+    const Qm v2 = r.s_prev(21);
+    const Qm v3 = r.own_qm(0);
     const uint32_t v4 = r.col(0);
     const uint32_t v5 = r.col(2);
     const uint32_t v6 = r.col(11);
@@ -397,25 +468,39 @@ struct JumpIfNotZeroComponent {
     const uint32_t v34 = r.col(10);
     const uint32_t v35 = m31::sub(v34, v7);
     const uint32_t v36 = r.col(6);
-    const Qm v37 = qm31::qm_sub(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_mul_m31(r.konst(32), v4), qm31::qm_mul_m31(r.konst(36), v20)), qm31::qm_mul_m31(r.konst(40), v5)), qm31::qm_mul_m31(r.konst(44), v21)), qm31::qm_mul_m31(r.konst(48), v32)), qm31::qm_mul_m31(r.konst(52), v7)), qm31::qm_mul_m31(r.konst(56), v36)), r.konst(60));
-    const Qm v38 = qm31::qm_mul(v0, v37);
+    const Qm v37 = qm31::qm_combine<7>(r.consts, 32, {v4, v20, v5, v21, v32, v7, v36}, 60);
+    const Qm v38 = qm31::qm_mul<CompositionProduct>(v0, v37);
     const Qm v39 = qm31::qm_sub(v38, qm31::qm_from_m31(v15));
     const Qm v40 = qm31::qm_sub(v1, v2);
     const Qm v41 = qm31::qm_sub(v40, v0);
-    const uint32_t v42 = r.col(13);
-    const Qm v43 = qm31::qm_mul_m31(v3, v42);
+    const uint32_t v42 = r.is_first();
+    const Qm v43 = qm31::qm_mul_m31<CompositionProduct>(v3, v42);
     const Qm v44 = qm31::qm_add(v41, v43);
-    Qm acc = qm31::qm_mul_m31(r.konst(68), v10);
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(72), v14));
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(76), v16));
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(80), v17));
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(84), v18));
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(88), v30));
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(92), v33));
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(96), v35));
-    acc = qm31::qm_add(acc, qm31::qm_mul(r.konst(100), v39));
-    acc = qm31::qm_add(acc, qm31::qm_mul(r.konst(104), v44));
-    return acc;
+    uint32_t s[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      uint64_t x = m31::mac(0, r.weight(0 + c), v10);
+      x = m31::mac(x, r.weight(4 + c), v14);
+      x = m31::mac(x, r.weight(8 + c), v16);
+      x = m31::mac(x, r.weight(12 + c), v17);
+      x = m31::fold64(x);
+      x = m31::mac(x, r.weight(16 + c), v18);
+      x = m31::mac(x, r.weight(20 + c), v30);
+      x = m31::mac(x, r.weight(24 + c), v33);
+      x = m31::mac(x, r.weight(28 + c), v35);
+      x = m31::fold64(x);
+      x = m31::mac(x, r.weight(32 + 4 * c + 0), v39.a);
+      x = m31::mac(x, r.weight(32 + 4 * c + 1), v39.b);
+      x = m31::mac(x, r.weight(32 + 4 * c + 2), v39.c);
+      x = m31::mac(x, r.weight(32 + 4 * c + 3), v39.d);
+      x = m31::fold64(x);
+      x = m31::mac(x, r.weight(48 + 4 * c + 0), v44.a);
+      x = m31::mac(x, r.weight(48 + 4 * c + 1), v44.b);
+      x = m31::mac(x, r.weight(48 + 4 * c + 2), v44.c);
+      x = m31::mac(x, r.weight(48 + 4 * c + 3), v44.d);
+      s[c] = m31::reduce64(x);
+    }
+    return {s[0], s[1], s[2], s[3]};
   }
 
   // den_k of each relation at one row
@@ -449,13 +534,14 @@ struct JumpIfZeroComponent {
   static constexpr int kColumns = 13;
   static constexpr int kRelations = 1;
   static constexpr int kConstraints = 10;
+  static constexpr int kOwnWords = 68;
 
-  // sum_i w_i * C_i at one row (w_i the weights in the constant table)
+  // sum_i w_i * C_i at one row (w_i the component's weights)
   __device__ __forceinline__ static Qm composition(const Row& r) {
-    const Qm v0 = r.qcol(14);
-    const Qm v1 = r.qcol(18);
-    const Qm v2 = r.s_prev(22);
-    const Qm v3 = r.konst(64);
+    const Qm v0 = r.qcol(13);
+    const Qm v1 = r.qcol(17);
+    const Qm v2 = r.s_prev(21);
+    const Qm v3 = r.own_qm(0);
     const uint32_t v4 = r.col(0);
     const uint32_t v5 = r.col(2);
     const uint32_t v6 = r.col(11);
@@ -490,25 +576,39 @@ struct JumpIfZeroComponent {
     const uint32_t v35 = r.col(10);
     const uint32_t v36 = m31::sub(v35, v7);
     const uint32_t v37 = r.col(6);
-    const Qm v38 = qm31::qm_sub(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_mul_m31(r.konst(32), v4), qm31::qm_mul_m31(r.konst(36), v20)), qm31::qm_mul_m31(r.konst(40), v5)), qm31::qm_mul_m31(r.konst(44), v21)), qm31::qm_mul_m31(r.konst(48), v33)), qm31::qm_mul_m31(r.konst(52), v7)), qm31::qm_mul_m31(r.konst(56), v37)), r.konst(60));
-    const Qm v39 = qm31::qm_mul(v0, v38);
+    const Qm v38 = qm31::qm_combine<7>(r.consts, 32, {v4, v20, v5, v21, v33, v7, v37}, 60);
+    const Qm v39 = qm31::qm_mul<CompositionProduct>(v0, v38);
     const Qm v40 = qm31::qm_sub(v39, qm31::qm_from_m31(v15));
     const Qm v41 = qm31::qm_sub(v1, v2);
     const Qm v42 = qm31::qm_sub(v41, v0);
-    const uint32_t v43 = r.col(13);
-    const Qm v44 = qm31::qm_mul_m31(v3, v43);
+    const uint32_t v43 = r.is_first();
+    const Qm v44 = qm31::qm_mul_m31<CompositionProduct>(v3, v43);
     const Qm v45 = qm31::qm_add(v42, v44);
-    Qm acc = qm31::qm_mul_m31(r.konst(68), v10);
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(72), v14));
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(76), v16));
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(80), v17));
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(84), v18));
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(88), v31));
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(92), v34));
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(96), v36));
-    acc = qm31::qm_add(acc, qm31::qm_mul(r.konst(100), v40));
-    acc = qm31::qm_add(acc, qm31::qm_mul(r.konst(104), v45));
-    return acc;
+    uint32_t s[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      uint64_t x = m31::mac(0, r.weight(0 + c), v10);
+      x = m31::mac(x, r.weight(4 + c), v14);
+      x = m31::mac(x, r.weight(8 + c), v16);
+      x = m31::mac(x, r.weight(12 + c), v17);
+      x = m31::fold64(x);
+      x = m31::mac(x, r.weight(16 + c), v18);
+      x = m31::mac(x, r.weight(20 + c), v31);
+      x = m31::mac(x, r.weight(24 + c), v34);
+      x = m31::mac(x, r.weight(28 + c), v36);
+      x = m31::fold64(x);
+      x = m31::mac(x, r.weight(32 + 4 * c + 0), v40.a);
+      x = m31::mac(x, r.weight(32 + 4 * c + 1), v40.b);
+      x = m31::mac(x, r.weight(32 + 4 * c + 2), v40.c);
+      x = m31::mac(x, r.weight(32 + 4 * c + 3), v40.d);
+      x = m31::fold64(x);
+      x = m31::mac(x, r.weight(48 + 4 * c + 0), v45.a);
+      x = m31::mac(x, r.weight(48 + 4 * c + 1), v45.b);
+      x = m31::mac(x, r.weight(48 + 4 * c + 2), v45.c);
+      x = m31::mac(x, r.weight(48 + 4 * c + 3), v45.d);
+      s[c] = m31::reduce64(x);
+    }
+    return {s[0], s[1], s[2], s[3]};
   }
 
   // den_k of each relation at one row
@@ -542,13 +642,14 @@ struct InputComponent {
   static constexpr int kColumns = 11;
   static constexpr int kRelations = 1;
   static constexpr int kConstraints = 8;
+  static constexpr int kOwnWords = 60;
 
-  // sum_i w_i * C_i at one row (w_i the weights in the constant table)
+  // sum_i w_i * C_i at one row (w_i the component's weights)
   __device__ __forceinline__ static Qm composition(const Row& r) {
-    const Qm v0 = r.qcol(12);
-    const Qm v1 = r.qcol(16);
-    const Qm v2 = r.s_prev(20);
-    const Qm v3 = r.konst(64);
+    const Qm v0 = r.qcol(11);
+    const Qm v1 = r.qcol(15);
+    const Qm v2 = r.s_prev(19);
+    const Qm v3 = r.own_qm(0);
     const uint32_t v4 = r.col(2);
     const uint32_t v5 = r.col(7);
     const uint32_t v6 = r.col(5);
@@ -572,23 +673,37 @@ struct InputComponent {
     const uint32_t v24 = r.col(0);
     const uint32_t v25 = r.col(3);
     const uint32_t v26 = r.col(6);
-    const Qm v27 = qm31::qm_sub(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_mul_m31(r.konst(32), v24), qm31::qm_mul_m31(r.konst(36), v7)), qm31::qm_mul_m31(r.konst(40), v4)), qm31::qm_mul_m31(r.konst(44), v25)), qm31::qm_mul_m31(r.konst(48), v22)), qm31::qm_mul_m31(r.konst(52), v6)), qm31::qm_mul_m31(r.konst(56), v26)), r.konst(60));
-    const Qm v28 = qm31::qm_mul(v0, v27);
+    const Qm v27 = qm31::qm_combine<7>(r.consts, 32, {v24, v7, v4, v25, v22, v6, v26}, 60);
+    const Qm v28 = qm31::qm_mul<CompositionProduct>(v0, v27);
     const Qm v29 = qm31::qm_sub(v28, qm31::qm_from_m31(v13));
     const Qm v30 = qm31::qm_sub(v1, v2);
     const Qm v31 = qm31::qm_sub(v30, v0);
-    const uint32_t v32 = r.col(11);
-    const Qm v33 = qm31::qm_mul_m31(v3, v32);
+    const uint32_t v32 = r.is_first();
+    const Qm v33 = qm31::qm_mul_m31<CompositionProduct>(v3, v32);
     const Qm v34 = qm31::qm_add(v31, v33);
-    Qm acc = qm31::qm_mul_m31(r.konst(68), v11);
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(72), v14));
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(76), v15));
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(80), v16));
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(84), v20));
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(88), v23));
-    acc = qm31::qm_add(acc, qm31::qm_mul(r.konst(92), v29));
-    acc = qm31::qm_add(acc, qm31::qm_mul(r.konst(96), v34));
-    return acc;
+    uint32_t s[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      uint64_t x = m31::mac(0, r.weight(0 + c), v11);
+      x = m31::mac(x, r.weight(4 + c), v14);
+      x = m31::mac(x, r.weight(8 + c), v15);
+      x = m31::mac(x, r.weight(12 + c), v16);
+      x = m31::fold64(x);
+      x = m31::mac(x, r.weight(16 + c), v20);
+      x = m31::mac(x, r.weight(20 + c), v23);
+      x = m31::mac(x, r.weight(24 + 4 * c + 0), v29.a);
+      x = m31::mac(x, r.weight(24 + 4 * c + 1), v29.b);
+      x = m31::fold64(x);
+      x = m31::mac(x, r.weight(24 + 4 * c + 2), v29.c);
+      x = m31::mac(x, r.weight(24 + 4 * c + 3), v29.d);
+      x = m31::mac(x, r.weight(40 + 4 * c + 0), v34.a);
+      x = m31::mac(x, r.weight(40 + 4 * c + 1), v34.b);
+      x = m31::fold64(x);
+      x = m31::mac(x, r.weight(40 + 4 * c + 2), v34.c);
+      x = m31::mac(x, r.weight(40 + 4 * c + 3), v34.d);
+      s[c] = m31::reduce64(x);
+    }
+    return {s[0], s[1], s[2], s[3]};
   }
 
   // den_k of each relation at one row
@@ -622,13 +737,14 @@ struct LeftComponent {
   static constexpr int kColumns = 11;
   static constexpr int kRelations = 1;
   static constexpr int kConstraints = 8;
+  static constexpr int kOwnWords = 60;
 
-  // sum_i w_i * C_i at one row (w_i the weights in the constant table)
+  // sum_i w_i * C_i at one row (w_i the component's weights)
   __device__ __forceinline__ static Qm composition(const Row& r) {
-    const Qm v0 = r.qcol(12);
-    const Qm v1 = r.qcol(16);
-    const Qm v2 = r.s_prev(20);
-    const Qm v3 = r.konst(64);
+    const Qm v0 = r.qcol(11);
+    const Qm v1 = r.qcol(15);
+    const Qm v2 = r.s_prev(19);
+    const Qm v3 = r.own_qm(0);
     const uint32_t v4 = r.col(2);
     const uint32_t v5 = r.col(7);
     const uint32_t v6 = r.col(5);
@@ -654,23 +770,37 @@ struct LeftComponent {
     const uint32_t v26 = r.col(0);
     const uint32_t v27 = r.col(3);
     const uint32_t v28 = r.col(6);
-    const Qm v29 = qm31::qm_sub(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_mul_m31(r.konst(32), v26), qm31::qm_mul_m31(r.konst(36), v7)), qm31::qm_mul_m31(r.konst(40), v4)), qm31::qm_mul_m31(r.konst(44), v27)), qm31::qm_mul_m31(r.konst(48), v22)), qm31::qm_mul_m31(r.konst(52), v6)), qm31::qm_mul_m31(r.konst(56), v28)), r.konst(60));
-    const Qm v30 = qm31::qm_mul(v0, v29);
+    const Qm v29 = qm31::qm_combine<7>(r.consts, 32, {v26, v7, v4, v27, v22, v6, v28}, 60);
+    const Qm v30 = qm31::qm_mul<CompositionProduct>(v0, v29);
     const Qm v31 = qm31::qm_sub(v30, qm31::qm_from_m31(v13));
     const Qm v32 = qm31::qm_sub(v1, v2);
     const Qm v33 = qm31::qm_sub(v32, v0);
-    const uint32_t v34 = r.col(11);
-    const Qm v35 = qm31::qm_mul_m31(v3, v34);
+    const uint32_t v34 = r.is_first();
+    const Qm v35 = qm31::qm_mul_m31<CompositionProduct>(v3, v34);
     const Qm v36 = qm31::qm_add(v33, v35);
-    Qm acc = qm31::qm_mul_m31(r.konst(68), v11);
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(72), v14));
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(76), v15));
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(80), v16));
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(84), v20));
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(88), v25));
-    acc = qm31::qm_add(acc, qm31::qm_mul(r.konst(92), v31));
-    acc = qm31::qm_add(acc, qm31::qm_mul(r.konst(96), v36));
-    return acc;
+    uint32_t s[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      uint64_t x = m31::mac(0, r.weight(0 + c), v11);
+      x = m31::mac(x, r.weight(4 + c), v14);
+      x = m31::mac(x, r.weight(8 + c), v15);
+      x = m31::mac(x, r.weight(12 + c), v16);
+      x = m31::fold64(x);
+      x = m31::mac(x, r.weight(16 + c), v20);
+      x = m31::mac(x, r.weight(20 + c), v25);
+      x = m31::mac(x, r.weight(24 + 4 * c + 0), v31.a);
+      x = m31::mac(x, r.weight(24 + 4 * c + 1), v31.b);
+      x = m31::fold64(x);
+      x = m31::mac(x, r.weight(24 + 4 * c + 2), v31.c);
+      x = m31::mac(x, r.weight(24 + 4 * c + 3), v31.d);
+      x = m31::mac(x, r.weight(40 + 4 * c + 0), v36.a);
+      x = m31::mac(x, r.weight(40 + 4 * c + 1), v36.b);
+      x = m31::fold64(x);
+      x = m31::mac(x, r.weight(40 + 4 * c + 2), v36.c);
+      x = m31::mac(x, r.weight(40 + 4 * c + 3), v36.d);
+      s[c] = m31::reduce64(x);
+    }
+    return {s[0], s[1], s[2], s[3]};
   }
 
   // den_k of each relation at one row
@@ -704,13 +834,14 @@ struct MinusComponent {
   static constexpr int kColumns = 11;
   static constexpr int kRelations = 1;
   static constexpr int kConstraints = 9;
+  static constexpr int kOwnWords = 64;
 
-  // sum_i w_i * C_i at one row (w_i the weights in the constant table)
+  // sum_i w_i * C_i at one row (w_i the component's weights)
   __device__ __forceinline__ static Qm composition(const Row& r) {
-    const Qm v0 = r.qcol(12);
-    const Qm v1 = r.qcol(16);
-    const Qm v2 = r.s_prev(20);
-    const Qm v3 = r.konst(64);
+    const Qm v0 = r.qcol(11);
+    const Qm v1 = r.qcol(15);
+    const Qm v2 = r.s_prev(19);
+    const Qm v3 = r.own_qm(0);
     const uint32_t v4 = r.col(2);
     const uint32_t v5 = r.col(7);
     const uint32_t v6 = r.col(5);
@@ -738,24 +869,38 @@ struct MinusComponent {
     const uint32_t v28 = r.col(0);
     const uint32_t v29 = r.col(3);
     const uint32_t v30 = r.col(6);
-    const Qm v31 = qm31::qm_sub(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_mul_m31(r.konst(32), v28), qm31::qm_mul_m31(r.konst(36), v7)), qm31::qm_mul_m31(r.konst(40), v4)), qm31::qm_mul_m31(r.konst(44), v29)), qm31::qm_mul_m31(r.konst(48), v22)), qm31::qm_mul_m31(r.konst(52), v6)), qm31::qm_mul_m31(r.konst(56), v30)), r.konst(60));
-    const Qm v32 = qm31::qm_mul(v0, v31);
+    const Qm v31 = qm31::qm_combine<7>(r.consts, 32, {v28, v7, v4, v29, v22, v6, v30}, 60);
+    const Qm v32 = qm31::qm_mul<CompositionProduct>(v0, v31);
     const Qm v33 = qm31::qm_sub(v32, qm31::qm_from_m31(v13));
     const Qm v34 = qm31::qm_sub(v1, v2);
     const Qm v35 = qm31::qm_sub(v34, v0);
-    const uint32_t v36 = r.col(11);
-    const Qm v37 = qm31::qm_mul_m31(v3, v36);
+    const uint32_t v36 = r.is_first();
+    const Qm v37 = qm31::qm_mul_m31<CompositionProduct>(v3, v36);
     const Qm v38 = qm31::qm_add(v35, v37);
-    Qm acc = qm31::qm_mul_m31(r.konst(68), v11);
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(72), v14));
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(76), v15));
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(80), v16));
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(84), v20));
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(88), v23));
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(92), v27));
-    acc = qm31::qm_add(acc, qm31::qm_mul(r.konst(96), v33));
-    acc = qm31::qm_add(acc, qm31::qm_mul(r.konst(100), v38));
-    return acc;
+    uint32_t s[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      uint64_t x = m31::mac(0, r.weight(0 + c), v11);
+      x = m31::mac(x, r.weight(4 + c), v14);
+      x = m31::mac(x, r.weight(8 + c), v15);
+      x = m31::mac(x, r.weight(12 + c), v16);
+      x = m31::fold64(x);
+      x = m31::mac(x, r.weight(16 + c), v20);
+      x = m31::mac(x, r.weight(20 + c), v23);
+      x = m31::mac(x, r.weight(24 + c), v27);
+      x = m31::mac(x, r.weight(28 + 4 * c + 0), v33.a);
+      x = m31::fold64(x);
+      x = m31::mac(x, r.weight(28 + 4 * c + 1), v33.b);
+      x = m31::mac(x, r.weight(28 + 4 * c + 2), v33.c);
+      x = m31::mac(x, r.weight(28 + 4 * c + 3), v33.d);
+      x = m31::mac(x, r.weight(44 + 4 * c + 0), v38.a);
+      x = m31::fold64(x);
+      x = m31::mac(x, r.weight(44 + 4 * c + 1), v38.b);
+      x = m31::mac(x, r.weight(44 + 4 * c + 2), v38.c);
+      x = m31::mac(x, r.weight(44 + 4 * c + 3), v38.d);
+      s[c] = m31::reduce64(x);
+    }
+    return {s[0], s[1], s[2], s[3]};
   }
 
   // den_k of each relation at one row
@@ -789,13 +934,14 @@ struct OutputComponent {
   static constexpr int kColumns = 11;
   static constexpr int kRelations = 1;
   static constexpr int kConstraints = 9;
+  static constexpr int kOwnWords = 64;
 
-  // sum_i w_i * C_i at one row (w_i the weights in the constant table)
+  // sum_i w_i * C_i at one row (w_i the component's weights)
   __device__ __forceinline__ static Qm composition(const Row& r) {
-    const Qm v0 = r.qcol(12);
-    const Qm v1 = r.qcol(16);
-    const Qm v2 = r.s_prev(20);
-    const Qm v3 = r.konst(64);
+    const Qm v0 = r.qcol(11);
+    const Qm v1 = r.qcol(15);
+    const Qm v2 = r.s_prev(19);
+    const Qm v3 = r.own_qm(0);
     const uint32_t v4 = r.col(2);
     const uint32_t v5 = r.col(7);
     const uint32_t v6 = r.col(5);
@@ -821,24 +967,38 @@ struct OutputComponent {
     const uint32_t v26 = r.col(0);
     const uint32_t v27 = r.col(3);
     const uint32_t v28 = r.col(6);
-    const Qm v29 = qm31::qm_sub(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_mul_m31(r.konst(32), v26), qm31::qm_mul_m31(r.konst(36), v7)), qm31::qm_mul_m31(r.konst(40), v4)), qm31::qm_mul_m31(r.konst(44), v27)), qm31::qm_mul_m31(r.konst(48), v22)), qm31::qm_mul_m31(r.konst(52), v6)), qm31::qm_mul_m31(r.konst(56), v28)), r.konst(60));
-    const Qm v30 = qm31::qm_mul(v0, v29);
+    const Qm v29 = qm31::qm_combine<7>(r.consts, 32, {v26, v7, v4, v27, v22, v6, v28}, 60);
+    const Qm v30 = qm31::qm_mul<CompositionProduct>(v0, v29);
     const Qm v31 = qm31::qm_sub(v30, qm31::qm_from_m31(v13));
     const Qm v32 = qm31::qm_sub(v1, v2);
     const Qm v33 = qm31::qm_sub(v32, v0);
-    const uint32_t v34 = r.col(11);
-    const Qm v35 = qm31::qm_mul_m31(v3, v34);
+    const uint32_t v34 = r.is_first();
+    const Qm v35 = qm31::qm_mul_m31<CompositionProduct>(v3, v34);
     const Qm v36 = qm31::qm_add(v33, v35);
-    Qm acc = qm31::qm_mul_m31(r.konst(68), v11);
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(72), v14));
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(76), v15));
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(80), v16));
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(84), v20));
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(88), v23));
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(92), v25));
-    acc = qm31::qm_add(acc, qm31::qm_mul(r.konst(96), v31));
-    acc = qm31::qm_add(acc, qm31::qm_mul(r.konst(100), v36));
-    return acc;
+    uint32_t s[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      uint64_t x = m31::mac(0, r.weight(0 + c), v11);
+      x = m31::mac(x, r.weight(4 + c), v14);
+      x = m31::mac(x, r.weight(8 + c), v15);
+      x = m31::mac(x, r.weight(12 + c), v16);
+      x = m31::fold64(x);
+      x = m31::mac(x, r.weight(16 + c), v20);
+      x = m31::mac(x, r.weight(20 + c), v23);
+      x = m31::mac(x, r.weight(24 + c), v25);
+      x = m31::mac(x, r.weight(28 + 4 * c + 0), v31.a);
+      x = m31::fold64(x);
+      x = m31::mac(x, r.weight(28 + 4 * c + 1), v31.b);
+      x = m31::mac(x, r.weight(28 + 4 * c + 2), v31.c);
+      x = m31::mac(x, r.weight(28 + 4 * c + 3), v31.d);
+      x = m31::mac(x, r.weight(44 + 4 * c + 0), v36.a);
+      x = m31::fold64(x);
+      x = m31::mac(x, r.weight(44 + 4 * c + 1), v36.b);
+      x = m31::mac(x, r.weight(44 + 4 * c + 2), v36.c);
+      x = m31::mac(x, r.weight(44 + 4 * c + 3), v36.d);
+      s[c] = m31::reduce64(x);
+    }
+    return {s[0], s[1], s[2], s[3]};
   }
 
   // den_k of each relation at one row
@@ -872,13 +1032,14 @@ struct PlusComponent {
   static constexpr int kColumns = 11;
   static constexpr int kRelations = 1;
   static constexpr int kConstraints = 9;
+  static constexpr int kOwnWords = 64;
 
-  // sum_i w_i * C_i at one row (w_i the weights in the constant table)
+  // sum_i w_i * C_i at one row (w_i the component's weights)
   __device__ __forceinline__ static Qm composition(const Row& r) {
-    const Qm v0 = r.qcol(12);
-    const Qm v1 = r.qcol(16);
-    const Qm v2 = r.s_prev(20);
-    const Qm v3 = r.konst(64);
+    const Qm v0 = r.qcol(11);
+    const Qm v1 = r.qcol(15);
+    const Qm v2 = r.s_prev(19);
+    const Qm v3 = r.own_qm(0);
     const uint32_t v4 = r.col(2);
     const uint32_t v5 = r.col(7);
     const uint32_t v6 = r.col(5);
@@ -906,24 +1067,38 @@ struct PlusComponent {
     const uint32_t v28 = r.col(0);
     const uint32_t v29 = r.col(3);
     const uint32_t v30 = r.col(6);
-    const Qm v31 = qm31::qm_sub(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_mul_m31(r.konst(32), v28), qm31::qm_mul_m31(r.konst(36), v7)), qm31::qm_mul_m31(r.konst(40), v4)), qm31::qm_mul_m31(r.konst(44), v29)), qm31::qm_mul_m31(r.konst(48), v22)), qm31::qm_mul_m31(r.konst(52), v6)), qm31::qm_mul_m31(r.konst(56), v30)), r.konst(60));
-    const Qm v32 = qm31::qm_mul(v0, v31);
+    const Qm v31 = qm31::qm_combine<7>(r.consts, 32, {v28, v7, v4, v29, v22, v6, v30}, 60);
+    const Qm v32 = qm31::qm_mul<CompositionProduct>(v0, v31);
     const Qm v33 = qm31::qm_sub(v32, qm31::qm_from_m31(v13));
     const Qm v34 = qm31::qm_sub(v1, v2);
     const Qm v35 = qm31::qm_sub(v34, v0);
-    const uint32_t v36 = r.col(11);
-    const Qm v37 = qm31::qm_mul_m31(v3, v36);
+    const uint32_t v36 = r.is_first();
+    const Qm v37 = qm31::qm_mul_m31<CompositionProduct>(v3, v36);
     const Qm v38 = qm31::qm_add(v35, v37);
-    Qm acc = qm31::qm_mul_m31(r.konst(68), v11);
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(72), v14));
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(76), v15));
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(80), v16));
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(84), v20));
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(88), v23));
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(92), v27));
-    acc = qm31::qm_add(acc, qm31::qm_mul(r.konst(96), v33));
-    acc = qm31::qm_add(acc, qm31::qm_mul(r.konst(100), v38));
-    return acc;
+    uint32_t s[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      uint64_t x = m31::mac(0, r.weight(0 + c), v11);
+      x = m31::mac(x, r.weight(4 + c), v14);
+      x = m31::mac(x, r.weight(8 + c), v15);
+      x = m31::mac(x, r.weight(12 + c), v16);
+      x = m31::fold64(x);
+      x = m31::mac(x, r.weight(16 + c), v20);
+      x = m31::mac(x, r.weight(20 + c), v23);
+      x = m31::mac(x, r.weight(24 + c), v27);
+      x = m31::mac(x, r.weight(28 + 4 * c + 0), v33.a);
+      x = m31::fold64(x);
+      x = m31::mac(x, r.weight(28 + 4 * c + 1), v33.b);
+      x = m31::mac(x, r.weight(28 + 4 * c + 2), v33.c);
+      x = m31::mac(x, r.weight(28 + 4 * c + 3), v33.d);
+      x = m31::mac(x, r.weight(44 + 4 * c + 0), v38.a);
+      x = m31::fold64(x);
+      x = m31::mac(x, r.weight(44 + 4 * c + 1), v38.b);
+      x = m31::mac(x, r.weight(44 + 4 * c + 2), v38.c);
+      x = m31::mac(x, r.weight(44 + 4 * c + 3), v38.d);
+      s[c] = m31::reduce64(x);
+    }
+    return {s[0], s[1], s[2], s[3]};
   }
 
   // den_k of each relation at one row
@@ -957,13 +1132,14 @@ struct RightComponent {
   static constexpr int kColumns = 11;
   static constexpr int kRelations = 1;
   static constexpr int kConstraints = 8;
+  static constexpr int kOwnWords = 60;
 
-  // sum_i w_i * C_i at one row (w_i the weights in the constant table)
+  // sum_i w_i * C_i at one row (w_i the component's weights)
   __device__ __forceinline__ static Qm composition(const Row& r) {
-    const Qm v0 = r.qcol(12);
-    const Qm v1 = r.qcol(16);
-    const Qm v2 = r.s_prev(20);
-    const Qm v3 = r.konst(64);
+    const Qm v0 = r.qcol(11);
+    const Qm v1 = r.qcol(15);
+    const Qm v2 = r.s_prev(19);
+    const Qm v3 = r.own_qm(0);
     const uint32_t v4 = r.col(2);
     const uint32_t v5 = r.col(7);
     const uint32_t v6 = r.col(5);
@@ -989,23 +1165,37 @@ struct RightComponent {
     const uint32_t v26 = r.col(0);
     const uint32_t v27 = r.col(3);
     const uint32_t v28 = r.col(6);
-    const Qm v29 = qm31::qm_sub(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_mul_m31(r.konst(32), v26), qm31::qm_mul_m31(r.konst(36), v7)), qm31::qm_mul_m31(r.konst(40), v4)), qm31::qm_mul_m31(r.konst(44), v27)), qm31::qm_mul_m31(r.konst(48), v22)), qm31::qm_mul_m31(r.konst(52), v6)), qm31::qm_mul_m31(r.konst(56), v28)), r.konst(60));
-    const Qm v30 = qm31::qm_mul(v0, v29);
+    const Qm v29 = qm31::qm_combine<7>(r.consts, 32, {v26, v7, v4, v27, v22, v6, v28}, 60);
+    const Qm v30 = qm31::qm_mul<CompositionProduct>(v0, v29);
     const Qm v31 = qm31::qm_sub(v30, qm31::qm_from_m31(v13));
     const Qm v32 = qm31::qm_sub(v1, v2);
     const Qm v33 = qm31::qm_sub(v32, v0);
-    const uint32_t v34 = r.col(11);
-    const Qm v35 = qm31::qm_mul_m31(v3, v34);
+    const uint32_t v34 = r.is_first();
+    const Qm v35 = qm31::qm_mul_m31<CompositionProduct>(v3, v34);
     const Qm v36 = qm31::qm_add(v33, v35);
-    Qm acc = qm31::qm_mul_m31(r.konst(68), v11);
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(72), v14));
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(76), v15));
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(80), v16));
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(84), v20));
-    acc = qm31::qm_add(acc, qm31::qm_mul_m31(r.konst(88), v25));
-    acc = qm31::qm_add(acc, qm31::qm_mul(r.konst(92), v31));
-    acc = qm31::qm_add(acc, qm31::qm_mul(r.konst(96), v36));
-    return acc;
+    uint32_t s[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      uint64_t x = m31::mac(0, r.weight(0 + c), v11);
+      x = m31::mac(x, r.weight(4 + c), v14);
+      x = m31::mac(x, r.weight(8 + c), v15);
+      x = m31::mac(x, r.weight(12 + c), v16);
+      x = m31::fold64(x);
+      x = m31::mac(x, r.weight(16 + c), v20);
+      x = m31::mac(x, r.weight(20 + c), v25);
+      x = m31::mac(x, r.weight(24 + 4 * c + 0), v31.a);
+      x = m31::mac(x, r.weight(24 + 4 * c + 1), v31.b);
+      x = m31::fold64(x);
+      x = m31::mac(x, r.weight(24 + 4 * c + 2), v31.c);
+      x = m31::mac(x, r.weight(24 + 4 * c + 3), v31.d);
+      x = m31::mac(x, r.weight(40 + 4 * c + 0), v36.a);
+      x = m31::mac(x, r.weight(40 + 4 * c + 1), v36.b);
+      x = m31::fold64(x);
+      x = m31::mac(x, r.weight(40 + 4 * c + 2), v36.c);
+      x = m31::mac(x, r.weight(40 + 4 * c + 3), v36.d);
+      s[c] = m31::reduce64(x);
+    }
+    return {s[0], s[1], s[2], s[3]};
   }
 
   // den_k of each relation at one row
@@ -1039,15 +1229,16 @@ struct EndOfExecutionComponent {
   static constexpr int kColumns = 7;
   static constexpr int kRelations = 1;
   static constexpr int kConstraints = 3;
+  static constexpr int kOwnWords = 40;
 
-  // sum_i w_i * C_i at one row (w_i the weights in the constant table)
+  // sum_i w_i * C_i at one row (w_i the component's weights)
   __device__ __forceinline__ static Qm composition(const Row& r) {
-    const Qm v0 = r.qcol(8);
-    const Qm v1 = r.qcol(12);
-    const Qm v2 = r.s_prev(16);
-    const Qm v3 = r.konst(64);
+    const Qm v0 = r.qcol(7);
+    const Qm v1 = r.qcol(11);
+    const Qm v2 = r.s_prev(15);
+    const Qm v3 = r.own_qm(0);
     const uint32_t v4 = r.col(2);
-    const uint32_t v5 = r.col(7);
+    const uint32_t v5 = r.is_first();
     const uint32_t v6 = 0u;
     const uint32_t v7 = m31::sub(v6, v5);
     const uint32_t v8 = r.col(0);
@@ -1056,17 +1247,30 @@ struct EndOfExecutionComponent {
     const uint32_t v11 = r.col(4);
     const uint32_t v12 = r.col(5);
     const uint32_t v13 = r.col(6);
-    const Qm v14 = qm31::qm_sub(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_add(qm31::qm_mul_m31(r.konst(32), v8), qm31::qm_mul_m31(r.konst(36), v9)), qm31::qm_mul_m31(r.konst(40), v4)), qm31::qm_mul_m31(r.konst(44), v10)), qm31::qm_mul_m31(r.konst(48), v11)), qm31::qm_mul_m31(r.konst(52), v12)), qm31::qm_mul_m31(r.konst(56), v13)), r.konst(60));
-    const Qm v15 = qm31::qm_mul(v0, v14);
+    const Qm v14 = qm31::qm_combine<7>(r.consts, 32, {v8, v9, v4, v10, v11, v12, v13}, 60);
+    const Qm v15 = qm31::qm_mul<CompositionProduct>(v0, v14);
     const Qm v16 = qm31::qm_sub(v15, qm31::qm_from_m31(v7));
     const Qm v17 = qm31::qm_sub(v1, v2);
     const Qm v18 = qm31::qm_sub(v17, v0);
-    const Qm v19 = qm31::qm_mul_m31(v3, v5);
+    const Qm v19 = qm31::qm_mul_m31<CompositionProduct>(v3, v5);
     const Qm v20 = qm31::qm_add(v18, v19);
-    Qm acc = qm31::qm_mul_m31(r.konst(68), v4);
-    acc = qm31::qm_add(acc, qm31::qm_mul(r.konst(72), v16));
-    acc = qm31::qm_add(acc, qm31::qm_mul(r.konst(76), v20));
-    return acc;
+    uint32_t s[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      uint64_t x = m31::mac(0, r.weight(0 + c), v4);
+      x = m31::mac(x, r.weight(4 + 4 * c + 0), v16.a);
+      x = m31::mac(x, r.weight(4 + 4 * c + 1), v16.b);
+      x = m31::mac(x, r.weight(4 + 4 * c + 2), v16.c);
+      x = m31::fold64(x);
+      x = m31::mac(x, r.weight(4 + 4 * c + 3), v16.d);
+      x = m31::mac(x, r.weight(20 + 4 * c + 0), v20.a);
+      x = m31::mac(x, r.weight(20 + 4 * c + 1), v20.b);
+      x = m31::mac(x, r.weight(20 + 4 * c + 2), v20.c);
+      x = m31::fold64(x);
+      x = m31::mac(x, r.weight(20 + 4 * c + 3), v20.d);
+      s[c] = m31::reduce64(x);
+    }
+    return {s[0], s[1], s[2], s[3]};
   }
 
   // den_k of each relation at one row
@@ -1092,6 +1296,34 @@ struct EndOfExecutionComponent {
     const Qm v21 = inv[0];
     const Qm v22 = qm31::qm_mul_m31(v21, v7);
     q[0] = v22;
+  }
+};
+
+// One component's body whatever the id (the probe below).
+template <class C>
+struct Only {
+  __device__ __forceinline__ static Qm composition(int, const Row& r) { return C::composition(r); }
+};
+
+// The composition launch's dispatch: component `id`'s body at one row.
+struct Components {
+  __device__ __forceinline__ static Qm composition(int id, const Row& r) {
+    switch (id) {
+      case 0: return MemoryComponent::composition(r);
+      case 1: return InstructionComponent::composition(r);
+      case 2: return ProgramComponent::composition(r);
+      case 3: return ProcessorComponent::composition(r);
+      case 4: return JumpIfNotZeroComponent::composition(r);
+      case 5: return JumpIfZeroComponent::composition(r);
+      case 6: return InputComponent::composition(r);
+      case 7: return LeftComponent::composition(r);
+      case 8: return MinusComponent::composition(r);
+      case 9: return OutputComponent::composition(r);
+      case 10: return PlusComponent::composition(r);
+      case 11: return RightComponent::composition(r);
+      case 12: return EndOfExecutionComponent::composition(r);
+    }
+    return {0u, 0u, 0u, 0u};
   }
 };
 
@@ -1121,8 +1353,8 @@ extern "C" const char* constraints_component_name(int id) {
   return "";
 }
 
-// out: columns, relations, constraints, pointer slots of a composition
-// launch, constant words of a composition launch before V_n^-1's.
+// out: columns, relations, constraints, pointer slots and own constant
+// words of a component in the composition launch.
 extern "C" int constraints_shape(int id, int* out) {
   switch (id) {
     case 0: return shape_of<MemoryComponent>(out);
@@ -1142,29 +1374,17 @@ extern "C" int constraints_shape(int id, int* out) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-#define ARGS table, n_ptrs, n_words, rot, log_size, log_blowup, offset, n, acc, accumulate, stream
-extern "C" int constraints_composition(int id, const void* table, int n_ptrs, int n_words,
-                                       const void* rot, int log_size, int log_blowup,
-                                       long long offset, long long n, void* acc, int accumulate,
-                                       void* stream) {
-  switch (id) {
-    case 0: return composition_entry<MemoryComponent>(ARGS);
-    case 1: return composition_entry<InstructionComponent>(ARGS);
-    case 2: return composition_entry<ProgramComponent>(ARGS);
-    case 3: return composition_entry<ProcessorComponent>(ARGS);
-    case 4: return composition_entry<JumpIfNotZeroComponent>(ARGS);
-    case 5: return composition_entry<JumpIfZeroComponent>(ARGS);
-    case 6: return composition_entry<InputComponent>(ARGS);
-    case 7: return composition_entry<LeftComponent>(ARGS);
-    case 8: return composition_entry<MinusComponent>(ARGS);
-    case 9: return composition_entry<OutputComponent>(ARGS);
-    case 10: return composition_entry<PlusComponent>(ARGS);
-    case 11: return composition_entry<RightComponent>(ARGS);
-    case 12: return composition_entry<EndOfExecutionComponent>(ARGS);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+extern "C" int constraints_composition(const void* table, long long blocks, void* stream) {
+  return composition_entry<Components>(table, blocks, stream);
 }
-#undef ARGS
+
+// Never launched: the composition kernel with the processor's body alone,
+// whose SASS tools/composition_limiter.py reads (a row's instructions of
+// one component, the skeleton's included).
+__global__ void __launch_bounds__(kThreads) composition_probe_processor(
+    const unsigned long long* __restrict__ table) {
+  composition_row<Only<ProcessorComponent>>(table);
+}
 
 #define ARGS table, n_ptrs, n_words, n, q, total, stream
 extern "C" int constraints_logup(int id, const void* table, int n_ptrs, int n_words,

@@ -60,6 +60,12 @@ __device__ __forceinline__ uint32_t reduce64(uint64_t x) {
   return reduce_once(static_cast<uint32_t>(y & kP) + static_cast<uint32_t>(y >> 31));
 }
 
+// reduce64's first fold alone: x < 2^64 -> a word below 2^34, the same mod
+// p. Four more products of canonical operands fit on it (2^34 + 4 (p - 1)^2
+// < 2^64), so a long sum of products folds between runs of four and reduces
+// once at its end (the composition bodies' weighted sums).
+__device__ __forceinline__ uint64_t fold64(uint64_t x) { return (x & kP) + (x >> 31); }
+
 // Product with a doubled operand t2 = 2b (b < p, so t2 < 2^32), as the
 // circle FFT keeps its twiddles: a * t2 = 2x with x = a * b, so the high
 // word is x >> 31 and the low word is (x & p) << 1, and the fold

@@ -684,7 +684,7 @@ def composition_contribution(
     [Q_0..Q_{K-1}, S]; s_prev: S rotated by -g; is_first: (N,);
     v_inv: (N,) inverse vanishing values. Returns ((4, N) int64, next
     alpha offset). The plain version of the composition kernel
-    (composition_accumulate)."""
+    (composition_evaluate)."""
     global PLAIN_CUDA_CALLS
     dev = v_inv.device
     if dev.type == "cuda":
@@ -702,46 +702,64 @@ def composition_contribution(
     return acc * m31.wide(v_inv) % P_INT, alpha_offset + n_cons
 
 
-def composition_accumulate(
-    component: Component,
-    main_cols: Dict[str, torch.Tensor],
-    inter_rows: Sequence[torch.Tensor],
-    s_rows: Sequence[torch.Tensor],
-    rotation: Optional[torch.Tensor],
-    is_first: torch.Tensor,
-    claimed_sum: tuple,
-    elements: Dict[str, LookupElements],
-    alpha: tuple,
-    alpha_offset: int,
-    log_blowup: int,
-    acc: Optional[torch.Tensor],
-    offset: int = 0,
-) -> Tuple[torch.Tensor, int]:
-    """acc += sum_i alpha^(alpha_offset+i) * C_i / V_n at storage positions
-    offset .. offset + m - 1 of the component's blown-up domain (2^(log_size
-    + log_blowup); m the rows' length: the whole domain or a shard's chunk).
+@dataclass
+class CompositionMember:
+    """One component's inputs to the composition at a segment's rows:
+    main_cols M31 (m,) rows by column name; inter_rows the 4 (m,)
+    coordinate rows of each interaction column [Q_0..Q_{K-1}, S]; s_rows
+    the 4 rows S(p - g) is read from (S over the whole domain, read at the
+    segment's rotation index, or, with no rotation, S(p - g) at the
+    segment's rows); its claimed sum; alpha_offset, the exponent of its
+    first weight (the constraints before it in the claim's order)."""
+    component: Component
+    main_cols: Dict[str, torch.Tensor]
+    inter_rows: Sequence[torch.Tensor]
+    s_rows: Sequence[torch.Tensor]
+    claimed_sum: tuple
+    alpha_offset: int
 
-    main_cols: M31 (m,) rows; inter_rows: the 4 (m,) coordinate rows of
-    each interaction column [Q_0..Q_{K-1}, S]; S(p - g) is s_rows[c] at
-    rotation[offset + t] (4 rows of S over the whole domain and the int32
-    rotation index, rotation_index) or, with rotation None, s_rows[c][t];
-    acc: (4, m) int32, updated in place, or None for a new one. Returns
-    (acc, next alpha offset). On CUDA tensors one launch of the composition
-    kernel (V_n^-1's 2^log_blowup values in its constant table); on the
-    CPU the plain composition_contribution with V_n^-1 from the domain
-    points."""
-    if is_first.is_cuda:
+
+@dataclass
+class CompositionSegment:
+    """Storage positions offset .. offset + m - 1 of the blown-up domain of
+    2^(log_size + log_blowup) positions (m the rows' length: the whole
+    domain or a shard's chunk): its components, every one of log_size, in
+    the claim's order; is_first (m,) rows; the int32 rotation index of the
+    whole domain (core/fft.py rotation_index), or None where each member's
+    s_rows are S(p - g) at the rows."""
+    log_size: int
+    members: List[CompositionMember]
+    is_first: torch.Tensor
+    rotation: Optional[torch.Tensor]
+    offset: int = 0
+
+
+def composition_evaluate(segments: Sequence[CompositionSegment],
+                         elements: Dict[str, LookupElements], alpha: tuple,
+                         log_blowup: int) -> List[torch.Tensor]:
+    """Each segment's accumulator, (4, m) int32: sum over its members of
+    sum_i alpha^(alpha_offset+i) * C_i / V_n at its positions. On CUDA rows
+    one launch of the composition kernel for every segment (all on one
+    device; V_n^-1's 2^log_blowup values a segment in its table); on the
+    CPU composition_plain a member, summed a segment."""
+    if segments and segments[0].is_first.is_cuda:
         from ..ops import constraint_kernels
 
-        return constraint_kernels.KERNELS.composition(
-            component, main_cols, inter_rows, s_rows, rotation, is_first, claimed_sum, elements,
-            alpha, alpha_offset, log_blowup, acc, offset)
-    contrib, nxt = composition_plain(component, main_cols, inter_rows, s_rows, rotation, is_first,
-                                     claimed_sum, elements, alpha, alpha_offset, log_blowup, offset)
-    if acc is None:
-        return contrib.to(torch.int32), nxt
-    acc.copy_((acc.to(torch.int64) + contrib) % P_INT)
-    return acc, nxt
+        return constraint_kernels.KERNELS.composition(segments, elements, alpha, log_blowup)
+    return [composition_segment_plain(seg, elements, alpha, log_blowup) for seg in segments]
+
+
+def composition_segment_plain(seg: CompositionSegment, elements: Dict[str, LookupElements],
+                              alpha: tuple, log_blowup: int) -> torch.Tensor:
+    """A segment's accumulator with the plain version on any device:
+    composition_plain a member, summed; (4, m) int32."""
+    total = None
+    for mem in seg.members:
+        part, _ = composition_plain(mem.component, mem.main_cols, mem.inter_rows, mem.s_rows,
+                                    seg.rotation, seg.is_first, mem.claimed_sum, elements, alpha,
+                                    mem.alpha_offset, log_blowup, seg.offset)
+        total = part if total is None else (total + part) % P_INT
+    return total.to(torch.int32)
 
 
 def composition_plain(component: Component, main_cols: Dict[str, torch.Tensor],
@@ -750,10 +768,12 @@ def composition_plain(component: Component, main_cols: Dict[str, torch.Tensor],
                       claimed_sum: tuple, elements: Dict[str, LookupElements], alpha: tuple,
                       alpha_offset: int, log_blowup: int, offset: int = 0
                       ) -> Tuple[torch.Tensor, int]:
-    """What a composition launch adds, with the plain version on any
-    device (composition_accumulate's arguments): composition_contribution
-    at V_n^-1 of the domain's points (poly.vanishing_on_domain) and S(p - g)
-    gathered; ((4, m) int64, next alpha offset)."""
+    """One component's part of a composition segment (CompositionMember's
+    and CompositionSegment's fields), with the plain version on any device:
+    composition_contribution at V_n^-1 of the domain's points
+    (poly.vanishing_on_domain) and S(p - g) gathered (s_rows at
+    rotation[offset + t], or with rotation None s_rows[t]); ((4, m) int64,
+    next alpha offset)."""
     from ..core import poly
 
     n = component.log_size

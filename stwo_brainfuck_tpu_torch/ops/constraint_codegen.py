@@ -20,16 +20,28 @@ what this module emits).
 The launch's tables, as the bodies read them (``ops/constraint_kernels.py``
 packs them):
 
-- pointers: main column c at slot c, is_first at slot C (the interaction
-  launch has none: is_first is t == 0); for composition also interaction
-  column k's coordinate rows at C + 1 + 4k .. + 3 and the rows S(p - g) is
-  read from at C + 1 + 4 (K + 1) .. + 3;
-- constant words: the lookup elements, a set after another in
-  ``ELEMENT_ORDER`` (alpha^0 .. alpha^(size - 1), then z; 4 words each),
-  then the claimed sum at ``CLAIMED_WORD``, then the constraint weights
-  alpha^(offset + i) at ``WEIGHTS_WORD`` + 4 i, then the 2^log_blowup
-  words of V_n^-1 (``core/poly.py`` ``vanishing_inverse_blocks``)
-  (composition only).
+- pointers, a component's own: main column c at slot c (the logup launch
+  has is_first at slot C; the interaction launch has none: is_first is t
+  == 0); for composition interaction column k's coordinate rows at C + 4k
+  .. + 3 and the rows S(p - g) is read from at C + 4 (K + 1) .. + 3
+  (is_first is the launch segment's, read once a row by the skeleton);
+- constant words, shared: the lookup elements, a set after another in
+  ``ELEMENT_ORDER`` (alpha^0 .. alpha^(size - 1), then z; 4 words each);
+- a component's own words (composition only): the claimed sum at
+  ``OWN_CLAIMED``, then from ``OWN_WEIGHTS`` each constraint's weight
+  alpha^(offset + i) (``weight_offsets``): an M31-valued constraint's 4
+  coordinates, a QM31-valued one's 4 x 4 matrix of the product by it
+  (row k: coordinate k of w e_j, j = 0 .. 3), so that w C is a sum of
+  products of words.
+
+The composition body sums every constraint's weighted value as one
+64-bit sum of products a coordinate (``m31::mac``: the weight's
+coordinate times an M31-valued constraint, a matrix row times a
+QM31-valued one's coordinates), folded below 2^34 (``m31::fold64``)
+after at most ``MAC_RUN`` products and reduced once (``m31::reduce64``)
+at its end, and each LogUp denominator as ``qm31::qm_combine``, as the
+interaction bodies do; its QM31 products take the skeleton's product
+policy ``CompositionProduct``.
 """
 
 from __future__ import annotations
@@ -57,14 +69,32 @@ def element_words() -> Dict[str, Tuple[int, int]]:
 
 
 ELEMENT_WORDS = sum(4 * (ELEMENT_SIZES[k] + 1) for k in ELEMENT_ORDER)
-CLAIMED_WORD = ELEMENT_WORDS
-WEIGHTS_WORD = CLAIMED_WORD + 4
+OWN_CLAIMED = 0  # a component's own composition words: the claimed sum,
+OWN_WEIGHTS = 4  # then its weights
+MAC_RUN = 4      # products of canonical operands a 64-bit sum takes between folds
 
 
 def composition_slots(program: ConstraintProgram) -> int:
-    """Pointers a composition launch takes: C columns, is_first, 4 rows an
-    interaction column, 4 rows of S(p - g)."""
-    return len(program.columns) + 1 + 4 * (len(program.relations) + 1) + 4
+    """Pointers a component takes in the composition launch: C columns, 4
+    rows an interaction column, 4 rows of S(p - g)."""
+    return len(program.columns) + 4 * (len(program.relations) + 1) + 4
+
+
+def weight_offsets(program: ConstraintProgram) -> List[int]:
+    """Each constraint's first weight word after OWN_WEIGHTS: 4 words an
+    M31-valued constraint (its weight's coordinates), 16 a QM31-valued one
+    (the 4 x 4 matrix of the product by its weight, row-major)."""
+    out, w = [], 0
+    for c in program.constraints:
+        out.append(w)
+        w += 16 if program.qm[c] else 4
+    return out
+
+
+def own_words(program: ConstraintProgram) -> int:
+    """A component's own constant words in the composition launch: the
+    claimed sum and its constraints' weight words."""
+    return OWN_WEIGHTS + sum(16 if program.qm[c] else 4 for c in program.constraints)
 
 
 def logup_slots(program: ConstraintProgram) -> int:
@@ -83,62 +113,78 @@ def _var(v: int) -> str:
     return f"v{v}"
 
 
-def _expr(program: ConstraintProgram, v: int, row_first: bool = False) -> str:
-    """The C++ expression of value v's op (row_first: as the interaction
-    bodies read it, is_first the row type's own and a denominator one
-    qm31::qm_combine)."""
+def _expr(program: ConstraintProgram, v: int, composition: bool = False) -> str:
+    """The C++ expression of value v's op (composition: as the composition
+    body reads it, its QM31 products with the skeleton's product policy)."""
     op = program.ops[v]
     kind = op[0]
     n_cols = len(program.columns)
+    policy = "<CompositionProduct>" if composition else ""
     if kind == "col":
         return f"r.col({op[1]})"
     if kind == "is_first":
-        return "r.is_first()" if row_first else f"r.col({n_cols})"
+        return "r.is_first()"
     if kind == "inter":
-        return f"r.qcol({n_cols + 1 + 4 * op[1]})"
+        return f"r.qcol({n_cols + 4 * op[1]})"
     if kind == "s_prev":
-        return f"r.s_prev({n_cols + 1 + 4 * (len(program.relations) + 1)})"
+        return f"r.s_prev({n_cols + 4 * (len(program.relations) + 1)})"
     if kind == "claimed":
-        return f"r.konst({CLAIMED_WORD})"
+        return f"r.own_qm({OWN_CLAIMED})"
     if kind == "const":
         return f"{op[1]}u"
     if kind == "inv":
         return f"qm31::qm_inv({_var(op[1])})"
-    if kind == "combine" and row_first:
+    if kind == "combine":
         alpha, z = element_words()[op[1]]
         vals = ", ".join(_var(x) for x in op[2])
         return f"qm31::qm_combine<{len(op[2])}>(r.consts, {alpha}, {{{vals}}}, {z})"
-    if kind == "combine":
-        alpha, z = element_words()[op[1]]
-        acc = None
-        for j, x in enumerate(op[2]):
-            term = f"qm31::qm_mul_m31(r.konst({alpha + 4 * j}), {_var(x)})"
-            acc = term if acc is None else f"qm31::qm_add({acc}, {term})"
-        return f"qm31::qm_sub({acc}, r.konst({z}))"
     a, b = op[1], op[2]
     qa, qb = program.qm[a], program.qm[b]
     if not (qa or qb):
         return f"m31::{kind}({_var(a)}, {_var(b)})"
     if kind == "mul":
         if qa and qb:
-            return f"qm31::qm_mul({_var(a)}, {_var(b)})"
+            return f"qm31::qm_mul{policy}({_var(a)}, {_var(b)})"
         q, s = (a, b) if qa else (b, a)
-        return f"qm31::qm_mul_m31({_var(q)}, {_var(s)})"
+        return f"qm31::qm_mul_m31{policy}({_var(q)}, {_var(s)})"
     left = _var(a) if qa else f"qm31::qm_from_m31({_var(a)})"
     right = _var(b) if qb else f"qm31::qm_from_m31({_var(b)})"
     return f"qm31::qm_{kind}({left}, {right})"
 
 
 def _statements(program: ConstraintProgram, outputs, given: Dict[int, str] = None,
-                row_first: bool = False) -> List[str]:
+                composition: bool = False) -> List[str]:
     """One statement a live op of `outputs`; the ops in `given` take the
     expression given."""
     given = given or {}
     lines = []
     for v in program.live(outputs, list(given)):
         ty = "Qm" if program.qm[v] else "uint32_t"
-        expr = given[v] if v in given else _expr(program, v, row_first)
+        expr = given[v] if v in given else _expr(program, v, composition)
         lines.append(f"    const {ty} {_var(v)} = {expr};")
+    return lines
+
+
+def _weighted_sum(program: ConstraintProgram) -> List[str]:
+    """sum_i w_i C_i as one 64-bit sum of products a coordinate c
+    (m31::mac over the weight words; m31::fold64 after every MAC_RUN
+    products, the folded word, below 2^34, the next run's addend; one
+    m31::reduce64 at the end): an M31-valued C_i adds w_i[c] C_i, a
+    QM31-valued one row c of the matrix of the product by w_i times C_i's
+    four coordinates."""
+    terms = []
+    for c, off in zip(program.constraints, weight_offsets(program)):
+        if program.qm[c]:
+            terms += [(f"{off} + 4 * c + {j}", f"{_var(c)}.{'abcd'[j]}") for j in range(4)]
+        else:
+            terms.append((f"{off} + c", _var(c)))
+    lines = ["    uint32_t s[4];", "#pragma unroll", "    for (int c = 0; c < 4; ++c) {"]
+    for j, (word, value) in enumerate(terms):
+        if j and j % MAC_RUN == 0:
+            lines.append("      x = m31::fold64(x);")
+        lhs = "uint64_t x = m31::mac(0, " if j == 0 else "x = m31::mac(x, "
+        lines.append(f"      {lhs}r.weight({word}), {value});")
+    lines += ["      s[c] = m31::reduce64(x);", "    }", "    return {s[0], s[1], s[2], s[3]};"]
     return lines
 
 
@@ -153,37 +199,32 @@ def emit_component(cls) -> str:
         f"  static constexpr int kColumns = {len(program.columns)};",
         f"  static constexpr int kRelations = {len(program.relations)};",
         f"  static constexpr int kConstraints = {len(program.constraints)};",
+        f"  static constexpr int kOwnWords = {own_words(program)};",
         "",
-        "  // sum_i w_i * C_i at one row (w_i the weights in the constant table)",
+        "  // sum_i w_i * C_i at one row (w_i the component's weights)",
         "  __device__ __forceinline__ static Qm composition(const Row& r) {",
-        *_statements(program, program.constraints),
+        *_statements(program, program.constraints, composition=True),
+        *_weighted_sum(program),
     ]
-    for i, c in enumerate(program.constraints):
-        w = f"r.konst({WEIGHTS_WORD + 4 * i})"
-        term = f"qm31::qm_mul({w}, {_var(c)})" if program.qm[c] else \
-            f"qm31::qm_mul_m31({w}, {_var(c)})"
-        lines.append(f"    {'Qm acc = ' if i == 0 else 'acc = qm31::qm_add(acc, '}{term}"
-                     f"{')' if i else ''};")
     inv = program.inversions()
     dens = [d for d, _ in inv]
     inverses = {}
     for k, (_, i) in enumerate(inv):
         inverses.setdefault(i, f"inv[{k}]")
     lines += [
-        "    return acc;",
         "  }",
         "",
         "  // den_k of each relation at one row",
         "  template <class R>",
         "  __device__ __forceinline__ static void denominators(const R& r, Qm* den) {",
-        *_statements(program, dens, row_first=True),
+        *_statements(program, dens),
         *[f"    den[{k}] = {_var(d)};" for k, d in enumerate(dens)],
         "  }",
         "",
         "  // Q_k = num_k * inv[k] of each relation at one row, inv[k] = den_k^-1",
         "  template <class R>",
         "  __device__ __forceinline__ static void fractions(const R& r, const Qm* inv, Qm* q) {",
-        *_statements(program, program.fractions, inverses, row_first=True),
+        *_statements(program, program.fractions, inverses),
         *[f"    q[{k}] = {_var(f)};" for k, f in enumerate(program.fractions)],
         "  }",
         "};",
@@ -199,12 +240,13 @@ _HEAD = f"""\
 //
 // The constraint kernels of the 13 components for Hopper (sm_90a): the
 // bodies below, one struct a component, plug into the hand-written
-// skeletons csrc/constraint_kernel.cuh (composition: one thread a row, the
-// loads, the vanishing inverse, the weighted accumulation, the stores;
-// logup and interaction: the batched inversion between the denominators
-// and the fractions) and csrc/logup_scan.cuh (interaction: the coset
-// scan). Each body is the component's recorded constraint program
-// (framework/component.py ConstraintProgram), one statement an op.
+// skeletons csrc/constraint_kernel.cuh (composition: one launch a prove,
+// a thread a row of one segment, every component of the segment summed in
+// registers, the vanishing inverse, the stores; logup and interaction: the
+// batched inversion between the denominators and the fractions) and
+// csrc/logup_scan.cuh (interaction: the coset scan). Each body is the
+// component's recorded constraint program (framework/component.py
+// ConstraintProgram), one statement an op.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -224,7 +266,7 @@ def emit() -> str:
     for cls in COMPONENT_CLASSES:
         parts.append(emit_component(cls) + "\n")
     names = [c.__name__ for c in COMPONENT_CLASSES]
-    cases_c = "\n".join(f"    case {i}: return composition_entry<{n}>(ARGS);"
+    cases_c = "\n".join(f"      case {i}: return {n}::composition(r);"
                         for i, n in enumerate(names))
     cases_l = "\n".join(f"    case {i}: return logup_entry<{n}>(ARGS);"
                         for i, n in enumerate(names))
@@ -235,6 +277,22 @@ def emit() -> str:
     shape = "\n".join(f"    case {i}: return shape_of<{n}>(out);" for i, n in enumerate(names))
     label = "\n".join(f'    case {i}: return "{c.name}";' for i, c in enumerate(COMPONENT_CLASSES))
     parts.append(f"""\
+// One component's body whatever the id (the probe below).
+template <class C>
+struct Only {{
+  __device__ __forceinline__ static Qm composition(int, const Row& r) {{ return C::composition(r); }}
+}};
+
+// The composition launch's dispatch: component `id`'s body at one row.
+struct Components {{
+  __device__ __forceinline__ static Qm composition(int id, const Row& r) {{
+    switch (id) {{
+{cases_c}
+    }}
+    return {{0u, 0u, 0u, 0u}};
+  }}
+}};
+
 }}  // namespace
 }}  // namespace constraints
 
@@ -249,8 +307,8 @@ extern "C" const char* constraints_component_name(int id) {{
   return "";
 }}
 
-// out: columns, relations, constraints, pointer slots of a composition
-// launch, constant words of a composition launch before V_n^-1's.
+// out: columns, relations, constraints, pointer slots and own constant
+// words of a component in the composition launch.
 extern "C" int constraints_shape(int id, int* out) {{
   switch (id) {{
 {shape}
@@ -258,17 +316,17 @@ extern "C" int constraints_shape(int id, int* out) {{
   return static_cast<int>(cudaErrorInvalidValue);
 }}
 
-#define ARGS table, n_ptrs, n_words, rot, log_size, log_blowup, offset, n, acc, accumulate, stream
-extern "C" int constraints_composition(int id, const void* table, int n_ptrs, int n_words,
-                                       const void* rot, int log_size, int log_blowup,
-                                       long long offset, long long n, void* acc, int accumulate,
-                                       void* stream) {{
-  switch (id) {{
-{cases_c}
-  }}
-  return static_cast<int>(cudaErrorInvalidValue);
+extern "C" int constraints_composition(const void* table, long long blocks, void* stream) {{
+  return composition_entry<Components>(table, blocks, stream);
 }}
-#undef ARGS
+
+// Never launched: the composition kernel with the processor's body alone,
+// whose SASS tools/composition_limiter.py reads (a row's instructions of
+// one component, the skeleton's included).
+__global__ void __launch_bounds__(kThreads) composition_probe_processor(
+    const unsigned long long* __restrict__ table) {{
+  composition_row<Only<ProcessorComponent>>(table);
+}}
 
 #define ARGS table, n_ptrs, n_words, n, q, total, stream
 extern "C" int constraints_logup(int id, const void* table, int n_ptrs, int n_words,

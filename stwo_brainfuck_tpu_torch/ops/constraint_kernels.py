@@ -1,7 +1,7 @@
 """The constraint kernels: the hand-written Hopper kernels
 (``csrc/constraint_kernel.cuh`` and ``csrc/logup_scan.cuh`` with the bodies
 ``ops/constraint_codegen.py`` emits into ``csrc/constraints.cu``) behind
-``framework.component.composition_accumulate``,
+``framework.component.composition_evaluate``,
 ``build_interaction_trace_async`` and ``logup_fractions`` on CUDA tensors.
 
 Counterparts of ``stwo_brainfuck_tpu/framework/component.py``'s
@@ -11,12 +11,17 @@ prefix sum in coset order and the claimed sum); bit for bit the plain
 versions ``composition_contribution``, ``interaction_plain`` and
 ``logup_fractions_plain`` (the Expr path).
 
-``KERNELS.composition(...)``: acc (4, m) int32 (+)= the component's weighted
-constraint sum over V_n at storage positions offset .. offset + m - 1 of its
-blown-up domain, in one launch; V_n^-1 takes 2^log_blowup values there
-(``core/poly.py`` ``vanishing_inverse_blocks``), which ride in the launch's
-constant table, and S(p - g) is read through the int32 rotation index
-(``core/fft.py`` ``rotation_index``) or from rows the kernel is given.
+``KERNELS.composition(segments, elements, alpha, log_blowup)``: every
+segment's (4, m) int32 accumulator (``framework.CompositionSegment``: the
+storage positions offset .. offset + m - 1 of one size's blown-up domain
+and its components) written in one launch a prove: each component's
+weighted constraint sum, summed over the segment's components, over V_n;
+V_n^-1 takes 2^log_blowup values there (``core/poly.py``
+``vanishing_inverse_blocks``), which ride in the launch's table, and S(p -
+g) is read through the int32 rotation index (``core/fft.py``
+``rotation_index``) or from rows the kernel is given. ``plan_composition``
+lays out the table (one alpha ladder gives every component's weights);
+``emulate_composition`` replays a launch from it.
 ``KERNELS.interaction(...)``: ((K, 4, N) int32 Q_k, (4, N) int32 S, (4,)
 int32 claimed sum) of a whole component in one launch: the coset scan of
 ``csrc/logup_scan.cuh`` with the rows' sums computed in the tile (one
@@ -32,10 +37,10 @@ coset launches on a device share one head, a global of the library (zero
 when it loads, left zero by each launch's last CTA: no fill runs before a
 launch; ``head`` reads it).
 
-Each launch's column pointers and constants (the lookup elements, the
-claimed sum, the weights alpha^(offset + i), V_n^-1) go to the card as one
-small table from a reused pinned buffer (``ops/staging.py``) with one
-non-blocking copy. The wrapper checks
+Each launch's column pointers and constants (the lookup elements and, for
+composition, the segments, each component's claimed sum and weights
+alpha^(offset + i), V_n^-1) go to the card as one small table from a
+reused pinned buffer (``ops/staging.py``) with one non-blocking copy. The wrapper checks
 what it is given (CUDA, int32, 1-D rows with unit stride, one length, one
 device, the positions inside the domain) before it loads the library, and
 raises on what the kernel does not take; the C entry returns
@@ -57,9 +62,10 @@ from ..core.m31 import P_INT
 from ..framework.component import LookupElements, constraint_program, emulate
 from . import nvcc
 from .staging import PinnedRing
-from .constraint_codegen import (ELEMENT_ORDER, ELEMENT_WORDS, M31_INV, QM_INV, WEIGHTS_WORD,
-                                 batch_inv_products, composition_slots, interaction_slots,
-                                 logup_slots, op_work)
+from .constraint_codegen import (ELEMENT_ORDER, ELEMENT_WORDS, M31_INV, OWN_CLAIMED, OWN_WEIGHTS,
+                                 QM_INV, batch_inv_products, composition_slots,
+                                 interaction_slots, logup_slots, op_work, own_words,
+                                 weight_offsets)
 
 FAMILIES = ("composition", "logup", "scan", "interaction")
 SCAN_WARPS = 8
@@ -70,7 +76,14 @@ SCAN_VEC = 256  # a coset tile's vector (words)
 BATCH_ROWS = 4  # constraints::kBatchRows: rows whose norms one m31_inv inverts
 RESIDENT_TILES = 264  # the emulations' default: an H100's 132 SMs at two CTAs each
 MAX_EVAL_LOG = 30  # qm31::kMaxLogSize: the largest canonic domain the kernel takes
+THREADS = 256  # constraints::kThreads
 COMPONENT_IDS = {cls.name: i for i, cls in enumerate(COMPONENT_CLASSES)}
+# the composition launch's table (csrc/constraint_kernel.cuh): 8-byte words
+COMP_HEADER_WORDS = 4    # kCompHeaderWords: segments, blocks, members, the constants' word
+SEGMENT_WORDS = 10       # kSegmentWords
+MEMBER_WORDS = 3         # kMemberWords
+SEGMENT_FIELDS = ("first_block", "rows", "offset", "log_size", "rot", "acc", "is_first",
+                  "first_member", "members", "v_inv")
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -80,8 +93,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.constraints_component_name.restype = ctypes.c_char_p
     lib.constraints_shape.argtypes = [i32, ptr]
     lib.constraints_shape.restype = i32
-    lib.constraints_composition.argtypes = [i32, ptr, i32, i32, ptr, i32, i32, i64, i64, ptr,
-                                            i32, ptr]
+    lib.constraints_composition.argtypes = [ptr, i64, ptr]
     lib.constraints_composition.restype = i32
     lib.constraints_logup.argtypes = [i32, ptr, i32, i32, i64, ptr, ptr, ptr]
     lib.constraints_logup.restype = i32
@@ -103,11 +115,11 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 
 def shape_of(cls) -> Tuple[int, int, int, int, int]:
-    """(columns, relations, constraints, composition pointer slots,
-    composition constant words before V_n^-1's) of a component class."""
+    """(columns, relations, constraints, pointer slots and own constant
+    words in the composition launch) of a component class."""
     p = constraint_program(cls)
     return (len(p.columns), len(p.relations), len(p.constraints), composition_slots(p),
-            WEIGHTS_WORD + 4 * len(p.constraints))
+            own_words(p))
 
 
 # ---------------------------------------------------------------------------
@@ -118,11 +130,9 @@ def _words(v) -> list:
     return [int(c) % P_INT for c in v]
 
 
-def pack_constants(elements: Dict[str, LookupElements], claimed_sum=None,
-                   weights: Sequence[tuple] = (), v_inv: Sequence[int] = ()) -> np.ndarray:
-    """The constant words of a launch (uint32): the lookup elements in
-    ELEMENT_ORDER (alpha^0 .. alpha^(size - 1), z), then for composition
-    the claimed sum, the weights and V_n^-1's values."""
+def pack_constants(elements: Dict[str, LookupElements]) -> np.ndarray:
+    """The lookup elements' constant words (uint32) in ELEMENT_ORDER:
+    alpha^0 .. alpha^(size - 1), then z."""
     words = []
     for name in ELEMENT_ORDER:
         els = elements[name]
@@ -130,17 +140,25 @@ def pack_constants(elements: Dict[str, LookupElements], claimed_sum=None,
             words += _words(a)
         words += _words(els.z)
     assert len(words) == ELEMENT_WORDS
-    if claimed_sum is not None:
-        words += _words(claimed_sum)
-        assert len(words) == WEIGHTS_WORD
-        for w in weights:
-            words += _words(w)
-        words += _words(v_inv)
     return np.array(words, np.uint32)
 
 
+def weight_words(w: tuple, qm: bool) -> list:
+    """A constraint's weight words in the composition launch: for an
+    M31-valued constraint the weight's 4 coordinates; for a QM31-valued one
+    the 4 x 4 matrix of the product by w = (a + b i) + (c + d i) u,
+    row-major, so that (w x)[k] = sum_j M[k][j] x[j]: with u^2 = 2 + i,
+    rows (a, -b, 2c - d, -c - 2d), (b, a, c + 2d, 2c - d), (c, -d, a, -b),
+    (d, c, b, a) mod p."""
+    if not qm:
+        return _words(w)
+    a, b, c, d = (int(v) % P_INT for v in w)
+    return [v % P_INT for v in (a, -b, 2 * c - d, -c - 2 * d, b, a, c + 2 * d, 2 * c - d,
+                                c, -d, a, -b, d, c, b, a)]
+
+
 def weights(alpha: tuple, alpha_offset: int, n: int) -> list:
-    """alpha^(alpha_offset + i), i < n (host QM31)."""
+    """alpha^(alpha_offset + i), i < n (host QM31), one product a power."""
     first = qm31.h_pow(alpha, alpha_offset)
     out = [first]
     for _ in range(n - 1):
@@ -168,38 +186,138 @@ def pack_table(pointers: Sequence[int], words: np.ndarray) -> np.ndarray:
     return np.concatenate([np.array(pointers, np.uint64).view(np.uint32), words])
 
 
-def emulate_composition(component, main_cols: Dict[str, torch.Tensor],
-                        inter_rows: Sequence[torch.Tensor], s_rows: Sequence[torch.Tensor],
-                        rotation: Optional[torch.Tensor], is_first: torch.Tensor,
-                        claimed_sum: tuple, elements: Dict[str, LookupElements], alpha: tuple,
-                        alpha_offset: int, log_blowup: int, acc: Optional[torch.Tensor],
-                        offset: int = 0) -> Tuple[torch.Tensor, int]:
-    """What one composition launch computes, on any device: the program's
-    ops (framework.component.emulate), the weights and V_n^-1's values of
-    the constant table (V_n^-1 read at position >> log_size) and the
-    accumulation;
-    ((4, m) int32, next alpha offset). acc is not changed."""
-    program = constraint_program(type(component))
-    m = is_first.shape[0]
-    dev = is_first.device
-    s_prev = torch.stack(list(s_rows))
-    if rotation is not None:
-        s_prev = s_prev[:, rotation[offset:offset + m].to(torch.int64)]
-    vals = emulate(program, {
-        "cols": [main_cols[c] for c in component.columns], "is_first": is_first,
-        "inter": [list(inter_rows[4 * k:4 * k + 4]) for k in range(len(inter_rows) // 4)],
-        "s_prev": s_prev, "claimed": claimed_sum, "elements": elements}, program.constraints)
-    total = torch.zeros((4, m), dtype=torch.int64, device=dev)
-    for w, c in zip(weights(alpha, alpha_offset, len(program.constraints)), program.constraints):
-        wq = qm31.const(w, dev)
-        total = (total + (qm31.mul(wq, vals[c]) if program.qm[c] else wq * vals[c] % P_INT)) % P_INT
-    pos = torch.arange(offset, offset + m, dtype=torch.int64, device=dev)
-    v_inv = torch.tensor(poly.vanishing_inverse_blocks(component.log_size, log_blowup),
-                         dtype=torch.int64, device=dev)
-    total = total * v_inv[pos >> component.log_size] % P_INT
-    if acc is not None:
-        total = (total + acc.to(torch.int64)) % P_INT
-    return total.to(torch.int32), alpha_offset + len(program.constraints)
+def plan_composition(segments, elements: Dict[str, LookupElements], alpha: tuple,
+                     log_blowup: int, outputs: Sequence[int] = ()) -> Tuple[np.ndarray, int]:
+    """The composition launch's table as uint32 words, and its blocks (of
+    THREADS rows of one segment).
+
+    8-byte words: the header (segments, blocks, components, the word the
+    constants start at), a segment's words each (first block, rows,
+    offset, log_size, rotation index pointer or 0, accumulator pointer
+    (`outputs`, 0 if not given), is_first pointer, first component, count,
+    the uint32 word of its V_n^-1 values), a component's words each (its
+    index in COMPONENT_CLASSES, its first pointer's 8-byte word, its own
+    constant words' first word), the column pointers (a component's main
+    columns, interaction rows, S rows: composition_slots); then the uint32
+    constants: the lookup elements, a component's claimed sum and weights
+    (one alpha ladder from alpha^0 to the largest exponent; weight_words a
+    constraint), a segment's 2^log_blowup words of V_n^-1 (padded to an
+    even count)."""
+    members = [m for seg in segments for m in seg.members]
+    top = max(m.alpha_offset + len(constraint_program(type(m.component)).constraints)
+              for m in members)
+    ladder = weights(alpha, 0, top)
+    n_words = (COMP_HEADER_WORDS + SEGMENT_WORDS * len(segments) + MEMBER_WORDS * len(members)
+               + sum(composition_slots(constraint_program(type(m.component))) for m in members))
+    head = np.zeros(n_words, np.uint64)
+    consts = [pack_constants(elements)]
+    cwords = ELEMENT_WORDS
+    ptr = COMP_HEADER_WORDS + SEGMENT_WORDS * len(segments) + MEMBER_WORDS * len(members)
+    block = j = 0
+    for s, seg in enumerate(segments):
+        rows = int(seg.is_first.shape[0])
+        e = COMP_HEADER_WORDS + SEGMENT_WORDS * s
+        first_member = j
+        for mem in seg.members:
+            program = constraint_program(type(mem.component))
+            w = ladder[mem.alpha_offset:mem.alpha_offset + len(program.constraints)]
+            own = np.array(_words(mem.claimed_sum) + [
+                v for q, c in zip(w, program.constraints) for v in weight_words(q, program.qm[c])],
+                np.uint32)
+            k = COMP_HEADER_WORDS + SEGMENT_WORDS * len(segments) + MEMBER_WORDS * j
+            head[k:k + MEMBER_WORDS] = (COMPONENT_IDS[mem.component.name], ptr, cwords)
+            rows_of = _main_rows(mem.component, mem.main_cols) + list(mem.inter_rows) + \
+                list(mem.s_rows)
+            head[ptr:ptr + len(rows_of)] = [r.data_ptr() for r in rows_of]
+            ptr += len(rows_of)
+            consts.append(own)
+            cwords += own.size
+            j += 1
+        v_inv = np.array(poly.vanishing_inverse_blocks(seg.log_size, log_blowup), np.uint32)
+        head[e:e + SEGMENT_WORDS] = (
+            block, rows, seg.offset, seg.log_size,
+            0 if seg.rotation is None else seg.rotation.data_ptr(),
+            outputs[s] if outputs else 0, seg.is_first.data_ptr(), first_member,
+            len(seg.members), cwords)
+        consts.append(v_inv)
+        cwords += v_inv.size
+        block += -(-rows // THREADS)
+    if cwords % 2:
+        consts.append(np.zeros(1, np.uint32))
+    head[:COMP_HEADER_WORDS] = (len(segments), block, len(members), n_words)
+    return np.concatenate([head.view(np.uint32), *consts]), block
+
+
+def emulate_composition(segments, elements: Dict[str, LookupElements], alpha: tuple,
+                        log_blowup: int) -> list:
+    """What one composition launch writes, on the segments' device, read
+    from its table (plan_composition): the flat grid's blocks a segment,
+    then at each row of a segment each component's program (its pointers
+    resolved to the tensors given, framework.component.emulate), its
+    weighted sum with the claimed sum and weights of the table, the
+    segment's components summed and multiplied by the table's V_n^-1 at
+    position >> log_size; a (4, m) int32 tensor a segment."""
+    words, blocks = plan_composition(segments, elements, alpha, log_blowup)
+    head = words.view(np.uint64).astype(np.int64)  # the 8-byte words (pointers below 2^63)
+    n_seg, n_blocks, _, cword = (int(v) for v in head[:COMP_HEADER_WORDS])
+    consts = words[2 * cword:].astype(np.int64)
+    assert n_blocks == blocks and (consts[:ELEMENT_WORDS] == pack_constants(elements)).all()
+    tensors: Dict[int, torch.Tensor] = {}
+    for seg in segments:
+        for t in [seg.is_first, seg.rotation] + [
+                r for m in seg.members for r in [*m.main_cols.values(), *m.inter_rows,
+                                                  *m.s_rows]]:
+            if t is not None and t.numel() > tensors.get(t.data_ptr(), t[:0]).numel():
+                tensors[t.data_ptr()] = t
+    seg_words = head[COMP_HEADER_WORDS:COMP_HEADER_WORDS + SEGMENT_WORDS * n_seg]
+    fields = [dict(zip(SEGMENT_FIELDS, (int(v) for v in seg_words[SEGMENT_WORDS * s:
+                                                                  SEGMENT_WORDS * (s + 1)])))
+              for s in range(n_seg)]
+    # the grid: block b runs the last segment whose first block is <= b
+    firsts = np.array([f["first_block"] for f in fields])
+    owner = np.searchsorted(firsts, np.arange(n_blocks), side="right") - 1
+    out = []
+    for s, f in enumerate(fields):
+        rows = f["rows"]
+        assert (owner == s).sum() == -(-rows // THREADS)
+        dev = tensors[f["is_first"]].device
+        t = torch.arange(rows, dtype=torch.int64, device=dev)
+        pos = f["offset"] + t
+        if f["rot"]:
+            s_row = tensors[f["rot"]].to(torch.int64)[pos]
+        else:
+            s_row = t
+        total = torch.zeros((4, rows), dtype=torch.int64, device=dev)
+        for j in range(f["first_member"], f["first_member"] + f["members"]):
+            k = COMP_HEADER_WORDS + SEGMENT_WORDS * n_seg + MEMBER_WORDS * j
+            cid, ptr, own = (int(v) for v in head[k:k + MEMBER_WORDS])
+            cls = COMPONENT_CLASSES[cid]
+            program = constraint_program(cls)
+            n_cols, n_inter = len(program.columns), 4 * (len(program.relations) + 1)
+            ptrs = [int(v) for v in head[ptr:ptr + composition_slots(program)]]
+            cols = [tensors[q][:rows] for q in ptrs[:n_cols]]
+            inter = [tensors[q][:rows] for q in ptrs[n_cols:n_cols + n_inter]]
+            s_prev = torch.stack([tensors[q].to(torch.int64)[s_row] for q in ptrs[-4:]])
+            claimed = tuple(int(v) for v in consts[own + OWN_CLAIMED:own + OWN_CLAIMED + 4])
+            vals = emulate(program, {
+                "cols": cols, "is_first": tensors[f["is_first"]][:rows],
+                "inter": [inter[4 * c:4 * c + 4] for c in range(n_inter // 4)],
+                "s_prev": s_prev, "claimed": claimed, "elements": elements},
+                program.constraints)
+            # each weight's words: 4 coordinates, or the product's 4 x 4 matrix
+            for c, off in zip(program.constraints, weight_offsets(program)):
+                at = own + OWN_WEIGHTS + off
+                if program.qm[c]:
+                    mat = torch.tensor(consts[at:at + 16], dtype=torch.int64, device=dev)
+                    term = (mat.reshape(4, 4, 1) * vals[c][None] % P_INT).sum(1) % P_INT
+                else:
+                    wq = torch.tensor(consts[at:at + 4], dtype=torch.int64, device=dev)
+                    term = wq.reshape(4, 1) * vals[c] % P_INT
+                total = (total + term) % P_INT
+        v_inv = torch.tensor(consts[f["v_inv"]:f["v_inv"] + (1 << log_blowup)],
+                             dtype=torch.int64, device=dev)
+        out.append((total * v_inv[pos >> f["log_size"]] % P_INT).to(torch.int32))
+    return out
 
 
 def emulate_logup(component, main_cols: Dict[str, torch.Tensor], is_first: torch.Tensor,
@@ -442,6 +560,54 @@ def _main_rows(component, main_cols: Dict[str, torch.Tensor]) -> list:
     return [main_cols[c] for c in component.columns]
 
 
+def _check_segments(segments, log_blowup: int) -> torch.device:
+    """Raise unless every segment's rows are int32 vectors of its length on
+    one device, its components of its log_size with their interaction and S
+    rows, its positions inside a domain the kernel takes, and every 32-bit
+    index of the launch in range; returns the device."""
+    if not segments:
+        raise ValueError("composition: no segments")
+    dev, blocks = None, 0
+    for seg in segments:
+        n = seg.log_size
+        what = f"composition segment 2^{n} at {seg.offset}"
+        if not seg.members:
+            raise ValueError(f"{what}: no components")
+        rows = [seg.is_first]
+        for mem in seg.members:
+            program = constraint_program(type(mem.component))
+            if mem.component.log_size != n:
+                raise ValueError(f"{what}: {mem.component.name} of log_size "
+                                 f"{mem.component.log_size}")
+            n_inter = 4 * (len(program.relations) + 1)
+            if len(mem.inter_rows) != n_inter or len(mem.s_rows) != 4:
+                raise ValueError(f"{what}: {mem.component.name} has {len(mem.inter_rows)} "
+                                 f"interaction rows and {len(mem.s_rows)} S rows, expected "
+                                 f"{n_inter} and 4")
+            rows += _main_rows(mem.component, mem.main_cols) + list(mem.inter_rows)
+        d, m = _check_rows(rows, what)
+        eval_log = n + log_blowup
+        if (n < 1 or log_blowup < 0 or eval_log > MAX_EVAL_LOG or seg.offset < 0
+                or seg.offset + m > 1 << eval_log):
+            raise ValueError(f"{what}: positions {seg.offset} .. {seg.offset + m - 1} of a "
+                             f"domain of 2^{eval_log}")
+        s_rows = [r for mem in seg.members for r in mem.s_rows]
+        if seg.rotation is None:
+            _check_rows(s_rows, f"{what}: S(p - g) rows", m)
+        else:
+            _check_rows([*s_rows, seg.rotation], f"{what}: S rows and rotation index",
+                        1 << eval_log)
+            if seg.rotation.device != d:
+                raise ValueError(f"{what}: S rows on {seg.rotation.device}, the columns on {d}")
+        if dev is not None and d != dev:
+            raise ValueError(f"composition: segments on {dev} and {d}")
+        dev = d
+        blocks += -(-m // THREADS)
+    if blocks >= 1 << 31:
+        raise ValueError(f"composition: {blocks} blocks")
+    return dev
+
+
 class ConstraintKernels:
     """The built library and the launch count of each family."""
 
@@ -483,60 +649,25 @@ class ConstraintKernels:
             self._plans[key] = tuple(out)
         return self._plans[key]
 
-    def composition(self, component, main_cols: Dict[str, torch.Tensor],
-                    inter_rows: Sequence[torch.Tensor], s_rows: Sequence[torch.Tensor],
-                    rotation: Optional[torch.Tensor], is_first: torch.Tensor,
-                    claimed_sum: tuple, elements: Dict[str, LookupElements], alpha: tuple,
-                    alpha_offset: int, log_blowup: int, acc: Optional[torch.Tensor],
-                    offset: int = 0) -> Tuple[torch.Tensor, int]:
-        """framework.component.composition_accumulate in one launch: (acc,
-        next alpha offset)."""
-        cls = type(component)
-        program = constraint_program(cls)
-        n_inter = len(program.relations) + 1
-        if len(inter_rows) != 4 * n_inter or len(s_rows) != 4:
-            raise ValueError(f"{component.name}: {len(inter_rows)} interaction rows and "
-                             f"{len(s_rows)} S rows, expected {4 * n_inter} and 4")
-        rows = _main_rows(component, main_cols) + [is_first, *inter_rows]
-        dev, m = _check_rows(rows, f"{component.name} composition")
-        eval_log = component.log_size + log_blowup
-        if (component.log_size < 1 or log_blowup < 0 or eval_log > MAX_EVAL_LOG or offset < 0
-                or offset + m > 1 << eval_log):
-            raise ValueError(f"{component.name} composition: positions {offset} .. "
-                             f"{offset + m - 1} of a domain of 2^{eval_log}")
-        if rotation is None:
-            _check_rows([is_first, *s_rows], f"{component.name} S(p - g) rows", m)
-        else:
-            _check_rows([*s_rows, rotation], f"{component.name} S rows and rotation index",
-                        1 << eval_log)
-            if rotation.device != dev:
-                raise ValueError(f"{component.name} composition: S rows on {rotation.device}, "
-                                 f"the columns on {dev}")
-        if acc is not None:
-            if (acc.dtype != torch.int32 or acc.shape != (4, m) or not acc.is_contiguous()
-                    or acc.device != dev):
-                raise ValueError(f"{component.name} composition: acc {acc.dtype} "
-                                 f"{tuple(acc.shape)} on {acc.device}, expected contiguous "
-                                 f"int32 (4, {m}) on {dev}")
-        _require_cuda(dev, f"{component.name} composition")
+    def composition(self, segments, elements: Dict[str, LookupElements], alpha: tuple,
+                    log_blowup: int) -> list:
+        """framework.composition_evaluate in one launch: a (4, m) int32
+        accumulator a segment, written."""
+        dev = _check_segments(segments, log_blowup)
+        _require_cuda(dev, "the composition's rows")
         lib = self.lib.load()
-        words = pack_constants(elements, claimed_sum,
-                               weights(alpha, alpha_offset, len(program.constraints)),
-                               poly.vanishing_inverse_blocks(component.log_size, log_blowup))
-        host = pack_table([r.data_ptr() for r in rows + list(s_rows)], words)
-        out = acc if acc is not None else torch.empty((4, m), dtype=torch.int32, device=dev)
+        out = [torch.empty((4, seg.is_first.shape[0]), dtype=torch.int32, device=dev)
+               for seg in segments]
+        words, blocks = plan_composition(segments, elements, alpha, log_blowup,
+                                         [o.data_ptr() for o in out])
         with torch.cuda.device(dev):
-            table = self.staging.to_card(host, dev)
-            rc = lib.constraints_composition(
-                COMPONENT_IDS[component.name], table.data_ptr(), len(rows) + 4, words.size,
-                None if rotation is None else rotation.data_ptr(), component.log_size, log_blowup,
-                offset, m, out.data_ptr(), int(acc is not None),
-                torch.cuda.current_stream(dev).cuda_stream)
+            table = self.staging.to_card(words, dev)
+            rc = lib.constraints_composition(table.data_ptr(), blocks,
+                                             torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
-            raise RuntimeError(f"{component.name} composition kernel launch failed: "
-                               f"CUDA error {rc}")
+            raise RuntimeError(f"composition kernel launch failed: CUDA error {rc}")
         self.launches["composition"] += 1
-        return out, alpha_offset + len(program.constraints)
+        return out
 
     def logup(self, component, main_cols: Dict[str, torch.Tensor], is_first: torch.Tensor,
               elements: Dict[str, LookupElements]) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -655,18 +786,14 @@ KERNELS = ConstraintKernels()
 # The kernels' work, for their bounds
 # ---------------------------------------------------------------------------
 
-def launch_work(component, family: str, rows: int, accumulate: bool = True,
-                rotation: bool = True, log_blowup: int = 0,
-                batch: int = BATCH_ROWS) -> Tuple[int, int, int]:
+def launch_work(component, family: str, rows: int, batch: int = BATCH_ROWS
+                ) -> Tuple[int, int, int]:
     """(bytes, M31 products, M31 adds) of one launch over `rows` rows, the
     work the function needs: each input word read once and each output
     word written once (the scan: 16 bytes a row in, 16 out, and the
     claimed sum; interaction: the live main columns in, Q_k and S out, the
     claimed sum); the program's distinct ops
-    (ops/constraint_codegen.op_work) and, for composition, the weights, the
-    product by V_n^-1 and the accumulation at every row, and once a launch
-    the 2^log_blowup values of V_n^-1 (a point, log_size - 1 doublings and
-    an inversion each: core/poly.py vanishing_inverse_blocks). logup and
+    (ops/constraint_codegen.op_work). logup and
     interaction invert as the kernels do: the norms of `batch` rows' K
     relations with one m31_inv (qm31::batch_inv: QM_INV less the chain, 20
     products a relation, and batch_inv_products(batch K) a batch), or with
@@ -690,19 +817,39 @@ def launch_work(component, family: str, rows: int, accumulate: bool = True,
         inputs = sum(1 for v in live if p.ops[v][0] == "col")  # is_first is t == 0
         return (rows * 4 * (inputs + 4 * (k + 1)) + 4 * ELEMENT_WORDS + 16, products,
                 rows * (adds + 4 * (k - 1)) + 4 * (rows - 1))
-    products, adds = op_work(p, p.constraints)
-    live = p.live(p.constraints)
-    words = sum(4 if p.ops[v][0] in ("inter", "s_prev") else 1
-                for v in live if p.ops[v][0] in ("col", "is_first", "inter", "s_prev"))
-    if rotation and ("inter", len(p.relations)) in (p.ops[v] for v in live):
-        words -= 4  # S(p - g) is S's rows read again at the rotation: one input
-    words += int(rotation) + 4 * (1 + int(accumulate))
-    for c in p.constraints:
-        products += 16 if p.qm[c] else 4
-    adds += 4 * (len(p.constraints) - 1)
-    products += 4  # the product by V_n^-1
-    adds += 4 * int(accumulate)
-    n, blocks = component.log_size, 1 << log_blowup
-    table = WEIGHTS_WORD + 4 * len(p.constraints) + blocks
-    return (rows * 4 * words + 4 * table, rows * products + blocks * (4 + (n - 1) + 42),
-            rows * adds + blocks * (3 + 2 * (n - 1)))
+    raise ValueError(f"launch_work: no family {family!r} (composition: composition_work)")
+
+
+def composition_work(segments: Sequence[Tuple[int, int, Sequence, bool]], log_blowup: int
+                     ) -> Tuple[int, int, int]:
+    """(bytes, M31 products, M31 adds) of one composition launch over
+    `segments` ((log_size, rows, components, rotation) each), the work the
+    function needs whatever computes it: each input word read once (a
+    component's live main columns and interaction rows, S(p - g)'s rows
+    when they are not S's rows read again at the rotation; the segment's
+    is_first and rotation index once), each accumulator written once (16
+    bytes a row); the programs' distinct ops (constraint_codegen.op_work),
+    the weights (4 or 16 products a constraint), the components' sum and
+    one product by V_n^-1 a row, and once a segment the 2^log_blowup values
+    of V_n^-1 (a point, log_size - 1 doublings and an inversion each:
+    core/poly.py vanishing_inverse_blocks)."""
+    nbytes = products = adds = 0
+    for n, rows, components, rotation in segments:
+        words = 1 + int(rotation) + 4  # is_first, the rotation index, the accumulator
+        row_products, row_adds = 4, 4 * (len(components) - 1)
+        for component in components:
+            p = constraint_program(type(component))
+            live = p.live(p.constraints)
+            words += sum(4 if p.ops[v][0] in ("inter", "s_prev") else 1
+                         for v in live if p.ops[v][0] in ("col", "inter", "s_prev"))
+            if rotation and ("inter", len(p.relations)) in (p.ops[v] for v in live):
+                words -= 4  # S(p - g) is S's rows read again at the rotation: one input
+            pr, ad = op_work(p, p.constraints)
+            row_products += pr + sum(16 if p.qm[c] else 4 for c in p.constraints)
+            row_adds += ad + 4 * (len(p.constraints) - 1)
+            nbytes += 4 * (own_words(p) + composition_slots(p) * 2)
+        blocks = 1 << log_blowup
+        nbytes += rows * 4 * words + 4 * blocks
+        products += rows * row_products + blocks * (4 + (n - 1) + 42)
+        adds += rows * row_adds + blocks * (3 + 2 * (n - 1))
+    return nbytes + 4 * ELEMENT_WORDS, products, adds

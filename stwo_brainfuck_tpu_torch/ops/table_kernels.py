@@ -22,8 +22,10 @@ would wrap. ``tables_plain`` is the plain version (torch ops: gathers
 through the permutations, ``repeat_interleave`` for the clk-gap rows, pads,
 successor rolls), the CPU's path; ``PLAIN_CUDA_CALLS`` counts its calls on
 a CUDA device. ``emulate`` replays the kernel's per-row rules on any device
-(the block's window over the memory prefix and its binary search, the
-successor and pad rules) as a function of the row index.
+(the block's search of the memory prefix in rounds of 256 probes, its
+window of 1,025 starts and each row's binary search, the successors taken
+from lane + 1 or fetched by lane 31 and the last row, the pad rules) as a
+function of the row index; ``block_search`` replays the search alone.
 """
 
 from __future__ import annotations
@@ -49,7 +51,8 @@ KIND = {"memory": 0, "instruction": 1, "program": 2, "processor": 3, "end_of_exe
         **{name: 5 for name, _ in JUMPS}, **{name: 6 for name, _ in OPS}}
 COLUMNS = {"memory": 8, "instruction": 8, "program": 4, "processor": 9, "end_of_execution": 7,
            **{name: 13 for name, _ in JUMPS}, **{name: 11 for name, _ in OPS}}
-THREADS = 256        # kThreads: rows a block
+THREADS = 256        # kThreads: a block's threads and the search's probes
+BLOCK_ROWS = 1024    # kBlockRows: rows a block, four a thread kThreads apart
 HEADER_WORDS = 16    # kHeaderWords
 TABLE_WORDS = 8      # kTableWords
 MAX_INDEX = 1 << 32  # a matrix's words and the trace's words must stay within 32-bit indices
@@ -62,11 +65,11 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.tables_build.restype = ctypes.c_int
     lib.tables_layout.argtypes = [ctypes.c_int]
     lib.tables_layout.restype = ctypes.c_int
-    want = (THREADS, HEADER_WORDS, TABLE_WORDS, len(KIND))
-    got = tuple(lib.tables_layout(i) for i in range(4))
+    want = (THREADS, HEADER_WORDS, TABLE_WORDS, len(KIND), BLOCK_ROWS)
+    got = tuple(lib.tables_layout(i) for i in range(5))
     if got != want:
-        raise RuntimeError(f"csrc/tables.cu lays out (threads, header, table words, tables) "
-                           f"{got}, the wrapper {want}")
+        raise RuntimeError(f"csrc/tables.cu lays out (threads, header, table words, tables, "
+                           f"rows a block) {got}, the wrapper {want}")
 
 
 # ---------------------------------------------------------------------------
@@ -237,7 +240,7 @@ def plan(meta) -> np.ndarray:
         e = HEADER_WORDS + t * TABLE_WORDS
         words[e + 1:e + 7] = (KIND[name], height, block, cols, meta.k.get(name, 0),
                               meta.op_start.get(name, 0))
-        block += -(-height // THREADS)
+        block += -(-height // BLOCK_ROWS)
     if block >= 1 << 31:
         raise ValueError(f"table kernel: {block} blocks")
     words[7:12] = (n, meta.plen, meta.prog_cap, len(KIND), block)
@@ -310,37 +313,70 @@ def bound_bytes(meta) -> int:
 # The kernel's per-row rules, replayed
 # ---------------------------------------------------------------------------
 
+def block_search(starts: torch.Tensor, r0: torch.Tensor) -> tuple:
+    """The kernel's block_search for each block start r0: (i0, rounds),
+    i0 the largest i with starts[i] <= r0, found in rounds of THREADS
+    probes lo + k step of the interval [lo, hi] left (step = (hi - lo) //
+    THREADS + 1), the count c of probes at or below hi with starts <= r0
+    leaving [lo + (c - 1) step, min(hi, lo + c step - 1)]."""
+    n = len(starts)
+    lo = torch.zeros_like(r0)
+    hi = torch.full_like(r0, n - 1)
+    k = torch.arange(THREADS, dtype=torch.int64, device=r0.device)
+    rounds = 0
+    while bool((lo < hi).any()):
+        step = (hi - lo) // THREADS + 1
+        p = lo[:, None] + k[None, :] * step[:, None]
+        ok = (p <= hi[:, None]) & (starts[p.clamp(max=n - 1)] <= r0[:, None])
+        c = ok.sum(1)
+        active = lo < hi
+        top = lo + c * step - 1
+        lo = torch.where(active, lo + (c - 1) * step, lo)
+        hi = torch.where(active, torch.minimum(hi, top), hi)
+        rounds += 1
+    return lo, rounds
+
+
 def _window_search(starts: torch.Tensor, height: int) -> tuple:
     """The memory rows' sources as the kernel finds them: block b's first
-    source i0 (the largest i with starts[i] <= 256 b, a search by its
-    thread 0), its window of 257 starts from i0 (past the end: int64 max),
-    and each thread's binary search over the window's first tid + 1
-    entries. Returns (i, window entry at i, window entry at i + 1) a row."""
+    source i0 (block_search of BLOCK_ROWS b), its window of BLOCK_ROWS + 1
+    starts from i0 (past the end: int64 max), and row r0 + w's binary
+    search over the window's first w + 1 entries. Returns (i, window entry
+    at i, window entry at i + 1) a row of the blocks' whole rows (past
+    height too)."""
     dev = starts.device
     n = len(starts)
-    blocks = -(-height // THREADS)
-    r0 = torch.arange(blocks, dtype=torch.int64, device=dev) * THREADS
-    i0 = torch.searchsorted(starts, r0, right=True) - 1
-    j = i0[:, None] + torch.arange(THREADS + 1, device=dev)[None, :]
+    blocks = -(-height // BLOCK_ROWS)
+    r0 = torch.arange(blocks, dtype=torch.int64, device=dev) * BLOCK_ROWS
+    i0, _ = block_search(starts, r0)
+    j = i0[:, None] + torch.arange(BLOCK_ROWS + 1, device=dev)[None, :]
     win = torch.where(j < n, starts[j.clamp(max=n - 1)], torch.iinfo(torch.int64).max)
-    r = torch.arange(blocks * THREADS, dtype=torch.int64, device=dev).view(blocks, THREADS)
+    r = torch.arange(blocks * BLOCK_ROWS, dtype=torch.int64, device=dev).view(blocks, BLOCK_ROWS)
     lo = torch.zeros_like(r)
-    hi = torch.arange(THREADS, device=dev).expand(blocks, THREADS).clone()
+    hi = torch.arange(BLOCK_ROWS, device=dev).expand(blocks, BLOCK_ROWS).clone()
     while bool((lo < hi).any()):
         mid = (lo + hi + 1) >> 1
         take = torch.gather(win, 1, mid) <= r
         active = lo < hi
         lo = torch.where(active & take, mid, lo)
         hi = torch.where(active & ~take, mid - 1, hi)
-    i = (i0[:, None] + lo).reshape(-1)[:height]
-    at = torch.gather(win, 1, lo).reshape(-1)[:height]
-    after = torch.gather(win, 1, lo + 1).reshape(-1)[:height]
+    i = (i0[:, None] + lo).reshape(-1)
+    at = torch.gather(win, 1, lo).reshape(-1)
+    after = torch.gather(win, 1, lo + 1).reshape(-1)
     return i, at, after
+
+
+def _from_next(col: torch.Tensor) -> torch.Tensor:
+    """__shfl_down_sync(v, 1) over the rows of whole blocks: lane + 1's
+    value (lane 31 gets its own back, as the instruction returns it)."""
+    warps = col.reshape(-1, 32)
+    return torch.cat([warps[:, 1:], warps[:, -1:]], 1).reshape(-1)
 
 
 def emulate(meta) -> Dict[str, torch.Tensor]:
     """What one launch writes, on the meta's device, row by row as the
-    kernel computes it (uint32 arithmetic as int64 masked to 32 bits):
+    kernel computes it (uint32 arithmetic as int64 masked to 32 bits), over
+    the blocks' whole rows (past height too, as the shuffles see them):
     name -> (n_cols, 2^log) int32."""
     rows = meta.rows.to(torch.int64) & 0xFFFFFFFF  # (n, 7)
     dev = rows.device
@@ -350,19 +386,25 @@ def emulate(meta) -> Dict[str, torch.Tensor]:
     out = {}
     for name, height in heights(meta).items():
         kind = KIND[name]
-        r = torch.arange(height, dtype=torch.int64, device=dev)
+        r = torch.arange(-(-height // BLOCK_ROWS) * BLOCK_ROWS, dtype=torch.int64, device=dev)
+        last = r + 1 == height
+        own = ((r % 32) == 31) | last  # no successor in lane + 1
         cols = []
         if kind == KIND["memory"]:
             i, at, after = _window_search(meta.starts_mem, height)
             within = r - at
             src = rows[meta.order_mem[i]]
-            clk = u32(src[:, 0] + within)
-            step = (r + 1 < height) & (after == r + 1)
+            clk, mp, mv = u32(src[:, 0] + within), src[:, 4], src[:, 5]
+            d = (within > 0).long()
+            # lane 31 and the last row: the next sorted row where it starts
+            # at r + 1, else clk + 1 with mp and mv held
+            step = ~last & (after == r + 1)
             nxt = rows[meta.order_mem[torch.where(step, i + 1, i).clamp(max=n - 1)]]
-            cols = [clk, src[:, 4], src[:, 5], (within > 0).long(),
-                    torch.where(step, nxt[:, 0], u32(clk + 1)),
-                    torch.where(step, nxt[:, 4], src[:, 4]),
-                    torch.where(step, nxt[:, 5], src[:, 5]), (~step).long()]
+            fetched = [torch.where(step, nxt[:, 0], u32(clk + 1)),
+                       torch.where(step, nxt[:, 4], mp), torch.where(step, nxt[:, 5], mv),
+                       (~step).long()]
+            cols = [clk, mp, mv, d] + [torch.where(own, f, _from_next(v))
+                                       for f, v in zip(fetched, (clk, mp, mv, d))]
         elif kind == KIND["instruction"]:
             nr = plen + n
 
@@ -370,18 +412,18 @@ def emulate(meta) -> Dict[str, torch.Tensor]:
                 g = meta.order_cat[q.clamp(max=nr - 1)]
                 p = g < plen
                 gp, gt = g.clamp(max=plen - 1), (g - plen).clamp(min=0)
-                return [torch.where(p, prog[c, gp], rows[gt, c + 1]) for c in range(3)]
+                v = [torch.where(p, prog[c, gp], rows[gt, c + 1]) for c in range(3)]
+                return [v[0], torch.where(q < nr, v[1], 0), torch.where(q < nr, v[2], 0)]
 
-            ip, ci, ni = fetch(r)
-            valid = r < nr
-            ci, ni = torch.where(valid, ci, 0), torch.where(valid, ni, 0)
-            last = r + 1 == height
-            ip2, ci2, ni2 = fetch(r + 1)
-            valid2 = (r + 1 < nr) & ~last
-            cols = [ip, ci, ni, (~valid).long(), torch.where(last, ip, ip2),
-                    torch.where(valid2, ci2, 0), torch.where(valid2, ni2, 0), (~valid2).long()]
+            v = fetch(r)
+            d = (r >= nr).long()
+            w = fetch(r + 1)
+            fetched = [torch.where(last, v[0], w[0]), torch.where(last, 0, w[1]),
+                       torch.where(last, 0, w[2]), torch.where(last, 1, (r + 1 >= nr).long())]
+            cols = v + [d] + [torch.where(own, f, _from_next(x))
+                              for f, x in zip(fetched, v + [d])]
         elif kind == KIND["program"]:
-            cols = [prog[c, r] for c in range(4)]
+            cols = [prog[c, r.clamp(max=height - 1)] for c in range(4)]
         elif kind == KIND["processor"]:
             def clk_at(q):
                 return torch.where(q < n, rows[q.clamp(max=n - 1), 0],
@@ -389,32 +431,38 @@ def emulate(meta) -> Dict[str, torch.Tensor]:
 
             live = r < n
             src = rows[r.clamp(max=n - 1)]
-            cols = [clk_at(r), torch.where(live, src[:, 1], rows[n - 1, 1]),
+            clk = clk_at(r)
+            cols = [clk, torch.where(live, src[:, 1], rows[n - 1, 1]),
                     *[torch.where(live, src[:, c], 0) for c in range(2, 7)],
-                    (~live).long(), clk_at(r + 1)]
+                    (~live).long(), torch.where(own, clk_at(r + 1), _from_next(clk))]
         elif kind == KIND["end_of_execution"]:
             cols = [torch.where(r == 0, rows[meta.end_row, c], 0) for c in range(7)]
         else:
             kk, st = meta.k[name], meta.op_start[name]
-            live = r < kk
+            matched = r < kk
             s = meta.ops[st + r.clamp(max=kk - 1)] if kk else torch.zeros_like(r)
-            e1, e2 = rows[s], rows[(s + 1).clamp(max=n - 1)]
+            e1 = torch.where(matched[:, None], rows[s], 0)
+            # trace row s + 1: lane + 1's where it holds it, else fetched
+            s_next = _from_next(torch.where(matched, s, 0xFFFFFFFF))
+            take = ~own & (s_next == s + 1)
+            fetched = rows[(s + 1).clamp(max=n - 1)]
+            e2 = {c: torch.where(take, _from_next(e1[:, c]), fetched[:, c]) for c in (0, 1, 4, 5)}
             if kk:
                 tail = rows[meta.ops[st + kk - 1] + 1]
                 lk, li = tail[0], tail[1]
             else:
                 lk = li = torch.zeros((), dtype=torch.int64, device=dev)
             pad = u32(lk + 2 * (r - kk))
-            head = [torch.where(live, e1[:, 0], pad), torch.where(live, e1[:, 1], li),
-                    *[torch.where(live, e1[:, c], 0) for c in range(2, 7)]]
-            tailcols = [torch.where(live, e2[:, 1], li), torch.where(live, e2[:, 4], 0),
-                        torch.where(live, e2[:, 5], 0)]
-            d = (~live).long()
+            head = [torch.where(matched, e1[:, 0], pad), torch.where(matched, e1[:, 1], li),
+                    *[e1[:, c] for c in range(2, 7)]]
+            tailcols = [torch.where(matched, e2[1], li), torch.where(matched, e2[4], 0),
+                        torch.where(matched, e2[5], 0)]
+            d = (~matched).long()
             if kind == KIND["jump_if_zero"]:
                 mv, mvi = head[5], head[6]
-                cols = [*head, torch.where(live, e2[:, 0], u32(pad + 1)), *tailcols, d,
+                cols = [*head, torch.where(matched, e2[0], u32(pad + 1)), *tailcols, d,
                         m31.sub(1, m31.mul(mv, mvi))]
             else:
                 cols = [*head, d, *tailcols]
-        out[name] = torch.stack([c.to(torch.int64) for c in cols]).to(torch.int32)
+        out[name] = torch.stack([c.to(torch.int64)[:height] for c in cols]).to(torch.int32)
     return out

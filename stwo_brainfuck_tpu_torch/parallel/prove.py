@@ -34,7 +34,8 @@ import torch
 
 from ..core import fft, fri, merkle, poly, quotients
 from ..core.m31 import P_INT
-from ..framework.component import build_interaction_trace_async, composition_accumulate
+from ..framework.component import (CompositionMember, CompositionSegment,
+                                   build_interaction_trace_async, composition_evaluate)
 from .fft_sharded import make_sharded_evaluate, make_sharded_interpolate, sharded_extend
 from .merkle_sharded import commit_sharded
 from .mesh import Mesh, Permutation, Sharded
@@ -97,7 +98,7 @@ class ShardedOps:
 
     def combine_eval(self, acc: Dict[int, object], comp_log: int):
         """The composition evaluation: per size the accumulated
-        contributions (composition_accumulate), interpolated; zero-padded
+        contributions (composition), interpolated; zero-padded
         to 2^comp_log and added; evaluated on the composition domain."""
         total = None
         for lg, arr in sorted(acc.items()):
@@ -160,34 +161,66 @@ class ShardedOps:
         perm = _permutation(self.mesh, "rotation", log_size, log_blowup)
         return Sharded(self.mesh, self.mesh.permute(self.mesh.as_sharded(values).shards, perm))
 
-    def composition_accumulate(self, component, ext_main, inter_rows, isf_ext, claimed_sum,
-                               elements, alpha, alpha_offset, log_blowup, acc):
-        """framework.composition_accumulate on every shard's rows of the
-        blown-up domain, at the chunk's offset (one kernel launch a shard on
-        a card), S(p - g) from the rotation's global gather: (acc, next
-        alpha offset), acc a Sharded (4, N) int32 array updated in place
-        (None: a new one), or a tensor below the sharded sizes."""
-        n = component.log_size
-        args = (claimed_sum, elements, alpha, alpha_offset, log_blowup)
-        if not self._shardable(n):
-            f = self.mesh.full
-            rows = [f(r) for r in inter_rows]
-            return composition_accumulate(
-                component, {k: f(v) for k, v in ext_main.items()}, rows, rows[-4:],
-                fft.rotation_index(n, log_blowup, rows[0].device), f(isf_ext), *args, acc)
-        sh = self.mesh.as_sharded
-        s_prev = self.rotate(self.mesh.stack(list(inter_rows[-4:])), n, log_blowup)
-        main = {k: sh(v) for k, v in ext_main.items()}
-        inter = [sh(r) for r in inter_rows]
-        isf = sh(isf_ext)
-        outs = [None] * self.D
-        nxt = alpha_offset
-        for i in self.mesh.local:
-            outs[i], nxt = composition_accumulate(
-                component, {k: v.shards[i] for k, v in main.items()},
-                [r.shards[i] for r in inter], list(s_prev.shards[i]), None, isf.shards[i], *args,
-                None if acc is None else acc.shards[i], offset=i * isf.chunk)
-        return Sharded(self.mesh, outs), nxt
+    def composition(self, members: Dict[int, list], is_first: Dict[int, object], elements,
+                    alpha, log_blowup: int) -> Dict[int, object]:
+        """framework.composition_evaluate over the mesh: `members` the
+        CompositionMembers of each log_size in the claim's order (their rows
+        on the mesh, Sharded or not), `is_first` each size's is_first rows.
+        A sharded size is a segment a shard at its chunk's offset, S(p - g)
+        from the rotation's global gather; a size below the sharded sizes
+        one segment on the home device, read through the rotation index.
+        One call (one kernel launch on a card) a device over its
+        segments. Returns log_size + log_blowup -> a Sharded (4, N) int32
+        array, or a tensor below the sharded sizes."""
+        mesh = self.mesh
+        by_device: Dict[torch.device, list] = {}
+        places = []  # (eval log, shard or None, device, index in its call)
+
+        def add(dev, seg, lg, shard):
+            calls = by_device.setdefault(dev, [])
+            places.append((lg, shard, dev, len(calls)))
+            calls.append(seg)
+
+        for n, mems in members.items():
+            lg = n + log_blowup
+            if not self._shardable(n):
+                f = mesh.full
+                full = []
+                for mem in mems:
+                    rows = [f(r) for r in mem.inter_rows]
+                    full.append(CompositionMember(
+                        mem.component, {k: f(v) for k, v in mem.main_cols.items()}, rows,
+                        rows[-4:], mem.claimed_sum, mem.alpha_offset))
+                isf = f(is_first[n])
+                add(mesh.home, CompositionSegment(n, full, isf,
+                                                  fft.rotation_index(n, log_blowup, isf.device)),
+                    lg, None)
+                continue
+            sh = mesh.as_sharded
+            isf = sh(is_first[n])
+            sharded = []
+            for mem in mems:
+                s_prev = self.rotate(mesh.stack(list(mem.inter_rows[-4:])), n, log_blowup)
+                sharded.append((mem, {k: sh(v) for k, v in mem.main_cols.items()},
+                                [sh(r) for r in mem.inter_rows], s_prev))
+            for i in mesh.local:
+                seg = CompositionSegment(
+                    n, [CompositionMember(mem.component, {k: v.shards[i] for k, v in main.items()},
+                                          [r.shards[i] for r in inter], list(s_prev.shards[i]),
+                                          mem.claimed_sum, mem.alpha_offset)
+                        for mem, main, inter, s_prev in sharded],
+                    isf.shards[i], None, offset=i * isf.chunk)
+                add(isf.shards[i].device, seg, lg, i)
+        outs = {dev: composition_evaluate(segs, elements, alpha, log_blowup)
+                for dev, segs in by_device.items()}
+        acc: Dict[int, object] = {}
+        for lg, shard, dev, k in places:
+            if shard is None:
+                acc[lg] = outs[dev][k]
+            else:
+                acc.setdefault(lg, [None] * self.D)[shard] = outs[dev][k]
+        return {lg: v if isinstance(v, torch.Tensor) else Sharded(mesh, v)
+                for lg, v in acc.items()}
 
     # -- OODS --------------------------------------------------------------
 

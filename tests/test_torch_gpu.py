@@ -655,29 +655,33 @@ def _constraint_case(cls, log, blow, seed, dev):
     return comp, rows, felt, els, m
 
 
+def _composition_segment(comp, rows, felt, m, log, blow, dev, offset=0, alpha_offset=9):
+    """One component's composition segment of seeded rows on `dev`, S(p -
+    g) through the rotation index."""
+    main = dict(zip(comp.columns, rows(len(comp.columns), m)))
+    inter = rows(4 * (comp.relation_count() + 1), m)
+    member = framework.CompositionMember(comp, main, inter, inter[-4:], felt(), alpha_offset)
+    return framework.CompositionSegment(log, [member], rows(1, m)[0],
+                                        fft.rotation_index(log, blow, dev), offset)
+
+
 @pytest.mark.parametrize("blow", [1, 4])
 @pytest.mark.parametrize("log", [5, 16])
 @pytest.mark.parametrize("cls", COMPONENT_CLASSES, ids=lambda c: c.name)
 def test_constraint_kernels_match_plain_on_the_card(cuda, cls, log, blow):
     comp, rows, felt, els, m = _constraint_case(cls, log, blow, log * 10 + blow, cuda)
-    main = dict(zip(comp.columns, rows(len(comp.columns), m)))
-    inter = rows(4 * (comp.relation_count() + 1), m)
-    isf = rows(1, m)[0]
-    rot = fft.rotation_index(log, blow, cuda)
-    acc = torch.stack(rows(4, m))
-    before = acc.clone()
-    claimed, alpha = felt(), felt()
+    seg = _composition_segment(comp, rows, felt, m, log, blow, cuda)
+    alpha = felt()
     launches, plain = dict(constraint_kernels.KERNELS.launches), framework.PLAIN_CUDA_CALLS
-    out, nxt = framework.composition_accumulate(comp, main, inter, inter[-4:], rot, isf, claimed,
-                                                els, alpha, 9, blow, acc)
-    assert out is acc and nxt == 9 + comp.constraint_count()
+    (out,) = framework.composition_evaluate([seg], els, alpha, blow)
+    assert out.shape == (4, m) and out.dtype == torch.int32
     assert framework.PLAIN_CUDA_CALLS == plain
-    want, _ = framework.composition_plain(comp, main, inter, inter[-4:], rot, isf, claimed, els,
-                                          alpha, 9, blow)
-    assert torch.equal(acc.to(torch.int64), (before.to(torch.int64) + want) % P)
+    want = framework.composition_segment_plain(seg, els, alpha, blow)
+    assert torch.equal(out, want)
     # logup on the trace domain's rows
     n = 1 << log
-    lmain = {k: v[:n].contiguous() for k, v in main.items()}
+    lmain = {k: v[:n].contiguous() for k, v in seg.members[0].main_cols.items()}
+    isf = seg.is_first
     q, total = framework.logup_fractions(comp, lmain, isf[:n].contiguous(), els)
     wq, wtotal = framework.logup_fractions_plain(comp, lmain, isf[:n].contiguous(), els)
     assert torch.equal(q, wq) and torch.equal(total.to(torch.int64), wtotal)
@@ -686,43 +690,70 @@ def test_constraint_kernels_match_plain_on_the_card(cuda, cls, log, blow):
 
 
 def test_constraint_kernel_chunks_and_refusals_on_the_card(cuda):
+    """Four chunks at their offsets (S(p - g) given as rows, as the mesh
+    gives them) and every component of three sizes, each as segments of
+    one launch, equal the plain version; the refusals."""
     cls = COMPONENT_CLASSES[3]  # processor: three relations
     comp, rows, felt, els, m = _constraint_case(cls, 10, 2, 7, cuda)
-    main = dict(zip(comp.columns, rows(len(comp.columns), m)))
-    inter = rows(4 * (comp.relation_count() + 1), m)
-    isf = rows(1, m)[0]
-    rot = fft.rotation_index(10, 2, cuda)
-    args = (felt(), els, felt(), 0, 2)
-    whole, _ = framework.composition_accumulate(comp, main, inter, inter[-4:], rot, isf, *args,
-                                                None)
-    s_prev = torch.stack(inter[-4:])[:, rot.to(torch.int64)]
+    whole = _composition_segment(comp, rows, felt, m, 10, 2, cuda, alpha_offset=0)
+    alpha = felt()
+    mem = whole.members[0]
+    s_prev = torch.stack(mem.s_rows)[:, whole.rotation.to(torch.int64)]
     c = m // 4
+    segs = [whole]
     for i in range(4):
         sl = slice(i * c, (i + 1) * c)
-        part, _ = framework.composition_accumulate(
-            comp, {k: v[sl] for k, v in main.items()}, [r[sl] for r in inter],
-            [r[sl] for r in s_prev], None, isf[sl], *args, None, offset=i * c)
-        assert torch.equal(part, whole[:, sl])
+        segs.append(framework.CompositionSegment(10, [framework.CompositionMember(
+            comp, {k: v[sl] for k, v in mem.main_cols.items()}, [r[sl] for r in mem.inter_rows],
+            [r[sl] for r in s_prev], mem.claimed_sum, 0)], whole.is_first[sl], None, i * c))
+    before = constraint_kernels.KERNELS.launches["composition"]
+    outs = framework.composition_evaluate(segs, els, alpha, 2)
+    assert constraint_kernels.KERNELS.launches["composition"] == before + 1
+    assert torch.equal(outs[0], framework.composition_segment_plain(whole, els, alpha, 2))
+    for i in range(4):
+        assert torch.equal(outs[1 + i], outs[0][:, i * c:(i + 1) * c])
+    # every component at sizes 2^4, 2^5, 2^6 in one launch
+    segs, off = [], 0
+    for log in (4, 5, 6):
+        members = []
+        for k, cl in enumerate(COMPONENT_CLASSES):
+            if k % 3 != log % 3:
+                continue
+            cmp_, rws, flt, _, mm = _constraint_case(cl, log, 2, 100 * log + k, cuda)
+            seg = _composition_segment(cmp_, rws, flt, mm, log, 2, cuda, alpha_offset=off)
+            off += cmp_.constraint_count()
+            members += seg.members
+        segs.append(framework.CompositionSegment(log, members, seg.is_first, seg.rotation))
+    for got, seg in zip(framework.composition_evaluate(segs, els, alpha, 2), segs):
+        assert torch.equal(got, framework.composition_segment_plain(seg, els, alpha, 2))
     with pytest.raises(TypeError):
-        framework.composition_accumulate(comp, {**main, "clk": main["clk"].to(torch.int64)},
-                                         inter, inter[-4:], rot, isf, *args, None)
+        bad = framework.CompositionMember(comp, {**mem.main_cols,
+                                                 "clk": mem.main_cols["clk"].to(torch.int64)},
+                                          mem.inter_rows, mem.s_rows, mem.claimed_sum, 0)
+        framework.composition_evaluate([framework.CompositionSegment(
+            10, [bad], whole.is_first, whole.rotation)], els, alpha, 2)
     with pytest.raises(ValueError):
-        framework.composition_accumulate(comp, main, inter, inter[-4:], rot, isf, *args, None,
-                                         offset=1)
+        framework.composition_evaluate([framework.CompositionSegment(
+            10, [mem], whole.is_first, whole.rotation, 1)], els, alpha, 2)
     with pytest.raises(ValueError):
-        constraint_kernels.KERNELS.logup(comp, {**main, "clk": main["clk"][::2]}, isf, els)
+        constraint_kernels.KERNELS.logup(comp, {**mem.main_cols,
+                                                "clk": mem.main_cols["clk"][::2]},
+                                         whole.is_first, els)
 
 
 def test_fib19_io_prove_launches_each_constraint_kernel_once_a_component(cuda):
+    """A one-device fib19_io prove: the interaction kernel once a
+    component, the composition kernel once a prove, no logup or scan
+    launch and no plain constraint call; the recorded sha256."""
     with open(chip_smoke.os.path.join(chip_smoke.ROOT, "programs", "fib19_io.bf")) as f:
         m = create_test_machine(compile_program(f.read()), chip_smoke.FIB_INPUT)
     m.execute()
     launches, plain = dict(constraint_kernels.KERNELS.launches), framework.PLAIN_CUDA_CALLS
     proof = air.prove_brainfuck(m, device=cuda)
     assert framework.PLAIN_CUDA_CALLS == plain
+    want = {"composition": 1, "interaction": len(COMPONENT_CLASSES), "logup": 0, "scan": 0}
     for family in constraint_kernels.FAMILIES:
-        assert constraint_kernels.KERNELS.launches[family] - launches[family] == (
-            len(COMPONENT_CLASSES) if family in ("composition", "interaction") else 0)
+        assert constraint_kernels.KERNELS.launches[family] - launches[family] == want[family]
     assert chip_smoke.proof_sha256(proof) == chip_smoke.REFERENCE_SHA256["fib19_io"]
 
 

@@ -7,8 +7,14 @@ device_meta, here on CPU tensors) and the table kernel's per-row rules
   tests/test_torch_device_build.py, at the edges (a one-row trace, no
   jumps, an unmatched opcode, a memory count that lands on a power of two,
   bucket=False) and on random short programs (hypothesis);
-- the kernel's emulation against its plain version (tables_plain) and the
-  host builders, for every component, with clk gaps longer than a block;
+- the kernel's emulation (the block's search of the memory starts in
+  rounds of 256 probes, each successor from lane + 1 but for lane 31 and
+  the last row) against its plain version (tables_plain), the host
+  builders and the JAX package's device build, for every component, with
+  clk gaps longer than a block, a new memory cell at rows 32 and 256,
+  tables shorter than a warp and the last row of every matrix;
+- the block search against torch.searchsorted, in at most
+  ceil(log_256 n) rounds;
 - build_tables(..., "cpu") against the JAX package's device build and the
   host builders;
 - the launch table's layout and the refusal of shapes whose 32-bit
@@ -47,8 +53,13 @@ PROGRAMS = {
     "fib19_io": (FIB19_IO, bytes([5])),
     # 16 rows, no clk gap: the memory table's height is exactly 2^4 (no pad)
     "pow2_memory": ("+" * 15, b""),
-    # 64 rows on two cells: 2^6 memory rows, gaps included
+    # 64 rows on two cells: 2^6 memory rows, gaps included; the second
+    # cell starts at memory row 32, lane 0 of the second warp
     "pow2_gaps": ("+" * 31 + ">" + "+" * 31, b""),
+    # the second cell starts at memory row 256, a thread's second row
+    "tile_edge": ("+" * 255 + ">" + "+" * 255, b""),
+    # the second cell starts at memory row 1024, the second block's first row
+    "block_edge": ("+" * 1023 + ">" + "+" * 1023, b""),
 }
 
 
@@ -221,6 +232,63 @@ def test_build_tables_bucket_false_matches_host():
     _assert_tables(mats, trace, program, False, "bucket=False")
 
 
+@pytest.mark.parametrize("n", [1, 2, 255, 256, 257, 4096, 65537, 1 << 22])
+def test_block_search_matches_searchsorted(n):
+    """The kernel's block search over n strictly increasing starts (counts
+    of 1 to 600) for block starts across the whole range: the largest i
+    with starts[i] <= r0, in at most ceil(log_256 n) rounds."""
+    rng = np.random.default_rng(n)
+    counts = torch.as_tensor(rng.integers(1, 600, n), dtype=torch.int64)
+    starts = torch.cumsum(counts, 0) - counts
+    top = int(starts[-1] + counts[-1])
+    r0 = torch.unique(torch.cat([
+        torch.as_tensor(rng.integers(0, top, 300)) // K.THREADS * K.THREADS,
+        torch.tensor([0, (top - 1) // K.THREADS * K.THREADS])]))
+    got, rounds = K.block_search(starts, r0)
+    assert torch.equal(got, torch.searchsorted(starts, r0, right=True) - 1)
+    limit = 0
+    while K.THREADS ** limit < n:
+        limit += 1
+    assert rounds <= limit
+
+
+@pytest.mark.parametrize("name, factor", [("pow2_gaps", 1), ("tile_edge", 1), ("tile_edge", 7),
+                                          ("block_edge", 1), ("block_edge", 7), ("no_jumps", 1),
+                                          ("io_loop", 257)])
+def test_emulated_kernel_at_lane_and_block_edges(name, factor):
+    """Successors at rows 31/32, 255/256 and 1023/1024 (a new memory cell on
+    lane 0 of a warp, of a thread's next row, of a block; with factor 7 a
+    gap run across that row), tables shorter than one warp (2^4 rows) and
+    the last row of every matrix, against the plain build, the host
+    builders and the JAX package's device build (_build_tables_jit)."""
+    trace, program = _run(*PROGRAMS[name])
+    t = _scaled(trace, factor)
+    dm = tbuild.device_meta(t, program, "cpu", False)
+    got = K.emulate(dm)
+    plain = K.tables_plain(dm.rows.T, dm, "cpu")
+    jmats = jbuild.build_device_tables(t, jbuild.build_meta(t, program, False))
+    for key in plain:
+        assert torch.equal(got[key], plain[key]), key
+        np.testing.assert_array_equal(got[key].numpy().view(np.uint32), np.asarray(jmats[key]),
+                                      err_msg=key)
+        last = got[key][:, -1]
+        assert torch.equal(last, plain[key][:, -1]), key
+    _assert_tables(got, t, program, False, f"{name} x{factor}")
+    mem = got["memory"]
+    if name == "pow2_gaps":  # memory row 32 starts the second cell: row 31's successor
+        assert int(mem[3, 32]) == 0 and int(mem[7, 31]) == 0 and int(mem[5, 31]) == 1
+    edge = {"tile_edge": 256, "block_edge": 1024}.get(name)
+    if edge and factor == 1:
+        assert int(mem[3, edge]) == 0 and int(mem[7, edge - 1]) == 0
+        assert int(mem[5, edge - 1]) == 1
+    if edge and factor == 7:  # one gap run across the edge
+        first = edge - 1 - (edge - 1) % 7  # the source row before it
+        assert [int(v) for v in mem[3, first:first + 7]] == [0, 1, 1, 1, 1, 1, 1]
+        assert int(mem[7, edge - 1]) == 1 and int(mem[4, edge - 1]) == int(mem[0, edge - 1]) + 1
+    if name == "no_jumps":
+        assert min(m.shape[1] for m in got.values()) < 32
+
+
 def test_build_tables_pulls_once():
     trace, program = _run(*PROGRAMS["io_loop"])
     before, meta_calls = tbuild.PULLS, tbuild.META_CALLS
@@ -283,7 +351,7 @@ def test_plan_layout():
         height = 1 << dm.claim[name]
         assert list(words[e + 1:e + 7]) == [K.KIND[name], height, block, K.COLUMNS[name],
                                            dm.k.get(name, 0), dm.op_start.get(name, 0)]
-        block += -(-height // K.THREADS)
+        block += -(-height // K.BLOCK_ROWS)
     assert words[11] == block
     assert K.bound_bytes(dm) == 4 * (7 * len(trace) + sum(K.COLUMNS[n] << dm.claim[n]
                                                           for n in air.CLAIM_ORDER))
