@@ -1,0 +1,13 @@
+"""The largest allocated peak while the phases tree0, tree1, tree2, tree3 run, over the traced
+requests (the phase marker reads and resets the allocator's peak at each
+mark), in 10^9 bytes."""
+
+PHASES = ("tree0", "tree1", "tree2", "tree3",)
+
+
+def read(run):
+    td = run.traced
+    if td is None:
+        return None
+    peaks = [td.phase_peaks[p] for p in PHASES if p in td.phase_peaks]
+    return max(peaks) / 1e9 if peaks else None
