@@ -169,7 +169,6 @@ from __future__ import annotations
 import contextlib
 import copy
 import ctypes
-import gc
 import hashlib
 import io
 import json
@@ -193,7 +192,7 @@ from unittest import mock
 import numpy as np
 import torch
 
-from stwo_brainfuck_tpu_torch import air, bench, cli
+from stwo_brainfuck_tpu_torch import air, bench, cli, tracing
 from stwo_brainfuck_tpu_torch.components import device_build, tables
 from stwo_brainfuck_tpu_torch.components.defs import COMPONENT_CLASSES, ELEMENT_SIZES
 from stwo_brainfuck_tpu_torch.core import blake2s, fft, fri, merkle, poly, quotients
@@ -1063,13 +1062,17 @@ def _trees_per_commit(launched: dict, commits: int, shards: int, what: str) -> d
     return {"commits": commits, "tree_launches_per_commit": launched["tree"] / commits}
 
 
+# The recording's sync counters _PhaseCalls reads, by the name it gives them.
+_PULL_COUNTERS = {"pulls": "sync.decommit", "oods_pulls": "sync.oods",
+                  "table_pulls": "sync.tables"}
+
+
 class _PhaseCalls(air.PhaseTimer):
     """air.PhaseTimer that also records, for each phase, the device->host
-    pulls of the decommitment's reads (core/merkle.PULLS), of the OODS
-    samples (core/poly.PULLS) and of the table build's counts
-    (components/device_build.PULLS) and the
-    torch.distributed calls of the process mesh (parallel/mesh.CALLS)
-    made in it."""
+    pulls of the decommitment's reads, of the OODS samples and of the table
+    build's counts (the `sync.*` counters of the prove's recording,
+    tracing.record, which must be active) and the torch.distributed calls
+    of the process mesh (parallel/mesh.CALLS) made in it."""
 
     def __init__(self, device):
         super().__init__(device)
@@ -1078,8 +1081,8 @@ class _PhaseCalls(air.PhaseTimer):
 
     @staticmethod
     def _now() -> dict:
-        return {"pulls": merkle.PULLS, "oods_pulls": poly.PULLS,
-                "table_pulls": device_build.PULLS, **mesh_calls.CALLS}
+        counters = tracing.active().counters
+        return {k: counters.get(c, 0) for k, c in _PULL_COUNTERS.items()} | mesh_calls.CALLS
 
     def mark(self, name: str) -> None:
         super().mark(name)
@@ -1226,8 +1229,8 @@ def phase_program(name, path, inp, runs: int, expect_sha: str | None,
         steps = len(machine.trace())
         torch.cuda.reset_peak_memory_stats()
         before = _counts()
-        timer = _PhaseCalls("cuda")
-        with _counting_commits() as counted:
+        with tracing.record(run), _counting_commits() as counted:
+            timer = _PhaseCalls("cuda")
             t1 = time.perf_counter()
             proof = air.prove_brainfuck(machine, config, device="cuda", timer=timer, mesh=mesh)
             torch.cuda.synchronize()
@@ -1306,59 +1309,22 @@ def phase_fresh_verify(name: str, proof: dict) -> dict:
     return out
 
 
-class _ProfiledPhases:
-    """A prove's phase marks as torch.profiler ranges, without
-    synchronizing: phase k is the range "prove phase k", named at its mark;
-    the decommitment's pulls (core/merkle.PULLS) are read at each mark, and
-    the interpreter's garbage-collection pauses are timed in each phase."""
-
-    def __init__(self):
-        self.names: list = []
-        self.pulls: dict = {}
-        self.gc_s: dict = {}
-        self._pulls = merkle.PULLS
-        self._gc = [0.0, None]  # seconds in this phase, start of a pause
-        gc.callbacks.append(self._on_gc)
-        self._open()
-
-    def _on_gc(self, phase: str, info: dict) -> None:
-        if phase == "start":
-            self._gc[1] = time.perf_counter()
-        elif self._gc[1] is not None:
-            self._gc[0] += time.perf_counter() - self._gc[1]
-            self._gc[1] = None
-
-    def _open(self) -> None:
-        self._range = torch.profiler.record_function(f"prove phase {len(self.names)}")
-        self._range.__enter__()
-
-    def mark(self, name: str) -> None:
-        self._range.__exit__(None, None, None)
-        self.pulls[name] = merkle.PULLS - self._pulls
-        self._pulls = merkle.PULLS
-        self.gc_s[name] = self._gc[0]
-        self._gc[0] = 0.0
-        self.names.append(name)
-        self._open()
-
-    def close(self) -> None:
-        self._range.__exit__(None, None, None)
-        gc.callbacks.remove(self._on_gc)
-
-
 def phase_split(name: str, path: str, inp: bytes) -> dict:
-    """One more warm prove of the program under torch.profiler (its phase
-    marks as profiler ranges, which do not synchronize, so only the
-    prove's own synchronizations): the device-busy share (the union of
-    kernel and copy intervals over the prove's wall time), the host
-    synchronizations the prove makes and the time spent waiting in them,
-    the kernels that take the most device time, the interpreter's
-    garbage-collection pauses, and the decommit phase: its seconds,
-    device->host pulls (one: every gather in one copy; also read as the
-    device-to-host copies in its range), host syncs and collection
-    pauses; and the tables phase: its seconds, host syncs (one: the
-    counts' pull), device-to-host copies (one) and host-to-device copies
-    issued in it (two: the staged trace and the kernel's launch table)."""
+    """One more warm prove of the program under torch.profiler, recorded
+    (tracing.record: its spans are `bf.` profiler ranges, which do not
+    synchronize, so only the prove's own synchronizations): the device-busy
+    share (the union of kernel and copy intervals over the prove's wall
+    time), the host synchronizations the prove makes (the profiler's
+    synchronize calls beside the recording's `sync.*` counters) and the
+    time spent waiting in them, the kernels that take the most device time,
+    the interpreter's garbage-collection pauses (`gc` spans), the device's
+    idle time by the innermost span open through it (tracing.idle_by_span),
+    and the decommit phase: its seconds, device->host pulls (one: every
+    gather in one copy; also read as the device-to-host copies in its
+    range), host syncs and collection pauses; and the tables phase: its
+    seconds, host syncs (one: the counts' pull), device-to-host copies (one)
+    and host-to-device copies issued in it (two: the staged trace and the
+    kernel's launch table)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1367,21 +1333,22 @@ def phase_split(name: str, path: str, inp: bytes) -> dict:
     machine.execute()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        phases = _ProfiledPhases()
-        t0 = time.perf_counter()
-        air.prove_brainfuck(machine, device="cuda", timer=phases)
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-        phases.close()
-    ranges = {f"prove phase {k}": n for k, n in enumerate(phases.names)}
-    spans, syncs, wait_us, by_kernel, kernels = [], {}, 0.0, {}, 0
+        with tracing.record(0) as rec:
+            t0 = time.perf_counter()
+            air.prove_brainfuck(machine, device="cuda")
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+    prefix = tracing.PROFILER_PREFIX
+    ranges, spans, syncs, wait_us, by_kernel, kernels = [], [], {}, 0.0, {}, 0
     sync_at, dtoh_at, htod_at, decommit, tables_at = [], [], [], None, None
     for ev in prof.events():
-        if ev.name in ranges:  # the phase ranges (on the host, and their device annotations)
-            if ev.device_type == DeviceType.CPU and ranges[ev.name] == "decommit":
-                decommit = ev.time_range
-            if ev.device_type == DeviceType.CPU and ranges[ev.name] == "tables":
-                tables_at = ev.time_range
+        if ev.name.startswith(prefix):  # the spans (on the host, and their device annotations)
+            if ev.device_type == DeviceType.CPU:
+                ranges.append((ev.time_range.start, ev.time_range.end, ev.name[len(prefix):]))
+                if ev.name == prefix + "decommit":
+                    decommit = ev.time_range
+                if ev.name == prefix + "tables":
+                    tables_at = ev.time_range
         elif ev.device_type == DeviceType.CUDA:
             spans.append((ev.time_range.start, ev.time_range.end))
             kernels += not ev.name.startswith(("Memcpy", "Memset"))
@@ -1400,36 +1367,52 @@ def phase_split(name: str, path: str, inp: bytes) -> dict:
                         if k.name.startswith("Memcpy HtoD")]
     if decommit is None or tables_at is None:
         raise AssertionError(f"{name}: no decommit or tables range among the profiler's events")
-    busy_us, end = 0.0, None
+    if len(ranges) != len(rec.spans):
+        raise AssertionError(f"{name}: {len(ranges)} bf. ranges for {len(rec.spans)} spans")
+    busy_us, end, gaps = 0.0, None, []
     for a, b in sorted(spans):
         if end is None or a > end:
+            if end is not None:
+                gaps.append((end, a))
             busy_us += b - a
             end = b
         elif b > end:
             busy_us += b - end
             end = b
+    phase = tracing.phase_of([(sp.start_ns, sp.end_ns, sp.name) for sp in rec.spans])
+
+    def in_phase(span_name: str, ph: str) -> list:
+        return [sp for sp, p in zip(rec.spans, phase) if sp.name == span_name and p == ph]
+
+    def gc_s(ph: str) -> float:
+        return sum(sp.end_ns - sp.start_ns for sp in in_phase("gc", ph)) / 1e9
+
     inside = lambda ts: sum(decommit.start <= t <= decommit.end for t in ts)  # noqa: E731
-    split = {"s": decommit.elapsed_us() / 1e6, "pulls": phases.pulls["decommit"],
+    split = {"s": decommit.elapsed_us() / 1e6, "pulls": len(in_phase("sync.decommit", "decommit")),
              "device_to_host_copies": inside(dtoh_at), "host_syncs": inside(sync_at),
-             "gc_s": phases.gc_s["decommit"]}
+             "gc_s": gc_s("decommit")}
     if split["pulls"] != 1 or split["device_to_host_copies"] != 1:
         raise AssertionError(f"{name}: decommit made {split}, not one pull")
     within = lambda ts: sum(tables_at.start <= t <= tables_at.end for t in ts)  # noqa: E731
     table_split = {"s": tables_at.elapsed_us() / 1e6, "host_syncs": within(sync_at),
                    "device_to_host_copies": within(dtoh_at),
-                   "host_to_device_copies": within(htod_at), "gc_s": phases.gc_s["tables"]}
+                   "host_to_device_copies": within(htod_at), "gc_s": gc_s("tables")}
     if (table_split["host_syncs"] != 1 or table_split["device_to_host_copies"] != 1
             or table_split["host_to_device_copies"] != 2):
         raise AssertionError(f"{name}: the tables phase made {table_split}, not one sync, one "
                              f"pull and two uploads (the staged trace, the launch table)")
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
+    own = tracing.self_times([rec])
+    idle = sorted(tracing.idle_by_span(gaps, ranges).items(), key=lambda kv: -kv[1])[:10]
     out = {"program": name, "run": "warm, profiled", "prove_s": wall_s,
            "device_busy_s": busy_us / 1e6 if spans else None,
            "device_busy_share": busy_us / 1e6 / wall_s if spans else "not measured",
            "device_events": len(spans), "device_kernels": kernels,
            "host_syncs": sum(syncs.values()), "syncs_by_call": syncs,
-           "sync_wait_s": wait_us / 1e6, "gc_s": sum(phases.gc_s.values()), "decommit": split,
-           "tables": table_split,
+           "syncs_counted": tracing.sync_counts([rec]),
+           "sync_wait_s": wait_us / 1e6, "gc_s": own.get("gc", 0) / 1e9, "decommit": split,
+           "tables": table_split, "spans": len(rec.spans),
+           "idle_by_span_ms": {k: v / 1e3 for k, v in idle},
            "top_device_us": dict(top)}
     _line("phase_split", out)
     return out
@@ -2565,8 +2548,8 @@ def _prove_rank(rank: int, world: int, port: int, backend: str, device: str, run
                 machine.execute()
                 torch.cuda.reset_peak_memory_stats(mesh.home)
                 _reset_counts()
-                timer = _PhaseCalls(mesh.home)
-                with _counting_commits() as counted:
+                with tracing.record(run), _counting_commits() as counted:
+                    timer = _PhaseCalls(mesh.home)
                     t0 = time.perf_counter()
                     proof = air.prove_brainfuck(machine, timer=timer, mesh=mesh)
                     torch.cuda.synchronize(mesh.home)
@@ -2811,7 +2794,7 @@ def phase_tables(programs) -> dict:
     behind a sleep) beside its bytes bound, the plain build and build_meta;
     the whole build_tables call."""
     out = {}
-    real_pull = device_build._pull
+    real_pull = tracing.pull
     for name, code, inp in programs:
         m = create_test_machine(compile_program(code), inp)
         m.execute()
@@ -2822,16 +2805,16 @@ def phase_tables(programs) -> dict:
         host = tables.all_tables(trace, program)
         meta_s, pull_s, whole_s = [], [], []
 
-        def timed_pull(vec):
+        def timed_pull(site, vec):
             torch.cuda.synchronize()
             t = time.perf_counter()
-            got = real_pull(vec)
+            got = real_pull(site, vec)
             pull_s.append(time.perf_counter() - t)
             return got
 
         for _ in range(TABLE_REPS):
             torch.cuda.synchronize()
-            with mock.patch.object(device_build, "_pull", timed_pull):
+            with mock.patch.object(tracing, "pull", timed_pull):
                 t0 = time.perf_counter()
                 dm = device_build.device_meta(trace, program, "cuda")
                 meta_s.append(time.perf_counter() - t0 - pull_s[-1])

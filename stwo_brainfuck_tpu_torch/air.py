@@ -22,6 +22,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from . import tracing
 from .components import device_build
 from .components.defs import COMPONENT_CLASSES, ELEMENT_SIZES
 from .components.tables import MIN_LOG_SIZE
@@ -72,7 +73,8 @@ class VerificationError(Exception):
 
 
 # The phases prove_brainfuck marks, in order: a phase's time runs from the
-# mark before it to its own.
+# mark before it to its own. They are the top-level spans of a recording
+# (tracing.py).
 PHASES = ("trace", "tables", "tree0", "tree1", "interaction", "tree2", "composition", "tree3",
           "oods", "quotients", "fri", "pow", "decommit")
 
@@ -245,14 +247,20 @@ def prove_brainfuck(machine, config: Optional[PcsConfig] = None, device="cuda",
     on this process's device, mesh.home): every heavy phase runs sharded
     through parallel/prove.ShardedOps, and the proof bytes are the same for
     any number of shards and processes."""
-    mark = timer.mark if timer is not None else (lambda name: None)
-    device = canonical_device(device) if mesh is None else mesh.home
-    trace = machine.trace()
-    mark("trace")
-    claim, mats = device_build.build_tables(trace, machine.program(), device)
-    assert tuple(claim) == CLAIM_ORDER, list(claim)
-    mark("tables")
-    return _prove_tables(mats, claim, config, device, mark, mesh)
+    with tracing.phases(PHASES) as phases:
+        def mark(name: str) -> None:
+            if timer is not None:
+                with tracing.span("timer.mark"):
+                    timer.mark(name)
+            phases.mark(name)
+
+        device = canonical_device(device) if mesh is None else mesh.home
+        trace = machine.trace()
+        mark("trace")
+        claim, mats = device_build.build_tables(trace, machine.program(), device)
+        assert tuple(claim) == CLAIM_ORDER, list(claim)
+        mark("tables")
+        return _prove_tables(mats, claim, config, device, mark, mesh)
 
 
 def _prove_tables(mats: Dict[str, torch.Tensor], claim: Dict[str, int],
@@ -281,13 +289,14 @@ def _prove_tables(mats: Dict[str, torch.Tensor], claim: Dict[str, int],
     mark("tree0")
 
     log.info("Phase 1: main trace")
-    mix_claim(channel, claim)
     dev_tabs: Dict[str, Dict[str, torch.Tensor]] = {}
     main_cols: List[Tuple[int, torch.Tensor]] = []
-    for comp in comps:
-        mat = mats[comp.name]
-        dev_tabs[comp.name] = {c: mat[i] for i, c in enumerate(comp.columns)}
-        main_cols += [(comp.log_size, mat[i]) for i in range(len(comp.columns))]
+    with tracing.span("tree1.columns"):
+        mix_claim(channel, claim)
+        for comp in comps:
+            mat = mats[comp.name]
+            dev_tabs[comp.name] = {c: mat[i] for i, c in enumerate(comp.columns)}
+            main_cols += [(comp.log_size, mat[i]) for i in range(len(comp.columns))]
     tree1 = TreeProver(main_cols, config, channel, ops=ops)
     mark("tree1")
 
@@ -296,18 +305,20 @@ def _prove_tables(mats: Dict[str, torch.Tensor], claim: Dict[str, int],
     inter_cols: List[Tuple[int, torch.Tensor]] = []
     claimed = []
     interaction = build_interaction_trace_async if ops is None else ops.interaction
-    for comp in comps:
-        cols, comp_claimed = interaction(comp, dev_tabs[comp.name], elements)
-        claimed.append(comp_claimed)
-        for q in cols:
-            inter_cols += [(comp.log_size, row(q, c)) for c in range(4)]
+    with tracing.span("interaction.kernels"):
+        for comp in comps:
+            cols, comp_claimed = interaction(comp, dev_tabs[comp.name], elements)
+            claimed.append(comp_claimed)
+            for q in cols:
+                inter_cols += [(comp.log_size, row(q, c)) for c in range(4)]
     # every component's claimed sum, kept on the card until here: one pull
-    pulled = torch.stack(claimed).cpu().tolist()
+    pulled = tracing.pull("claimed", torch.stack(claimed)).tolist()
     del claimed, comp_claimed  # nothing holds the device copies past it
-    iclaim: Dict[str, tuple] = {comp.name: tuple(v) for comp, v in zip(comps, pulled)}
-    if not lookup_sum_valid(iclaim):
-        raise ProvingError("LogUp sum does not cancel — invalid trace")
-    mix_interaction_claim(channel, iclaim)
+    with tracing.span("interaction.mix"):
+        iclaim: Dict[str, tuple] = {comp.name: tuple(v) for comp, v in zip(comps, pulled)}
+        if not lookup_sum_valid(iclaim):
+            raise ProvingError("LogUp sum does not cancel — invalid trace")
+        mix_interaction_claim(channel, iclaim)
     mark("interaction")
     tree2 = TreeProver(inter_cols, config, channel, ops=ops)
     mats.clear()  # the caller's dict too: the matrices are freed from here on
@@ -348,16 +359,17 @@ def _prove_tables(mats: Dict[str, torch.Tensor], claim: Dict[str, int],
     comp_log = layout.composition_log
     # per-size interpolate, zero-pad + modular add, one evaluate on the
     # composition domain (the circle-FFT basis is nested across sizes)
-    if ops is None:
-        total = torch.zeros((4, 1 << comp_log), dtype=torch.int64, device=device)
-        for lg, arr in sorted(acc.items()):
-            coeffs = fft.interpolate(arr, lg)
-            total[:, : 1 << lg] = (total[:, : 1 << lg] + coeffs) % P_INT
-        comp_evals = fft.evaluate(total.to(torch.int32), comp_log)
-        del total
-    else:
-        comp_evals = ops.combine_eval(acc, comp_log)
-    del acc
+    with tracing.span("composition.combine"):
+        if ops is None:
+            total = torch.zeros((4, 1 << comp_log), dtype=torch.int64, device=device)
+            for lg, arr in sorted(acc.items()):
+                coeffs = fft.interpolate(arr, lg)
+                total[:, : 1 << lg] = (total[:, : 1 << lg] + coeffs) % P_INT
+            comp_evals = fft.evaluate(total.to(torch.int32), comp_log)
+            del total
+        else:
+            comp_evals = ops.combine_eval(acc, comp_log)
+        del acc
     mark("composition")
     tree3 = TreeProver([(comp_log, row(comp_evals, c)) for c in range(4)], config, channel,
                        ops=ops)
@@ -368,26 +380,28 @@ def _prove_tables(mats: Dict[str, torch.Tensor], claim: Dict[str, int],
     log.info("OODS sampling")
     z = point_from_t(channel.draw_felt())
     sampled = _sample_all_trees(trees, layout, z, ops)
-    for tvals in sampled:
-        for cvals in tvals:
-            channel.mix_felts([tuple(v) for v in cvals])
+    with tracing.span("oods.mix"):
+        for tvals in sampled:
+            for cvals in tvals:
+                channel.mix_felts([tuple(v) for v in cvals])
     mark("oods")
 
     log.info("Quotients")
     alpha_q = channel.draw_felt()
     claims_by_size: Dict[int, List[Tuple[torch.Tensor, List[quotients.QuotientClaim]]]] = {}
     aidx = 0
-    for tree, metas, tvals in zip(trees, layout.trees, sampled):
-        for rec, meta, cvals in zip(tree.records, metas, tvals):
-            if not meta.shifts:
-                continue  # committed but never opened (unused ladder sizes)
-            size = rec.log_size + blow
-            cl = []
-            for s, v in zip(meta.shifts, cvals):
-                cl.append(quotients.QuotientClaim(
-                    point=shifted_point(z, meta.log_size, s), value=v, alpha_index=aidx))
-                aidx += 1
-            claims_by_size.setdefault(size, []).append((rec.extended, cl))
+    with tracing.span("quotients.claims"):
+        for tree, metas, tvals in zip(trees, layout.trees, sampled):
+            for rec, meta, cvals in zip(tree.records, metas, tvals):
+                if not meta.shifts:
+                    continue  # committed but never opened (unused ladder sizes)
+                size = rec.log_size + blow
+                cl = []
+                for s, v in zip(meta.shifts, cvals):
+                    cl.append(quotients.QuotientClaim(
+                        point=shifted_point(z, meta.log_size, s), value=v, alpha_index=aidx))
+                    aidx += 1
+                claims_by_size.setdefault(size, []).append((rec.extended, cl))
     fri_inputs = {}
     for size, pairs in claims_by_size.items():
         log.info("  quotients size 2^%d (%d columns)", size, len(pairs))
@@ -402,21 +416,25 @@ def _prove_tables(mats: Dict[str, torch.Tensor], claim: Dict[str, int],
     mark("fri")
 
     log.info("PoW + queries")
-    nonce = channel.grind_pow(config.pow_bits)
-    channel.mix_u64(nonce)
-    queries = channel.draw_queries(config.n_queries, s_max)
+    with tracing.span("pow.grind"):
+        nonce = channel.grind_pow(config.pow_bits)
+    with tracing.span("pow.queries"):
+        channel.mix_u64(nonce)
+        queries = channel.draw_queries(config.n_queries, s_max)
     mark("pow")
 
     log.info("Decommitment")
     # every tree's and FRI layer's gathers and the FRI layer values served
     # in one pass: one device->host pull (one all_reduce on a process mesh)
-    pendings = [merkle.decommit_async(
-        tree.tree, query_positions_by_level(queries, s_max, sorted(tree.column_levels())))
-        for tree in trees]
-    fri_positions, fri_pendings, fri_values = fri.fri_decommit_async(fri_prover, queries)
+    with tracing.span("decommit.plan"):
+        pendings = [merkle.decommit_async(
+            tree.tree, query_positions_by_level(queries, s_max, sorted(tree.column_levels())))
+            for tree in trees]
+        fri_positions, fri_pendings, fri_values = fri.fri_decommit_async(fri_prover, queries)
     decs, values_host = merkle.finalize_with_extra(pendings + fri_pendings, fri_values)
     decommitments = decs[:len(trees)]
-    fri.fri_decommit_finish(fri_prover, fri_positions, decs[len(trees):], values_host)
+    with tracing.span("decommit.build"):
+        fri.fri_decommit_finish(fri_prover, fri_positions, decs[len(trees):], values_host)
     mark("decommit")
 
     return {
@@ -448,7 +466,7 @@ def _sample_all_trees(trees, layout: SystemLayout, z, ops=None) -> List[List[Lis
     columns are grouped by (trace log, shift) across trees, and every group
     is sampled in one call (poly.sample_groups: one kernel launch on a card;
     with the mesh backend `ops`, one a shard and one mesh sum), then pulled
-    to the host in one copy (poly.pull)."""
+    to the host in one copy (sync.oods)."""
     sampled: List[List[List[Optional[tuple]]]] = [
         [[None] * len(meta.shifts) for meta in metas] for metas in layout.trees
     ]
@@ -456,7 +474,8 @@ def _sample_all_trees(trees, layout: SystemLayout, z, ops=None) -> List[List[Lis
     groups = [(log_size, shifted_point(z, log_size, s),
                [trees[ti].records[ci].coeffs for ti, ci, _ in members])
               for (log_size, s), members in plan.items()]
-    arr = poly.pull(poly.sample_groups(groups) if ops is None else ops.sample_groups(groups))
+    arr = tracing.pull("oods", poly.sample_groups(groups) if ops is None
+                       else ops.sample_groups(groups)).numpy()
     columns = iter(arr.T.tolist())  # one conversion, not one a word
     for members in plan.values():
         for ti, ci, pi in members:

@@ -15,8 +15,8 @@ rows first on ties); a stable sort of each row's opcode table (ci[:-1]
 through the lookup), which groups every table's rows in row order, its
 counts from a search of the sorted keys. One pull of a small int64 vector
 (the gap sum, the tables' bounds in the grouped rows, the end-of-execution
-rows) is the phase's only host sync; the claim is computed from it on the
-host. The matrices are then one launch of ``csrc/tables.cu``
+rows) is the phase's only host sync (``sync.tables``, tracing.py); the
+claim is computed from it on the host. The matrices are then one launch of ``csrc/tables.cu``
 (``ops/table_kernels.KERNEL``) on a CUDA device, its plain version
 ``table_kernels.tables_plain`` on the CPU.
 
@@ -34,6 +34,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..ops import table_kernels
 from ..ops.staging import PinnedRing
 from . import tables as T
@@ -41,7 +42,6 @@ from . import tables as T
 _JUMPS, _OPS = table_kernels.JUMPS, table_kernels.OPS
 
 META_CALLS = 0   # build_meta calls (the host pass; none on a prove)
-PULLS = 0        # the meta pass's device->host pulls (one a build)
 
 
 @dataclass
@@ -231,13 +231,6 @@ def _stage(parts: List[np.ndarray], device: torch.device) -> torch.Tensor:
                                             for p in parts]))
 
 
-def _pull(vec: torch.Tensor) -> List[int]:
-    """The meta pass's one device->host copy (and host sync)."""
-    global PULLS
-    PULLS += 1
-    return vec.tolist()
-
-
 def device_meta(trace: np.ndarray, program: List[int], device,
                 bucket: bool = True) -> DeviceMeta:
     """The meta pass on `device`: one staged upload, the sorts, gaps and
@@ -249,39 +242,44 @@ def device_meta(trace: np.ndarray, program: List[int], device,
     n, plen = len(trace), len(program)
     prog_cols = np.stack(list(T.program_table(program, bucket).values()))
     prog_cap = prog_cols.shape[1]
-    buf = _stage([trace, prog_cols, _SLOT_LOOKUP], device)
-    rows = buf[:7 * n].view(n, 7)
-    prog = buf[7 * n:7 * n + 4 * prog_cap].view(4, prog_cap)
-    lookup = buf[7 * n + 4 * prog_cap:]
-    clk, ip, mp = (rows[:, c].to(torch.int64) for c in (0, 1, 4))
-    ci = rows[:, 2]
+    with tracing.span("tables.stage"):
+        buf = _stage([trace, prog_cols, _SLOT_LOOKUP], device)
+    with tracing.span("tables.meta"):
+        rows = buf[:7 * n].view(n, 7)
+        prog = buf[7 * n:7 * n + 4 * prog_cap].view(4, prog_cap)
+        lookup = buf[7 * n + 4 * prog_cap:]
+        clk, ip, mp = (rows[:, c].to(torch.int64) for c in (0, 1, 4))
+        ci = rows[:, 2]
 
-    # memory: (mp, clk) order, 1 + the clk gap after each sorted row
-    key, order_mem = torch.sort((mp << 32) | clk, stable=True)
-    counts = torch.ones(n, dtype=torch.int64, device=device)
-    if n > 1:
-        mp_s, clk_s = key >> 32, key & 0xFFFFFFFF
-        counts[:-1] += torch.where(mp_s[1:] == mp_s[:-1], clk_s[1:] - clk_s[:-1] - 1,
-                                   0).clamp_(min=0)
-    starts = torch.cumsum(counts, 0) - counts
+        # memory: (mp, clk) order, 1 + the clk gap after each sorted row
+        key, order_mem = torch.sort((mp << 32) | clk, stable=True)
+        counts = torch.ones(n, dtype=torch.int64, device=device)
+        if n > 1:
+            mp_s, clk_s = key >> 32, key & 0xFFFFFFFF
+            counts[:-1] += torch.where(mp_s[1:] == mp_s[:-1], clk_s[1:] - clk_s[:-1] - 1,
+                                       0).clamp_(min=0)
+        starts = torch.cumsum(counts, 0) - counts
 
-    # instruction: concat(program rows at clk 0, trace rows) by (ip, clk)
-    cat = torch.cat([torch.arange(plen, dtype=torch.int64, device=device) << 32,
-                     (ip << 32) | clk])
-    order_cat = torch.sort(cat, stable=True)[1]
+        # instruction: concat(program rows at clk 0, trace rows) by (ip, clk)
+        cat = torch.cat([torch.arange(plen, dtype=torch.int64, device=device) << 32,
+                         (ip << 32) | clk])
+        order_cat = torch.sort(cat, stable=True)[1]
 
-    # opcode tables: ci[:-1]'s table index, stably sorted; a table's rows
-    # are one run of it, its bounds a search of the sorted keys
-    slot = lookup[ci[:-1].clamp(0, 255).to(torch.int64)]
-    slot_s, ops = torch.sort(slot, stable=True)
-    m = len(table_kernels.SELECTIONS)
-    bounds = torch.searchsorted(slot_s, torch.arange(m + 1, dtype=slot_s.dtype, device=device))
-    is_end = ci == 0
-    end_row = is_end.to(torch.int32).argmax()
+        # opcode tables: ci[:-1]'s table index, stably sorted; a table's rows
+        # are one run of it, its bounds a search of the sorted keys
+        slot = lookup[ci[:-1].clamp(0, 255).to(torch.int64)]
+        slot_s, ops = torch.sort(slot, stable=True)
+        m = len(table_kernels.SELECTIONS)
+        bounds = torch.searchsorted(slot_s, torch.arange(m + 1, dtype=slot_s.dtype,
+                                                         device=device))
+        is_end = ci == 0
+        end_row = is_end.to(torch.int32).argmax()
+        counted = torch.cat([(starts[-1:] + counts[-1:] - n), bounds.to(torch.int64),
+                             is_end.sum().view(1)])
 
-    # the one pull: the gap sum, the bounds, the end rows
-    pulled = _pull(torch.cat([(starts[-1:] + counts[-1:] - n), bounds.to(torch.int64),
-                              is_end.sum().view(1)]))
+    # the one pull (the meta pass's one host sync): the gap sum, the bounds,
+    # the end rows
+    pulled = tracing.pull("tables", counted).tolist()
     gap_sum, bounds, ends = pulled[0], pulled[1:m + 2], pulled[-1]
     if ends != 1:
         raise T.InvalidEndOfExecution(f"{ends} end-of-execution rows")
@@ -311,6 +309,7 @@ def build_tables(trace: np.ndarray, program: List[int], device,
     on the device, then one table-kernel launch (the plain build on the
     CPU)."""
     meta = device_meta(trace, program, device, bucket)
-    if meta.rows.is_cuda:
-        return meta.claim, table_kernels.KERNEL.build(meta)
-    return meta.claim, table_kernels.tables_plain(meta.rows.T, meta, meta.rows.device)
+    with tracing.span("tables.kernel"):
+        if meta.rows.is_cuda:
+            return meta.claim, table_kernels.KERNEL.build(meta)
+        return meta.claim, table_kernels.tables_plain(meta.rows.T, meta, meta.rows.device)

@@ -26,6 +26,7 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from . import fft, m31, merkle, qm31
 from .circle import half_odds
 from .fft import bitrev_int
@@ -241,8 +242,9 @@ def fri_commit(inputs: Dict[int, torch.Tensor], channel, ops=None) -> FriProver:
         return inputs.get(level + 1) if level + 1 != max_log else None
 
     beta0 = channel.draw_felt()  # circle fold coefficient for all injections
-    cur = step_fn(inputs[max_log], FoldStep(max_log, 1, True, beta0, beta0, beta0, max_log),
-                  None, injected(max_log - 1))
+    with tracing.span("fri.fold"):
+        cur = step_fn(inputs[max_log], FoldStep(max_log, 1, True, beta0, beta0, beta0, max_log),
+                      None, injected(max_log - 1))
     m = max_log - 1
     layers: List[merkle.MerkleTree] = []
     layer_evals: List[torch.Tensor] = []
@@ -259,12 +261,13 @@ def fri_commit(inputs: Dict[int, torch.Tensor], channel, ops=None) -> FriProver:
         beta = channel.draw_felt()
         folds = 2 if m - 1 > LOG_LAST_LAYER else 1
         step = FoldStep(m, folds, False, beta, qm31.h_mul(beta, beta), beta0, max_log)
-        cur = step_fn(cur, step, inputs.get(m) if folds == 2 else None, injected(m - folds))
+        with tracing.span("fri.fold"):
+            cur = step_fn(cur, step, inputs.get(m) if folds == 2 else None, injected(m - folds))
         m -= folds
 
     if ops is not None:
         cur = ops.mesh.full(cur)
-    last = tuple(int(x) for x in cur[:, 0].cpu())
+    last = tuple(int(x) for x in tracing.pull("fri_last", cur[:, 0]))
     channel.mix_felts([last])
 
     proof = FriProof(layer_roots=roots, last_layer_value=last)

@@ -24,7 +24,8 @@ the device; ``finalize_with_extra`` serves any number of pending
 decommitments and extra gathers (the FRI layer values) in one pass
 (``serve``): the positions go up in one copy, each gather is one
 index_select into its slots of one flat buffer, and the buffer comes to
-the host in one pull (``PULLS`` counts them). Sharded sources go through
+the host in one pull (the recording's ``sync.decommit``, tracing.py).
+Sharded sources go through
 their mesh's ``gather_many``: one index_select a shard's part of a
 gather, one copy a device, and on the process mesh one all_reduce.
 """
@@ -39,6 +40,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from . import blake2s
 from ..ops import blake2s_kernels
 from ..ops.staging import PinnedRing
@@ -68,8 +70,9 @@ def commit(columns_by_log: Dict[int, torch.Tensor]) -> MerkleTree:
     for k, mat in columns_by_log.items():
         if mat.dim() != 2 or mat.shape[1] != 1 << k:
             raise ValueError(f"level {k}: bad column matrix {tuple(mat.shape)}")
-    layers = hash_levels(None, columns_by_log, max(columns_by_log))
-    root = blake2s.digest_to_bytes(layers[0][:, 0])
+    with tracing.span("commit.hash"):
+        layers = hash_levels(None, columns_by_log, max(columns_by_log))
+    root = blake2s.digest_to_bytes(tracing.pull("root", layers[0][:, 0]))
     return MerkleTree(root=root, layers=layers, column_mats=dict(columns_by_log))
 
 
@@ -99,10 +102,6 @@ def hash_levels(children, columns_by_log: Dict[int, torch.Tensor],
 # Batched reads: any number of gathers served in one pass
 # ---------------------------------------------------------------------------
 
-# Device->host pulls the reads below make: one a served batch (on the CPU
-# the copy is a no-op, still counted). chip_smoke.py and the tests read it.
-PULLS = 0
-
 _STAGING = PinnedRing()
 
 
@@ -129,10 +128,9 @@ class _Part:
 
 
 def pull(t: torch.Tensor) -> np.ndarray:
-    """t on the host, counted in PULLS."""
-    global PULLS
-    PULLS += 1
-    return t.cpu().numpy()
+    """A served batch on the host: one device->host copy, the recording's
+    sync.decommit (on the CPU the copy is a no-op, still counted)."""
+    return tracing.pull("decommit", t).numpy()
 
 
 def _upload(values: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -233,7 +231,8 @@ class Reads:
         """The parts gathered into one buffer on `home`, pulled with one
         copy and placed."""
         buf = torch.empty(self.total, dtype=self.dtype, device=home)
-        self.gather_into(parts, buf)
+        with tracing.span("decommit.gather"):
+            self.gather_into(parts, buf)
         return self.place(pull(buf))
 
     def place(self, values: np.ndarray) -> List[np.ndarray]:
@@ -258,7 +257,8 @@ def serve(gathers: Sequence[Gather]) -> List[np.ndarray]:
         raise ValueError("gathers from arrays of several meshes")
     if meshes:
         return meshes.pop().gather_many(gathers)
-    reads = Reads(gathers)
+    with tracing.span("decommit.layout"):
+        reads = Reads(gathers)
     home = gathers[0].source.device if gathers else torch.device("cpu")
     return reads.collect([reads.part(j, g.source) for j, g in enumerate(gathers)], home)
 
@@ -364,10 +364,11 @@ def finalize_with_extra(pendings: Sequence[PendingDecommitment], extra: Sequence
     values)."""
     host = serve([g for p in pendings for g in p.gathers()] + list(extra))
     out, i = [], 0
-    for p in pendings:
-        n = len(p.columns) + len(p.witness)
-        out.append(p.build(host[i:i + n]))
-        i += n
+    with tracing.span("decommit.build"):
+        for p in pendings:
+            n = len(p.columns) + len(p.witness)
+            out.append(p.build(host[i:i + n]))
+            i += n
     return out, host[i:]
 
 

@@ -13,6 +13,7 @@ from typing import Dict, List, Sequence, Tuple
 
 import torch
 
+from .. import tracing
 from . import fft, merkle
 from .circle import M31_CIRCLE_LOG_ORDER, point_at_index, secure_point_add, secure_point_from_m31
 
@@ -63,26 +64,27 @@ class TreeProver:
         parallel/prove.ShardedOps) the extends and the commitment run
         sharded, and the records hold sharded rows."""
         self.config = config
-        groups: Dict[int, List[int]] = {}
-        for i, (log_size, _) in enumerate(columns):
-            groups.setdefault(log_size, []).append(i)
-        coeffs_all: Dict[int, torch.Tensor] = {}
-        ext_all: Dict[int, torch.Tensor] = {}
-        for log_size, idxs in groups.items():
-            cols = [columns[i][1] for i in idxs]
-            if ops is None:
-                coeffs_all[log_size], ext_all[log_size] = fft.extend_with_coeffs(
-                    torch.stack(cols), log_size, config.log_blowup)
-            else:
-                coeffs_all[log_size], ext_all[log_size] = ops.extend_with_coeffs(
-                    cols, log_size, config.log_blowup)
-        self.records: List[ColumnRecord] = []
-        pos: Dict[int, int] = {k: 0 for k in groups}
-        for log_size, _ in columns:
-            j = pos[log_size]
-            pos[log_size] = j + 1
-            self.records.append(ColumnRecord(
-                log_size, row(coeffs_all[log_size], j), row(ext_all[log_size], j)))
+        with tracing.span("commit.extend"):
+            groups: Dict[int, List[int]] = {}
+            for i, (log_size, _) in enumerate(columns):
+                groups.setdefault(log_size, []).append(i)
+            coeffs_all: Dict[int, torch.Tensor] = {}
+            ext_all: Dict[int, torch.Tensor] = {}
+            for log_size, idxs in groups.items():
+                cols = [columns[i][1] for i in idxs]
+                if ops is None:
+                    coeffs_all[log_size], ext_all[log_size] = fft.extend_with_coeffs(
+                        torch.stack(cols), log_size, config.log_blowup)
+                else:
+                    coeffs_all[log_size], ext_all[log_size] = ops.extend_with_coeffs(
+                        cols, log_size, config.log_blowup)
+            self.records: List[ColumnRecord] = []
+            pos: Dict[int, int] = {k: 0 for k in groups}
+            for log_size, _ in columns:
+                j = pos[log_size]
+                pos[log_size] = j + 1
+                self.records.append(ColumnRecord(
+                    log_size, row(coeffs_all[log_size], j), row(ext_all[log_size], j)))
         self.tree = (merkle.commit if ops is None else ops.commit)(
             {lg + config.log_blowup: ext_all[lg] for lg in groups})
         channel.mix_root(self.tree.root)

@@ -25,9 +25,8 @@ from .quotients import domain_points_storage
 _SAMPLE_CHUNK = 1 << 26
 
 # Plain sample_tensor calls on CUDA tensors (the OODS kernel is the only
-# path there), and the device->host pulls of the samples (pull).
+# path there).
 PLAIN_CUDA_CALLS = 0
-PULLS = 0
 
 
 def _point_factors(log_size: int, point) -> list:
@@ -140,13 +139,6 @@ def sample_groups_plain(groups: Sequence[tuple], shard: int = 0) -> torch.Tensor
             out[:, [col + k for k in ks]] = vals
         col += len(rows)
     return out.to(torch.int32)
-
-
-def pull(samples: torch.Tensor) -> np.ndarray:
-    """The samples on the host: one device->host copy (counted in PULLS)."""
-    global PULLS
-    PULLS += 1
-    return samples.cpu().numpy()
 
 
 def vanishing_at_point(log_size: int, point) -> tuple:

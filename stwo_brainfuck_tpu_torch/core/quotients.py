@@ -31,6 +31,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from . import qm31
 from .circle import (M31_CIRCLE_LOG_ORDER, CanonicCoset, _gen_doublings, half_odds,
                      points_at_indices)
@@ -190,12 +191,14 @@ def accumulate_quotients(
         sum_k a^k (f_k - l_k)/V  =  (1/V) * (sum_k a^k f_k - A - B*p.y)
     with scalar A = sum a^k l0_k, B = sum a^k s_k. With `ops` (the mesh
     backend, parallel/prove.ShardedOps) the accumulation runs sharded."""
-    by_point = _group_claims(claims)
-    powers = alpha_powers(by_point, alpha)
-    groups = [_group_constants(members, alpha, powers) for members in by_point.values()]
-    if ops is not None:
-        return ops.accumulate_all(log_size, columns, groups)
-    return accumulate_range(log_size, columns, groups)
+    with tracing.span("quotients.constants"):
+        by_point = _group_claims(claims)
+        powers = alpha_powers(by_point, alpha)
+        groups = [_group_constants(members, alpha, powers) for members in by_point.values()]
+    with tracing.span("quotients.launch"):
+        if ops is not None:
+            return ops.accumulate_all(log_size, columns, groups)
+        return accumulate_range(log_size, columns, groups)
 
 
 def accumulate_range(log_size: int, columns: Sequence[torch.Tensor], groups,

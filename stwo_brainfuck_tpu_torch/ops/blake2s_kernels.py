@@ -52,6 +52,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..core import blake2s
 from . import nvcc
 
@@ -299,7 +300,8 @@ class Blake2sKernels:
                                        stream)
                 _rc(rc, "grind")
                 self.launches["grind"] += 1
-                hit = int(best.item()) & 0xFFFFFFFF
+                with tracing.sync("grind"):
+                    hit = int(best.item()) & 0xFFFFFFFF
                 if hit != _NO_HIT:
                     return base + hit
                 base += GRIND_SPAN

@@ -56,6 +56,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..components.defs import COMPONENT_CLASSES
 from ..core import m31, poly, qm31
 from ..core.m31 import P_INT
@@ -653,14 +654,15 @@ class ConstraintKernels:
                     log_blowup: int) -> list:
         """framework.composition_evaluate in one launch: a (4, m) int32
         accumulator a segment, written."""
-        dev = _check_segments(segments, log_blowup)
-        _require_cuda(dev, "the composition's rows")
-        lib = self.lib.load()
-        out = [torch.empty((4, seg.is_first.shape[0]), dtype=torch.int32, device=dev)
-               for seg in segments]
-        words, blocks = plan_composition(segments, elements, alpha, log_blowup,
-                                         [o.data_ptr() for o in out])
-        with torch.cuda.device(dev):
+        with tracing.span("composition.plan"):
+            dev = _check_segments(segments, log_blowup)
+            _require_cuda(dev, "the composition's rows")
+            lib = self.lib.load()
+            out = [torch.empty((4, seg.is_first.shape[0]), dtype=torch.int32, device=dev)
+                   for seg in segments]
+            words, blocks = plan_composition(segments, elements, alpha, log_blowup,
+                                             [o.data_ptr() for o in out])
+        with tracing.span("composition.kernel"), torch.cuda.device(dev):
             table = self.staging.to_card(words, dev)
             rc = lib.constraints_composition(table.data_ptr(), blocks,
                                              torch.cuda.current_stream(dev).cuda_stream)

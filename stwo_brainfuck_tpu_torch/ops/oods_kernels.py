@@ -45,6 +45,7 @@ from typing import Dict, List, NamedTuple, Sequence
 import numpy as np
 import torch
 
+from .. import tracing
 from ..core import qm31
 from ..core.m31 import P_INT
 from . import nvcc
@@ -514,9 +515,10 @@ class OodsKernel:
         """(4, total rows) int32: poly.sample_groups of CUDA rows, one launch
         for each MAX_GROUPS groups (one for a prove's)."""
         if len(groups) <= MAX_GROUPS:
-            lp = plan(groups, shard, self.max_blocks)
-            out = torch.empty((4, lp.total), dtype=torch.int32, device=lp.device)
-            with _current(lp.device):
+            with tracing.span("oods.plan"):
+                lp = plan(groups, shard, self.max_blocks)
+                out = torch.empty((4, lp.total), dtype=torch.int32, device=lp.device)
+            with tracing.span("oods.kernel"), _current(lp.device):
                 self.enqueue(lp, self.staging.to_card(lp.words, lp.device), out)
             return out
         chunks = _chunks(groups)

@@ -20,6 +20,8 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from .. import tracing
+
 SLOTS = 8
 
 
@@ -50,7 +52,8 @@ class PinnedRing:
         self._next[dev] = (k + 1) % self.slots
         slot = slots[k]
         if slot[1] is not None and not slot[1].query():
-            slot[1].synchronize()
+            with tracing.sync("staging"):
+                slot[1].synchronize()
         if slot[0] is None or slot[0].numel() < size:
             slot[0] = torch.empty(max(size, 256), dtype=torch.int32, pin_memory=True)
         host = slot[0][:size]

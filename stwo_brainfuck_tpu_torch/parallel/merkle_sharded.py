@@ -16,6 +16,7 @@ from __future__ import annotations
 
 from typing import Dict
 
+from .. import tracing
 from ..core import blake2s, merkle
 from .mesh import Mesh, Sharded
 
@@ -37,19 +38,21 @@ def commit_sharded(mesh: Mesh, columns_by_log: Dict[int, object]) -> merkle.Merk
         return merkle.commit({k: mesh.full(m) for k, m in mats.items()})
     mats = {k: mesh.as_sharded(m) if k >= split else mesh.full(m) for k, m in mats.items()}
 
-    # each local shard's subtree: levels max_log .. split as max_log - split .. 0
-    runs = mesh.each(lambda i: merkle.hash_levels(
-        None, {k - split: m.shards[i] for k, m in mats.items() if k >= split}, max_log - split))
-    layers: Dict[int, object] = {
-        k: Sharded(mesh, [None if r is None else r[k - split] for r in runs])
-        for k in range(max_log, split - 1, -1)}
-    # one node per shard: gather the D subtree roots into every process
-    top = mesh.all_gather(mesh.each(lambda i: runs[i][0][:, 0]))[mesh.local[0]].T.contiguous()
-    if split:
-        layers.update(merkle.hash_levels(top, {k: m for k, m in mats.items() if k < split},
-                                         split - 1))
-        top = layers[0]
-    root = blake2s.digest_to_bytes(top[:, 0])
+    with tracing.span("commit.hash"):
+        # each local shard's subtree: levels max_log .. split as max_log - split .. 0
+        runs = mesh.each(lambda i: merkle.hash_levels(
+            None, {k - split: m.shards[i] for k, m in mats.items() if k >= split},
+            max_log - split))
+        layers: Dict[int, object] = {
+            k: Sharded(mesh, [None if r is None else r[k - split] for r in runs])
+            for k in range(max_log, split - 1, -1)}
+        # one node per shard: gather the D subtree roots into every process
+        top = mesh.all_gather(mesh.each(lambda i: runs[i][0][:, 0]))[mesh.local[0]].T.contiguous()
+        if split:
+            layers.update(merkle.hash_levels(top, {k: m for k, m in mats.items() if k < split},
+                                             split - 1))
+            top = layers[0]
+    root = blake2s.digest_to_bytes(tracing.pull("root", top[:, 0]))
     return merkle.MerkleTree(root=root, layers=layers, column_mats=mats)
 
 

@@ -48,6 +48,7 @@ import numpy as np
 import torch
 import torch.distributed as tdist
 
+from .. import tracing
 from ..core import merkle
 
 # torch.distributed calls the process-group mesh has made in this process,
@@ -213,7 +214,8 @@ class DeviceMesh(Mesh):
         """Every gather's values on the host (a sharded source's positions
         read on the shards that own them): one copy a device to `home`,
         one device->host pull."""
-        reads = merkle.Reads(gathers)
+        with tracing.span("decommit.layout"):
+            reads = merkle.Reads(gathers)
         return reads.collect(self._parts(reads, replicated=True), self.home)
 
 
@@ -353,9 +355,11 @@ class ProcessGroupMesh(Mesh):
         gathers of plain arrays, which every process holds alike) into a
         zeroed buffer, and one all_reduce sums them (exact: one term a slot
         is non-zero). One device->host pull."""
-        reads = merkle.Reads(gathers)
+        with tracing.span("decommit.layout"):
+            reads = merkle.Reads(gathers)
         buf = torch.zeros(reads.total, dtype=reads.dtype, device=self.home)
-        reads.gather_into(self._parts(reads, replicated=self.rank == 0), buf)
+        with tracing.span("decommit.gather"):
+            reads.gather_into(self._parts(reads, replicated=self.rank == 0), buf)
         if self.backend == "gloo":
             host = torch.from_numpy(merkle.pull(buf))
             self._all_reduce(host)

@@ -13,6 +13,8 @@ from __future__ import annotations
 
 from typing import List
 
+from .. import tracing
+
 
 class CompileError(Exception):
     pass
@@ -20,6 +22,11 @@ class CompileError(Exception):
 
 def compile_program(code: str) -> List[int]:
     """Compile Brainfuck source into the flat instruction/arg list."""
+    with tracing.span("vm.compile"):
+        return _compile(code)
+
+
+def _compile(code: str) -> List[int]:
     symbols = [c for c in code if not c.isspace()]
     instructions: List[int] = []
     loop_stack: List[int] = []

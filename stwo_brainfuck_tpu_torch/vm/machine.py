@@ -22,6 +22,7 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
+from .. import tracing
 from ..core.m31 import P_INT
 from .instruction import InstructionType, from_u8
 from .registers import Registers
@@ -81,11 +82,12 @@ class Machine:
     # -- execution ----------------------------------------------------------
 
     def execute(self) -> None:
-        if self._try_execute_native():
-            self.vm = "native"
-            return
-        self._execute_python()
-        self.vm = "python"
+        with tracing.span("vm.execute"):
+            if self._try_execute_native():
+                self.vm = "native"
+                return
+            self._execute_python()
+            self.vm = "python"
 
     def _try_execute_native(self) -> bool:
         """Fast path: the C++ interpreter (csrc/bf_vm.cpp). Used when the

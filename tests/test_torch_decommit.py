@@ -2,7 +2,7 @@
 decommit_async + finalize_many, and fri_decommit_async + finalize_with_extra,
 give the same decommitments and FRI layer values byte for byte; a mesh of
 D shards gives the one-device bytes; every finalize makes one device->host
-pull (core/merkle.PULLS) and one read a gather (a shard's part of it on
+pull (the recording's sync.decommit counter) and one read a gather (a shard's part of it on
 a mesh), its positions uploaded once. Inputs are made with numpy from a
 seed; every comparison is exact."""
 
@@ -14,7 +14,7 @@ import torch
 from stwo_brainfuck_tpu.core import fri as jfri
 from stwo_brainfuck_tpu.core import merkle as jmerkle
 from stwo_brainfuck_tpu.core.channel import Blake2sChannel as JChannel
-from stwo_brainfuck_tpu_torch import convert
+from stwo_brainfuck_tpu_torch import convert, tracing
 from stwo_brainfuck_tpu_torch.core import fri as tfri
 from stwo_brainfuck_tpu_torch.core import merkle as tmerkle
 from stwo_brainfuck_tpu_torch.core.channel import Blake2sChannel as TChannel
@@ -51,9 +51,10 @@ def _queries(kind: str, max_log: int):
 
 
 def _one_pull(fn):
-    before = tmerkle.PULLS
-    out = fn()
-    assert tmerkle.PULLS - before == 1, "a finalize makes one device->host pull"
+    with tracing.record(0) as rec:
+        out = fn()
+    assert tracing.sync_counts([rec]) == {"sync.decommit": 1}, \
+        "a finalize makes one device->host pull"
     return out
 
 

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from stwo_brainfuck_tpu_torch import tracing
 from stwo_brainfuck_tpu_torch.core import fri, merkle
 from stwo_brainfuck_tpu_torch.core.channel import Blake2sChannel
 from stwo_brainfuck_tpu_torch.parallel.merkle_sharded import commit_sharded
@@ -39,9 +40,9 @@ def _columns() -> dict:
 
 
 def _served(fn):
-    before = merkle.PULLS
-    out = fn()
-    assert merkle.PULLS - before == 1, "one device->host pull a finalize"
+    with tracing.record(0) as rec:
+        out = fn()
+    assert rec.counters.get("sync.decommit") == 1, "one device->host pull a finalize"
     return out
 
 

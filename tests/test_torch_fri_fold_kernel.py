@@ -19,7 +19,7 @@ import torch
 
 from stwo_brainfuck_tpu.core import fri as jfri
 from stwo_brainfuck_tpu.core.channel import Blake2sChannel as JChannel
-from stwo_brainfuck_tpu_torch import air, bench, convert
+from stwo_brainfuck_tpu_torch import air, bench, convert, tracing
 from stwo_brainfuck_tpu_torch.core import fri as tfri
 from stwo_brainfuck_tpu_torch.core import poly as tpoly
 from stwo_brainfuck_tpu_torch.core.channel import Blake2sChannel as TChannel
@@ -195,11 +195,10 @@ def test_small_prove_with_emulated_kernels_is_the_jax_proof():
         calls["fold"] += 1
         return fri_kernels.emulate(values, step, inject_a, inject_b, offset)
 
-    pulls = tpoly.PULLS
     with mock.patch.object(tpoly, "sample_groups", sample), \
-            mock.patch.object(tfri, "fold_step", fold):
+            mock.patch.object(tfri, "fold_step", fold), tracing.record(0) as rec:
         proof = air.prove_brainfuck(machine, device="cpu")
-    assert calls["oods"] == 1 and tpoly.PULLS - pulls == 1
+    assert calls["oods"] == 1 and rec.counters.get("sync.oods") == 1
     assert calls["fold"] == len(proof["fri"]["layer_roots"]) + 1
     assert bench.proof_sha256(proof) == bench.REFERENCE_SHA256["small"]
     air.verify_brainfuck(proof, device="cpu")

@@ -11,7 +11,7 @@ import pytest
 import torch
 
 import chip_smoke
-from stwo_brainfuck_tpu_torch import air
+from stwo_brainfuck_tpu_torch import air, tracing
 from stwo_brainfuck_tpu_torch.components import device_build, tables
 from stwo_brainfuck_tpu_torch.components.defs import COMPONENT_CLASSES, ELEMENT_SIZES
 from stwo_brainfuck_tpu_torch.core import blake2s, channel, fft, merkle, quotients
@@ -1070,9 +1070,10 @@ def test_fib19_io_prove_makes_one_oods_launch_and_one_fold_launch_a_layer(cuda):
         m = create_test_machine(compile_program(f.read()), chip_smoke.FIB_INPUT)
     m.execute()
     oods, folds = oods_kernels.KERNEL.launches, fri_kernels.KERNEL.launches
-    pulls, plain = poly.PULLS, (poly.PLAIN_CUDA_CALLS, fri.PLAIN_CUDA_CALLS)
-    proof = air.prove_brainfuck(m, device=cuda)
-    assert oods_kernels.KERNEL.launches - oods == 1 and poly.PULLS - pulls == 1
+    plain = (poly.PLAIN_CUDA_CALLS, fri.PLAIN_CUDA_CALLS)
+    with tracing.record(0) as rec:
+        proof = air.prove_brainfuck(m, device=cuda)
+    assert oods_kernels.KERNEL.launches - oods == 1 and rec.counters.get("sync.oods") == 1
     assert fri_kernels.KERNEL.launches - folds == len(proof["fri"]["layer_roots"]) + 1
     assert (poly.PLAIN_CUDA_CALLS, fri.PLAIN_CUDA_CALLS) == plain
     assert chip_smoke.proof_sha256(proof) == chip_smoke.REFERENCE_SHA256["fib19_io"]

@@ -31,7 +31,7 @@ from hypothesis import HealthCheck, given, settings
 from hypothesis import strategies as st
 
 from stwo_brainfuck_tpu.components import device_build as jbuild
-from stwo_brainfuck_tpu_torch import air
+from stwo_brainfuck_tpu_torch import air, tracing
 from stwo_brainfuck_tpu_torch.components import device_build as tbuild
 from stwo_brainfuck_tpu_torch.components import tables as T
 from stwo_brainfuck_tpu_torch.components.defs import COMPONENT_CLASSES
@@ -291,9 +291,10 @@ def test_emulated_kernel_at_lane_and_block_edges(name, factor):
 
 def test_build_tables_pulls_once():
     trace, program = _run(*PROGRAMS["io_loop"])
-    before, meta_calls = tbuild.PULLS, tbuild.META_CALLS
-    tbuild.build_tables(trace, program, "cpu")
-    assert tbuild.PULLS == before + 1
+    meta_calls = tbuild.META_CALLS
+    with tracing.record(0) as rec:
+        tbuild.build_tables(trace, program, "cpu")
+    assert tracing.sync_counts([rec]) == {"sync.tables": 1}
     assert tbuild.META_CALLS == meta_calls  # the host pass does not run
 
 

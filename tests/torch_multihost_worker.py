@@ -77,6 +77,7 @@ def decommitment(mesh) -> dict:
     """A sharded tree's decommitment finalized in one pass with two extra
     gathers (of a sharded array and of a plain one, which only rank 0
     writes), and the all_reduce calls and device->host pulls it made."""
+    from stwo_brainfuck_tpu_torch import tracing
     from stwo_brainfuck_tpu_torch.core import merkle
     from stwo_brainfuck_tpu_torch.parallel import mesh as mesh_mod
     from stwo_brainfuck_tpu_torch.parallel.merkle_sharded import commit_sharded
@@ -85,14 +86,15 @@ def decommitment(mesh) -> dict:
     cols = {k: torch.as_tensor(v) for k, v in inp["columns"].items()}
     tree = commit_sharded(mesh, cols)
     sharded = mesh.shard(cols[6])
-    calls, pulls = mesh_mod.CALLS["all_reduce"], merkle.PULLS
-    decs, extra = merkle.finalize_with_extra(
-        [merkle.decommit_async(tree, inp["queries"])],
-        [merkle.Gather(sharded, inp["positions"]), merkle.Gather(cols[6], inp["positions"])])
+    calls = mesh_mod.CALLS["all_reduce"]
+    with tracing.record(0) as rec:
+        decs, extra = merkle.finalize_with_extra(
+            [merkle.decommit_async(tree, inp["queries"])],
+            [merkle.Gather(sharded, inp["positions"]), merkle.Gather(cols[6], inp["positions"])])
     return {"decommit_json": json.dumps(decs[0].to_json()),
             "decommit_extra": torch.from_numpy(np.stack(extra)),
             "decommit_counts": torch.tensor([mesh_mod.CALLS["all_reduce"] - calls,
-                                             merkle.PULLS - pulls])}
+                                             rec.counters.get("sync.decommit", 0)])}
 
 
 def main(out_dir: str) -> None:
