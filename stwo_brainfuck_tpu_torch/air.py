@@ -16,7 +16,7 @@ from __future__ import annotations
 import logging
 import time
 from dataclasses import dataclass
-from functools import lru_cache
+from functools import lru_cache, partial
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -388,25 +388,22 @@ def _prove_tables(mats: Dict[str, torch.Tensor], claim: Dict[str, int],
 
     log.info("Quotients")
     alpha_q = channel.draw_felt()
-    claims_by_size: Dict[int, List[Tuple[torch.Tensor, List[quotients.QuotientClaim]]]] = {}
+    inputs: Dict[int, Tuple[List[torch.Tensor], List[List[quotients.QuotientClaim]]]] = {}
     aidx = 0
     with tracing.span("quotients.claims"):
+        point = lru_cache(maxsize=None)(partial(shifted_point, z))  # one a (log size, shift)
         for tree, metas, tvals in zip(trees, layout.trees, sampled):
             for rec, meta, cvals in zip(tree.records, metas, tvals):
                 if not meta.shifts:
                     continue  # committed but never opened (unused ladder sizes)
-                size = rec.log_size + blow
-                cl = []
-                for s, v in zip(meta.shifts, cvals):
-                    cl.append(quotients.QuotientClaim(
-                        point=shifted_point(z, meta.log_size, s), value=v, alpha_index=aidx))
-                    aidx += 1
-                claims_by_size.setdefault(size, []).append((rec.extended, cl))
-    fri_inputs = {}
-    for size, pairs in claims_by_size.items():
-        log.info("  quotients size 2^%d (%d columns)", size, len(pairs))
-        fri_inputs[size] = quotients.accumulate_quotients(
-            size, [p[0] for p in pairs], [p[1] for p in pairs], alpha_q, ops=ops)
+                cols, claims = inputs.setdefault(rec.log_size + blow, ([], []))
+                cols.append(rec.extended)
+                claims.append([quotients.QuotientClaim(point(meta.log_size, s), v, aidx + k)
+                               for k, (s, v) in enumerate(zip(meta.shifts, cvals))])
+                aidx += len(meta.shifts)
+    log.info("  quotients: %d claims over sizes %s", aidx, sorted(inputs))
+    fri_inputs = quotients.accumulate_quotients(inputs, alpha_q, ops=ops)
+    del inputs
     mark("quotients")
 
     log.info("FRI")
@@ -599,6 +596,7 @@ def _verify_brainfuck_inner(proof: dict, min_config: Optional[PcsConfig], device
     values_by_size: Dict[int, List[Tuple[List[int], List[quotients.QuotientClaim]]]] = {}
     positions_by_size: Dict[int, List[int]] = {}
     aidx = 0
+    point = lru_cache(maxsize=None)(partial(shifted_point, z))  # one a (log size, shift)
     for ti, (root, metas, tvals, dec) in enumerate(zip(roots, layout.trees, sampled, decs)):
         col_levels: Dict[int, int] = {}
         for meta in metas:
@@ -617,20 +615,19 @@ def _verify_brainfuck_inner(proof: dict, min_config: Optional[PcsConfig], device
             seen_at_level[lvl] = ci + 1
             if not meta.shifts:
                 continue  # committed but never opened
-            claims = []
-            for s, v in zip(meta.shifts, cvals):
-                claims.append(quotients.QuotientClaim(
-                    point=shifted_point(z, meta.log_size, s), value=v, alpha_index=aidx))
-                aidx += 1
+            claims = [quotients.QuotientClaim(point(meta.log_size, s), v, aidx + k)
+                      for k, (s, v) in enumerate(zip(meta.shifts, cvals))]
+            aidx += len(meta.shifts)
             positions_by_size[lvl] = pos[lvl]
             values_by_size.setdefault(lvl, []).append((got[lvl][ci], claims))
 
+    groups = quotients.point_groups(
+        {size: [c[1] for c in cols] for size, cols in values_by_size.items()}, alpha_q)
     qvals_by_size: Dict[int, dict] = {}
     for size, cols in values_by_size.items():
-        prepared = quotients.prepare_point_groups([c[1] for c in cols], alpha_q)
         mat = np.array([c[0] for c in cols], np.uint64)
         qvals_by_size[size] = quotients.quotient_values_batch(
-            size, positions_by_size[size], mat, prepared)
+            size, positions_by_size[size], mat, quotients.verifier_groups(groups[size]))
 
     def input_values_fn(size, position):
         d = qvals_by_size.get(size)

@@ -24,9 +24,10 @@ complex conjugation.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from functools import lru_cache
-from typing import Sequence, Tuple
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -111,59 +112,75 @@ def points_at_storage_batch(log_size: int, positions) -> Tuple[np.ndarray, np.nd
     return points_at_indices(idx)
 
 
-def _group_claims(claims: Sequence[Sequence[QuotientClaim]]) -> dict:
-    """point -> [(column index, claim)] in claim order."""
-    groups: dict = {}
-    for ci, col_claims in enumerate(claims):
-        for c in col_claims:
-            key = (tuple(c.point[0]), tuple(c.point[1]))
-            groups.setdefault(key, []).append((ci, c))
-    return groups
+def alpha_ladder(alpha: tuple, n: int) -> np.ndarray:
+    """alpha^0 .. alpha^(n - 1) as a (4, n) uint64 array: alpha^r for r < m
+    and alpha^(m j) for j < ceil(n / m), m = ceil(sqrt(n)), one h_mul each,
+    and alpha^(m j + r) their products in one npq_mul. Counted in
+    `quotients.powers`."""
+    tracing.count("quotients.powers", n)
+    m = math.isqrt(n - 1) + 1 if n else 1
+    lo = [qm31.ONE]
+    for _ in range(m):
+        lo.append(qm31.h_mul(lo[-1], alpha))
+    hi = [qm31.ONE]
+    for _ in range(-(-n // m) - 1):
+        hi.append(qm31.h_mul(hi[-1], lo[m]))
+    lo_t, hi_t = np.array(lo[:m], np.uint64).T, np.array(hi, np.uint64).T
+    return qm31.npq_mul(np.repeat(hi_t, m, axis=1), np.tile(lo_t, (1, len(hi))))[:, :n]
 
 
-def alpha_powers(by_point: dict, alpha: tuple) -> list:
-    """alpha^0 .. alpha^k for the largest alpha_index k of the grouped
-    claims (_group_claims): one h_mul a power."""
-    n_pows = 1 + max((c.alpha_index for ms in by_point.values() for _ci, c in ms), default=0)
-    powers = [qm31.ONE]
-    for _ in range(n_pows - 1):
-        powers.append(qm31.h_mul(powers[-1], alpha))
-    return powers
-
-
-def _group_constants(members, alpha: tuple, powers: list = None):
-    """Host constants of one point group: (consts (5, 4) = [A, B, dy, dx, vc],
-    weights (C_g, 4), member column indices). `powers` optionally carries the
-    precomputed alpha-power ladder (one incremental h_mul per index instead
-    of an h_pow per claim). The per-claim line coefficients are computed as
-    one vectorized (4, C) batch — the group shares its point, so dy/dx/vc
-    and the single QM31 inverse are computed once."""
-    point = members[0][1].point
-    zx, zy = point
-    zbx, zby = qm31.h_frobenius(zx), qm31.h_frobenius(zy)
-    dy = qm31.h_sub(zby, zy)
-    dx = qm31.h_sub(zbx, zx)
-    dy_inv = qm31.h_inv(dy)
-    vc = qm31.h_sub(qm31.h_mul(zy, dx), qm31.h_mul(zx, dy))
-
-    n = len(members)
-    vals = np.array([c.value for _ci, c in members], np.uint64).T % P_INT
-    aw = np.array(
-        [(powers[c.alpha_index] if powers is not None
-          else qm31.h_pow(alpha, c.alpha_index)) for _ci, c in members],
-        np.uint64)                                            # (C, 4)
-    vb = qm31.npq_frobenius(vals)
-    s_arr = qm31.npq_mul(qm31.npq_sub(vb, vals), qm31.npq_const(dy_inv, n))
-    l0 = qm31.npq_sub(vals, qm31.npq_mul(qm31.npq_const(zy, n), s_arr))
-    aw_t = aw.T                                               # (4, C)
-    a_const = qm31.npq_mul(aw_t, l0).sum(axis=1) % P_INT
-    b_const = qm31.npq_mul(aw_t, s_arr).sum(axis=1) % P_INT
-
-    consts = np.array([a_const, b_const,
-                       np.array(dy, np.uint64), np.array(dx, np.uint64),
-                       np.array(vc, np.uint64)], np.uint64).astype(np.uint32)
-    idxs = tuple(ci for ci, _c in members)
-    return consts, aw.astype(np.uint32), idxs
+def point_groups(claims_by_size: Dict[int, Sequence[Sequence[QuotientClaim]]],
+                 alpha: tuple) -> Dict[int, list]:
+    """Every size's point groups in one vectorised pass: for each size the
+    list [(consts (5, 4) = [A, B, dy, dx, vc], weights (C_g, 4), member
+    column indices), ...] (uint32), a group a distinct sample point of that
+    size's claims in order of first appearance, its members in claim
+    order. claims_by_size: size -> one claim list a column. One alpha
+    ladder serves every size; dy, dx, vc and the inverse of dy are computed
+    once a distinct point, the line coefficients s, l0 once a claim, and
+    A = sum a^k l0_k, B = sum a^k s_k reduced a group."""
+    points: dict = {}    # point -> its index among the distinct points
+    keys: dict = {}      # (size, point index) -> group index
+    first = {}           # size -> its first group index
+    gid, pid, col, vals, aidx = [], [], [], [], []
+    for size, claims in claims_by_size.items():
+        first[size] = len(keys)
+        for ci, col_claims in enumerate(claims):
+            for c in col_claims:
+                p = points.setdefault((tuple(c.point[0]), tuple(c.point[1])), len(points))
+                gid.append(keys.setdefault((size, p), len(keys)))
+                pid.append(p)
+                col.append(ci)
+                vals.append(c.value)
+                aidx.append(c.alpha_index)
+    if not vals:
+        return {size: [] for size in claims_by_size}
+    z = np.array(list(points), np.uint64) % P_INT                 # (P, 2, 4)
+    zx, zy = z[:, 0].T, z[:, 1].T                                 # (4, P)
+    dy = qm31.npq_sub(qm31.npq_frobenius(zy), zy)
+    dx = qm31.npq_sub(qm31.npq_frobenius(zx), zx)
+    vc = qm31.npq_sub(qm31.npq_mul(zy, dx), qm31.npq_mul(zx, dy))
+    dy_inv = np.array([qm31.h_inv(tuple(d)) for d in dy.T.tolist()], np.uint64).T
+    pid = np.array(pid)
+    v = np.array(vals, np.uint64).T % P_INT                       # (4, n)
+    s = qm31.npq_mul(qm31.npq_sub(qm31.npq_frobenius(v), v), dy_inv[:, pid])
+    l0 = qm31.npq_sub(v, qm31.npq_mul(zy[:, pid], s))
+    aw = alpha_ladder(alpha, max(aidx) + 1)[:, aidx]              # (4, n)
+    # the claims by group, in claim order inside each: a group's members
+    # are a contiguous run, and each run's a^k l0_k and a^k s_k one reduceat
+    order = np.argsort(np.array(gid), kind="stable")
+    runs = np.flatnonzero(np.diff(np.array(gid)[order], prepend=-1))
+    terms = qm31.npq_mul(aw[:, None], np.stack([l0, s], 1))[:, :, order]   # (4, 2, n)
+    ab = np.add.reduceat(terms, runs, axis=2) % P_INT                       # (4, 2, G)
+    gp = [p for _size, p in keys]                                 # each group's point
+    consts = np.ascontiguousarray(
+        np.stack([ab[:, 0], ab[:, 1], dy[:, gp], dx[:, gp], vc[:, gp]]).transpose(2, 0, 1),
+        np.uint32)
+    weights = np.split(np.ascontiguousarray(aw[:, order].T, np.uint32), runs[1:])
+    idxs = np.split(np.array(col)[order], runs[1:])
+    groups = [(consts[g], weights[g], tuple(idxs[g].tolist())) for g in range(len(keys))]
+    ends = list(first.values())[1:] + [len(keys)]
+    return {size: groups[a:b] for (size, a), b in zip(first.items(), ends)}
 
 
 def _point_group_quotient(wf, consts, px, py):
@@ -177,28 +194,28 @@ def _point_group_quotient(wf, consts, px, py):
 
 
 def accumulate_quotients(
-    log_size: int,
-    columns: Sequence[torch.Tensor],
-    claims: Sequence[Sequence[QuotientClaim]],
+    inputs: Dict[int, Tuple[Sequence[torch.Tensor], Sequence[Sequence[QuotientClaim]]]],
     alpha: tuple,
     ops=None,
-) -> torch.Tensor:
-    """Prover: combined quotient evaluation on the commitment domain
-    2^log_size (QM31, (4, N) int32).
+) -> Dict[int, torch.Tensor]:
+    """Prover: the combined quotient evaluation of every commitment size,
+    size -> (4, 2^size) int32, from size -> (columns, one claim list a
+    column).
 
     Claims are grouped by sample point: all columns sampled at the same z
     share the pair-vanishing V and the line structure, so
         sum_k a^k (f_k - l_k)/V  =  (1/V) * (sum_k a^k f_k - A - B*p.y)
-    with scalar A = sum a^k l0_k, B = sum a^k s_k. With `ops` (the mesh
-    backend, parallel/prove.ShardedOps) the accumulation runs sharded."""
+    with scalar A = sum a^k l0_k, B = sum a^k s_k. Every size's constants
+    come from one pass (point_groups); then the sizes are launched back to
+    back, the largest first, so that its kernel runs while the host issues
+    the others. With `ops` (the mesh backend, parallel/prove.ShardedOps)
+    the accumulation runs sharded."""
     with tracing.span("quotients.constants"):
-        by_point = _group_claims(claims)
-        powers = alpha_powers(by_point, alpha)
-        groups = [_group_constants(members, alpha, powers) for members in by_point.values()]
+        groups = point_groups({size: claims for size, (_cols, claims) in inputs.items()}, alpha)
     with tracing.span("quotients.launch"):
-        if ops is not None:
-            return ops.accumulate_all(log_size, columns, groups)
-        return accumulate_range(log_size, columns, groups)
+        launch = accumulate_range if ops is None else ops.accumulate_all
+        return {size: launch(size, inputs[size][0], groups[size])
+                for size in sorted(inputs, reverse=True)}
 
 
 def accumulate_range(log_size: int, columns: Sequence[torch.Tensor], groups,
@@ -232,7 +249,7 @@ def accumulate_groups(columns: Sequence[torch.Tensor], groups, px: torch.Tensor,
                       py: torch.Tensor) -> torch.Tensor:
     """The plain version: the combined quotient at the domain points (px,
     py) (any run of them: a shard's chunk) from the columns' values there
-    and the point groups' host constants (_group_constants). (4, n) int32."""
+    and the point groups' host constants (point_groups). (4, n) int32."""
     global PLAIN_CUDA_CALLS
     dev = columns[0].device
     if dev.type == "cuda":
@@ -248,23 +265,24 @@ def accumulate_groups(columns: Sequence[torch.Tensor], groups, px: torch.Tensor,
     return acc.to(torch.int32)
 
 
+def verifier_groups(groups) -> list:
+    """A size's point groups (point_groups) as the verifier keeps them:
+    [((A, B, dy, dx, vc), [(column index, alpha^k)]), ...] in host QM31
+    tuples."""
+    return [(tuple(tuple(int(x) for x in c) for c in consts),
+             [(ci, tuple(int(x) for x in w)) for ci, w in zip(idxs, weights)])
+            for consts, weights, idxs in groups]
+
+
 def prepare_point_groups(claims: Sequence[Sequence[QuotientClaim]], alpha: tuple):
-    """Verifier-side prep. Claims sampled at the same point share the
-    vanishing line, so precompute once per point group: (A, B, dy, dx, vc, [(column index, alpha^k)]) with
-    A = sum a^k l0_k, B = sum a^k s_k — exactly the prover's grouping
-    (accumulate_quotients), so the verifier evaluates
+    """Verifier-side prep of one size. Claims sampled at the same point
+    share the vanishing line, so precompute once per point group: (A, B,
+    dy, dx, vc, [(column index, alpha^k)]) with A = sum a^k l0_k, B = sum
+    a^k s_k — exactly the prover's grouping (point_groups), so the verifier
+    evaluates
         (sum a^k f_k - A - B*p.y) / V
     per group: one inverse per (group, position) instead of per claim."""
-    groups = _group_claims(claims)
-    powers = alpha_powers(groups, alpha)
-    out = []
-    for members in groups.values():
-        consts, weights, idxs = _group_constants(members, alpha, powers)
-        out.append((
-            tuple(tuple(int(x) for x in c) for c in consts),
-            [(ci, tuple(int(x) for x in w)) for ci, w in zip(idxs, weights)],
-        ))
-    return out
+    return verifier_groups(point_groups({0: claims}, alpha)[0])
 
 
 def quotient_values_batch(log_size: int, positions, column_values: np.ndarray,

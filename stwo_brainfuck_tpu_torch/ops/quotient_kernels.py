@@ -11,7 +11,7 @@ size), bit for bit the plain torch version ``core/quotients.accumulate_groups``.
 quotient at storage positions offset .. offset + n - 1 of the canonic
 domain of size 2^log_size, from M31 columns of n values each (rows of any
 tensors, read in place through a table of their pointers) and the point
-groups' host constants (``core/quotients._group_constants``, packed by
+groups' host constants (``core/quotients.point_groups``, packed by
 ``pack_groups`` behind the pointers: one small table, copied to the card
 from a reused pinned buffer, ``ops/staging.py``, without a
 synchronization). The kernel makes each domain point itself, so no

@@ -52,8 +52,9 @@ def test_accumulate_quotients_matches_jax(log_size, n_cols):
         log_size, [jnp.asarray(c) for c in cols],
         [[jq.QuotientClaim(p, v, a) for p, v, a in cl] for cl in raw], alpha)
     got = tq.accumulate_quotients(
-        log_size, [convert.to_torch(c) for c in cols],
-        [[tq.QuotientClaim(p, v, a) for p, v, a in cl] for cl in raw], alpha)
+        {log_size: ([convert.to_torch(c) for c in cols],
+                    [[tq.QuotientClaim(p, v, a) for p, v, a in cl] for cl in raw])},
+        alpha)[log_size]
     np.testing.assert_array_equal(convert.to_numpy(got), np.asarray(want))
     # the verifier's batched reconstruction at a few positions agrees
     positions = [0, 3, (1 << log_size) - 1]

@@ -465,8 +465,7 @@ def _quotient_case(seed, log_size, n_cols, n_groups, device):
             aidx += 1
         claims.append(cl)
     alpha = felt()
-    return cols, [quotients._group_constants(m, alpha)
-                  for m in quotients._group_claims(claims).values()]
+    return cols, quotients.point_groups({log_size: claims}, alpha)[log_size]
 
 
 @pytest.mark.parametrize("log_size, n_groups", [(lg, g) for lg in (5, 8, 13, 17, 22)
@@ -501,6 +500,34 @@ def test_quotient_kernel_on_mesh_shards(cuda, d):
     got = ops.accumulate_all(18, list(cols), groups)
     assert quotient_kernels.KERNEL.launches - before == d
     assert torch.equal(got.full(), quotients.accumulate_range(18, list(cols), groups))
+
+
+def test_accumulate_quotients_on_the_card_equals_each_size_alone(cuda):
+    """A prove's sizes through accumulate_quotients: one launch a size, the
+    largest first, each output the plain version's with that size's groups."""
+    rng = np.random.default_rng(9)
+    felt = lambda: tuple(int(v) for v in rng.integers(0, P, 4))  # noqa: E731
+    z = point_from_t(felt())
+    inputs, aidx = {}, 0
+    for log_size, n_cols in ((12, 5), (20, 4), (16, 9)):
+        cols = [torch.as_tensor(rng.integers(0, P, 1 << log_size).astype(np.int32), device=cuda)
+                for _ in range(n_cols)]
+        claims = []
+        for c in range(n_cols):
+            claims.append([quotients.QuotientClaim(shifted_point(z, log_size - 1, s), felt(),
+                                                   aidx + k)
+                           for k, s in enumerate(sorted({0, c % 3}))])
+            aidx += len(claims[-1])
+        inputs[log_size] = (cols, claims)
+    alpha = felt()
+    before = quotient_kernels.KERNEL.launches
+    got = quotients.accumulate_quotients(inputs, alpha)
+    assert quotient_kernels.KERNEL.launches - before == len(inputs)
+    assert list(got) == sorted(inputs, reverse=True)
+    groups = quotients.point_groups({s: claims for s, (_cols, claims) in inputs.items()}, alpha)
+    for log_size, (cols, _claims) in inputs.items():
+        assert torch.equal(got[log_size], quotients.accumulate_plain(log_size, cols,
+                                                                     groups[log_size]))
 
 
 def test_quotient_kernel_wrapper_refuses_what_it_cannot_take(cuda):

@@ -13,9 +13,16 @@ only on a card: tests/test_torch_gpu.py).
   do not wrap at 2^28 over 8 shards.
 - The grind's tile order and early exit (blake2s_kernels.emulate_grind)
   return hashlib's smallest nonce.
+- The point groups of every size from one pass (quotients.point_groups,
+  one alpha ladder) equal a claim-by-claim oracle on the benchmark cells'
+  layouts and at the edges (alpha 0 and 1, a group of one member, a size
+  of one group); prepare_point_groups keeps its form; accumulate_quotients
+  launches the largest size first with each size's output unchanged.
 Tolerance: none, bit for bit."""
 
 import hashlib
+import json
+import pathlib
 import struct
 
 import jax.numpy as jnp
@@ -24,10 +31,11 @@ import pytest
 import torch
 
 from stwo_brainfuck_tpu.core import quotients as jq
-from stwo_brainfuck_tpu_torch import convert
+from stwo_brainfuck_tpu_torch import air, convert, tracing
+from stwo_brainfuck_tpu_torch.core import qm31
 from stwo_brainfuck_tpu_torch.core import quotients as tq
 from stwo_brainfuck_tpu_torch.core.circle import point_from_t
-from stwo_brainfuck_tpu_torch.core.pcs import shifted_point
+from stwo_brainfuck_tpu_torch.core.pcs import PcsConfig, shifted_point
 from stwo_brainfuck_tpu_torch.ops import blake2s_kernels as bk
 from stwo_brainfuck_tpu_torch.ops import quotient_kernels as qk
 
@@ -88,9 +96,10 @@ def test_plain_ranges_equal_the_whole_and_jax(log_size, n_cols, n_groups, chunk_
         log_size, [jnp.asarray(c) for c in cols],
         [[jq.QuotientClaim(p, v, a) for p, v, a in cl] for cl in raw], alpha))
     claims = [[tq.QuotientClaim(p, v, a) for p, v, a in cl] for cl in raw]
-    whole = tq.accumulate_quotients(log_size, [convert.to_torch(c) for c in cols], claims, alpha)
+    whole = tq.accumulate_quotients({log_size: ([convert.to_torch(c) for c in cols], claims)},
+                                    alpha)[log_size]
     np.testing.assert_array_equal(convert.to_numpy(whole), want)
-    groups = [tq._group_constants(m, alpha) for m in tq._group_claims(claims).values()]
+    groups = tq.point_groups({log_size: claims}, alpha)[log_size]
     assert len(groups) == n_groups
     tcols = torch.as_tensor(cols.view(np.int32))
     step = 1 << chunk_log
@@ -107,7 +116,7 @@ def test_plain_ranges_equal_the_whole_and_jax(log_size, n_cols, n_groups, chunk_
 def test_pack_groups_layout():
     cols, raw, alpha = quotient_case(1, 6, 5, 2)
     claims = [[tq.QuotientClaim(p, v, a) for p, v, a in cl] for cl in raw]
-    groups = [tq._group_constants(m, alpha) for m in tq._group_claims(claims).values()]
+    groups = tq.point_groups({6: claims}, alpha)[6]
     words = qk.pack_groups(groups)
     at = 0
     for consts, weights, idxs in groups:
@@ -124,7 +133,7 @@ def test_pack_groups_layout():
 def test_kernel_wrapper_refuses_the_cpu():
     cols, raw, alpha = quotient_case(2, 5, 2, 1)
     claims = [[tq.QuotientClaim(p, v, a) for p, v, a in cl] for cl in raw]
-    groups = [tq._group_constants(m, alpha) for m in tq._group_claims(claims).values()]
+    groups = tq.point_groups({5: claims}, alpha)[5]
     with pytest.raises(ValueError):
         qk.KERNEL.accumulate(5, [torch.as_tensor(c.view(np.int32)) for c in cols], groups)
     with pytest.raises(TypeError):
@@ -213,7 +222,7 @@ def test_emulated_grind_finds_the_smallest_nonce(case):
 
 def _groups(cols, raw, alpha):
     claims = [[tq.QuotientClaim(p, v, a) for p, v, a in cl] for cl in raw]
-    return [tq._group_constants(m, alpha) for m in tq._group_claims(claims).values()]
+    return tq.point_groups({0: claims}, alpha)[0]
 
 
 def _zero_line(groups):
@@ -283,14 +292,169 @@ def test_batched_inverse_keeps_zero_at_zero():
     assert torch.equal(qk.batch_inv(z), want)
 
 
+def naive_groups(claims, alpha):
+    """One size's point groups claim by claim, the oracle of
+    quotients.point_groups: a group a point in order of first appearance,
+    its members in claim order, alpha^k by h_pow a claim, dy, dx, vc and
+    the line coefficients from the host QM31 functions, a group at a time.
+    [((A, B, dy, dx, vc), [w], idxs)] in host QM31 tuples."""
+    by_point = {}
+    for ci, col in enumerate(claims):
+        for c in col:
+            by_point.setdefault((tuple(c.point[0]), tuple(c.point[1])), []).append((ci, c))
+    out = []
+    for members in by_point.values():
+        zx, zy = members[0][1].point
+        dy = qm31.h_sub(qm31.h_frobenius(zy), zy)
+        dx = qm31.h_sub(qm31.h_frobenius(zx), zx)
+        vc = qm31.h_sub(qm31.h_mul(zy, dx), qm31.h_mul(zx, dy))
+        a = b = qm31.ZERO
+        weights = []
+        for _ci, c in members:
+            w = qm31.h_pow(alpha, c.alpha_index)
+            slope = qm31.h_mul(qm31.h_sub(qm31.h_frobenius(c.value), c.value), qm31.h_inv(dy))
+            a = qm31.h_add(a, qm31.h_mul(w, qm31.h_sub(c.value, qm31.h_mul(zy, slope))))
+            b = qm31.h_add(b, qm31.h_mul(w, slope))
+            weights.append(w)
+        out.append(((a, b, dy, dx, vc), weights, tuple(ci for ci, _c in members)))
+    return out
+
+
+def assert_groups_equal(got, want):
+    """point_groups' groups of one size equal the oracle's, word for word."""
+    assert len(got) == len(want)
+    for (consts, weights, idxs), (w_consts, w_weights, w_idxs) in zip(got, want):
+        assert consts.dtype == weights.dtype == np.uint32
+        assert consts.shape == (5, 4) and weights.shape == (len(w_idxs), 4)
+        assert consts.tolist() == [list(c) for c in w_consts]
+        assert weights.tolist() == [list(w) for w in w_weights]
+        assert idxs == w_idxs
+
+
+CELLS = ["production.fib19_io", "default.big22", "default.fib19_io"]
+# each cell's claims a prove, and its commitment sizes
+CELL_CLAIMS = {"production.fib19_io": (303, 8), "default.big22": (301, 6),
+               "default.fib19_io": (303, 8)}
+
+
+def cell_claims(cell: str, seed: int):
+    """A prove's quotient claims at the benchmark cell's layout (its
+    workload's table sizes and its configuration), as air.prove_brainfuck
+    makes them: size -> one claim list a column, the columns in tree
+    order, every column sampled at its shifts of a random z, random
+    values; and a random alpha."""
+    root = pathlib.Path(__file__).resolve().parent.parent / "benchmark"
+    work = json.loads((root / "workloads" / f"{cell}.json").read_text())
+    conf = json.loads((root / "configs" / f"{work['config']}.json").read_text())
+    config = PcsConfig(log_blowup=conf["log_blowup"], n_queries=conf["n_queries"],
+                       pow_bits=conf["pow_bits"], log_max_rows=conf["log_max_rows"])
+    layout = air.build_layout(next(iter(work["claims"].values())), config)
+    rng = np.random.default_rng(seed)
+    z = point_from_t(_felt(rng))
+    by_size, aidx = {}, 0
+    for metas in layout.trees:
+        for meta in metas:
+            if meta.shifts:
+                by_size.setdefault(meta.log_size + config.log_blowup, []).append(
+                    [tq.QuotientClaim(shifted_point(z, meta.log_size, s), _felt(rng), aidx + k)
+                     for k, s in enumerate(meta.shifts)])
+                aidx += len(meta.shifts)
+    return by_size, _felt(rng)
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_point_groups_equal_the_claim_by_claim_oracle_on_the_cells_layouts(cell):
+    by_size, alpha = cell_claims(cell, CELLS.index(cell))
+    n_claims, n_sizes = CELL_CLAIMS[cell]
+    assert sum(len(cl) for cols in by_size.values() for cl in cols) == n_claims
+    assert len(by_size) == n_sizes
+    with tracing.record(0) as rec:
+        got = tq.point_groups(by_size, alpha)
+    assert rec.counters == {"quotients.powers": n_claims}  # one ladder a prove
+    assert list(got) == list(by_size)
+    for size, claims in by_size.items():
+        assert_groups_equal(got[size], naive_groups(claims, alpha))
+
+
+@pytest.mark.parametrize("case", ["production_size", "three_groups"])
+def test_prepare_point_groups_returns_what_it_returned_before(case):
+    if case == "production_size":
+        by_size, alpha = cell_claims("production.fib19_io", 5)
+        claims = by_size[max(by_size) - 4]  # the memory's size: two points
+    else:
+        _, raw, alpha = quotient_case(11, 7, 9, 3)
+        claims = [[tq.QuotientClaim(p, v, a) for p, v, a in cl] for cl in raw]
+    want = [(consts, list(zip(idxs, weights))) for consts, weights, idxs in
+            naive_groups(claims, alpha)]
+    assert tq.prepare_point_groups(claims, alpha) == want
+
+
+def _one_member_size():
+    rng = np.random.default_rng(3)
+    z = point_from_t(_felt(rng))
+    return {9: [[tq.QuotientClaim(shifted_point(z, 8, 1), _felt(rng), 4)]]}, _felt(rng)
+
+
+def _sizes_of_one_and_three_groups(alpha):
+    _, raw, _ = quotient_case(21, 6, 7, 3)
+    _, raw1, _ = quotient_case(22, 8, 3, 1)
+    offset = sum(len(cl) for cl in raw)
+    return {6: [[tq.QuotientClaim(p, v, a) for p, v, a in cl] for cl in raw],
+            8: [[tq.QuotientClaim(p, v, a + offset) for p, v, a in cl] for cl in raw1]}, alpha
+
+
+EDGE_CASES = {
+    "alpha_0": lambda: _sizes_of_one_and_three_groups((0, 0, 0, 0)),
+    "alpha_1": lambda: _sizes_of_one_and_three_groups((1, 0, 0, 0)),
+    "a_group_of_one_member": _one_member_size,
+    "a_size_with_one_group": lambda: _sizes_of_one_and_three_groups((5, 6, 7, 8)),
+}
+
+
+@pytest.mark.parametrize("case", list(EDGE_CASES))
+def test_point_groups_edge_cases_equal_the_oracle(case):
+    by_size, alpha = EDGE_CASES[case]()
+    got = tq.point_groups(by_size, alpha)
+    for size, claims in by_size.items():
+        assert_groups_equal(got[size], naive_groups(claims, alpha))
+    if case == "a_group_of_one_member":
+        assert [len(g[2]) for g in got[9]] == [1]
+    if case == "a_size_with_one_group":
+        assert [len(got[6]), len(got[8])] == [3, 1]
+
+
+def test_accumulate_quotients_launches_the_largest_size_first(monkeypatch):
+    """Every size's output equals a launch of that size alone with the
+    oracle's groups; the sizes go out largest first, whatever their order
+    in the input."""
+    sizes = [5, 8, 6]
+    inputs, offset = {}, 0
+    for k, log_size in enumerate(sizes):
+        cols, raw, alpha = quotient_case(40 + k, log_size, 3 + k, 1 + k)
+        inputs[log_size] = ([torch.as_tensor(c.view(np.int32)) for c in cols],
+                            [[tq.QuotientClaim(p, v, a + offset) for p, v, a in cl] for cl in raw])
+        offset += sum(len(cl) for cl in raw)
+    launched = []
+    plain = tq.accumulate_range
+    monkeypatch.setattr(tq, "accumulate_range",
+                        lambda log_size, *a: launched.append(log_size) or plain(log_size, *a))
+    got = tq.accumulate_quotients(inputs, alpha)
+    assert launched == sorted(sizes, reverse=True)
+    for log_size, (cols, claims) in inputs.items():
+        groups = [(np.array(c, np.uint32), np.array(w, np.uint32), i)
+                  for c, w, i in naive_groups(claims, alpha)]
+        assert torch.equal(got[log_size], tq.accumulate_plain(log_size, cols, groups))
+
+
 @pytest.mark.parametrize("seed, n_cols, n_groups", [(0, 5, 1), (1, 9, 2), (2, 30, 3)])
 def test_accumulate_quotients_ladder_gives_the_same_constants(seed, n_cols, n_groups):
+    """The one ladder (quotients.alpha_ladder) is h_pow a power, and the
+    constants made with it are the oracle's."""
     _, raw, alpha = quotient_case(seed, 8, n_cols, n_groups)
     claims = [[tq.QuotientClaim(p, v, a) for p, v, a in cl] for cl in raw]
-    by_point = tq._group_claims(claims)
-    powers = tq.alpha_powers(by_point, alpha)
-    for members in by_point.values():
-        with_ladder = tq._group_constants(members, alpha, powers)
-        without = tq._group_constants(members, alpha)
-        for a, b in zip(with_ladder, without):
-            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    n = sum(len(cl) for cl in raw)
+    ladder = tq.alpha_ladder(alpha, n)
+    assert ladder.shape == (4, n)
+    assert [tuple(ladder[:, k].tolist()) for k in range(n)] == [qm31.h_pow(alpha, k)
+                                                                for k in range(n)]
+    assert_groups_equal(tq.point_groups({8: claims}, alpha)[8], naive_groups(claims, alpha))

@@ -3,7 +3,8 @@
 A prove of the small program recorded under tracing.record gives the
 proof it gives unrecorded, byte for byte; its top-level spans are
 air.PHASES, back to back; every span lies inside its parent and carries
-the request id; the `sync.*` counters follow the prove's structure; under
+the request id; the `sync.*` counters follow the prove's structure, and
+`quotients.powers` reads the claims' count; under
 torch.profiler every span is a `bf.` range. Outside a recording a span is
 one shared no-op context and nothing is recorded, and a collection inside
 the tracer's own bookkeeping leaves the nesting whole. The readers
@@ -90,6 +91,14 @@ def test_the_sync_counters_follow_the_prove(proves):
     # each counted sync is a span of its name
     spans = collections.Counter(s.name for s in rec.spans if s.name.startswith("sync."))
     assert dict(spans) == tracing.sync_counts([rec])
+
+
+def test_the_alpha_powers_are_built_once_a_prove(proves):
+    """quotients.powers: one ladder a prove, as long as the claims' count
+    (every sampled value is a claim), whatever the number of sizes."""
+    rec, proof = proves["rec"], proves["proof"]
+    claims = sum(len(cvals) for tvals in proof["sampled_values"] for cvals in tvals)
+    assert rec.counters["quotients.powers"] == claims
 
 
 def test_under_the_profiler_every_span_is_a_bf_range():

@@ -59,8 +59,7 @@ def _groups(seed: int, log_size: int, n_cols: int, n_groups: int) -> list:
             aidx += 1
         claims.append(cl)
     alpha = felt()
-    return [quotients._group_constants(m, alpha)
-            for m in quotients._group_claims(claims).values()]
+    return quotients.point_groups({log_size: claims}, alpha)[log_size]
 
 
 def _ms(fn, queued: bool) -> float:

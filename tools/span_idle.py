@@ -13,8 +13,8 @@ program's spans as `bf.` profiler ranges), `off` does not. For each
 session: `harness.read_trace`'s readings from the profile with the `bf.`
 ranges' device-side annotations left out, and the busy time those add
 where they are counted; the mean latency of a traced request; for `on`
-sessions also, a traced request: each span's self time, the `sync.*`
-counters and the readings `host.syncs` (their sum), `host.sync_wait_ms`
+sessions also, a traced request: each span's self time, the counters
+(`sync.*`, `quotients.powers`) and the readings `host.syncs` (their sum), `host.sync_wait_ms`
 (the `sync.*` spans' self time), `decommit.host_ms` (the self time of
 decommit.plan, decommit.layout, decommit.build) and `quotients.host_ms`
 (quotients.claims, quotients.constants); the idle time put down to the
@@ -31,6 +31,7 @@ whole result goes to `<out>/span_idle.<cell>.<checkout name>.json` (by default t
 from __future__ import annotations
 
 import argparse
+import collections
 import gc
 import importlib.util
 import json
@@ -116,7 +117,9 @@ def _session(cell, seed: int, first: int, on: bool) -> dict:
     out.update({
         "spans_per_request": sum(len(r.spans) for r in recs) / per,
         "span_self_ms": {k: v / 1e6 / per for k, v in sorted(own.items(), key=lambda kv: -kv[1])},
-        "counters": {k: v / per for k, v in sorted(tracing.sync_counts(recs).items())},
+        "counters": {k: v / per for k, v in
+                     sorted(sum((collections.Counter(r.counters) for r in recs),
+                                collections.Counter()).items())},
         **tracing.readings(recs)})
 
     # the idle gaps on the profiler's clock, put down to the innermost bf. range
