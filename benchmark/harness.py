@@ -9,7 +9,8 @@ the traffic's programs once cold and a few times warm; then the window
 runs for ``--seconds``. With ``--trace 1`` the run first proves a few
 requests under ``torch.profiler``,
 their prove phases marked as ranges that do not synchronize, and then
-runs the window untraced.
+runs the window untraced. A cell on W > 1 cards runs W such processes in
+lockstep, one a card, over the port's multi-process prover (ranks.py).
 
 Everything that belongs to one configuration, traffic mix, cell or metric
 is a file of its own, found by name: ``configs/<config>.json`` (the path
@@ -30,14 +31,17 @@ import gc
 import importlib.util
 import json
 import math
+import os
 import sys
 import time
+import traceback
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
+import ranks
 from arith import busy_union
 from traffic import Traffic
 
@@ -235,6 +239,7 @@ class Run:
     traced: Optional[TraceData] = None
     kept: List[Kept] = field(default_factory=list)
     failed: int = 0
+    peak_by_card: List[int] = field(default_factory=list)  # a cell on several cards
 
 
 def sample_size(cell: Cell) -> int:
@@ -261,9 +266,10 @@ class Reservoir:
             self.items[j] = make()
 
 
-def prove_request(cell: Cell, source: str, inp: bytes, device: str, timer=None):
-    """One request on the port: compile, run the VM, prove. Returns
-    (machine, proof, seconds in the VM)."""
+def prove_request(cell: Cell, source: str, inp: bytes, device: str, timer=None, mesh=None):
+    """One request on the port: compile, run the VM, prove (on `mesh`
+    where given, the process group's). Returns (machine, proof, seconds in
+    the VM)."""
     from stwo_brainfuck_tpu_torch import air
     from stwo_brainfuck_tpu_torch.core.pcs import PcsConfig
     from stwo_brainfuck_tpu_torch.vm.compiler import compile_program
@@ -273,7 +279,8 @@ def prove_request(cell: Cell, source: str, inp: bytes, device: str, timer=None):
     machine = Machine(compile_program(source), inp)
     machine.execute()
     vm_s = time.perf_counter() - t0
-    proof = air.prove_brainfuck(machine, PcsConfig(**cell.config), device=device, timer=timer)
+    proof = air.prove_brainfuck(machine, PcsConfig(**cell.config), device=device, timer=timer,
+                                mesh=mesh)
     return machine, proof, vm_s
 
 
@@ -281,7 +288,7 @@ def _steps(machine) -> int:
     return int(len(machine.trace()))
 
 
-def setup(cell: Cell, seed: int, device: str) -> None:
+def setup(cell: Cell, seed: int, device: str, prove=prove_request) -> None:
     """For each entry of the traffic, one cold prove and `warm_proves` warm
     ones, on warm-up requests (negative indices), each checked to have the
     table sizes the cell gives that entry."""
@@ -289,17 +296,18 @@ def setup(cell: Cell, seed: int, device: str) -> None:
     for j in range(1 + int(cell.spec["warm_proves"])):
         for k, e in enumerate(entries):
             source, inp = cell.traffic.request(seed, -1 - j * len(entries) - k, e)
-            _machine, proof, _ = prove_request(cell, source, inp, device)
+            _machine, proof, _ = prove(cell, source, inp, device)
             claim = {c: int(v) for c, v in proof["claim"].items()}
             if claim != cell.claims[e.name]:
                 raise SetupError(f"seed {seed}, {e.name}: the claim {claim} is not the cell's "
                                  f"{cell.claims[e.name]}")
 
 
-def _one(run: Run, keep: "Reservoir", i: int, device: str, prove, t_start: float,
+def _one(run: Run, keep: Optional["Reservoir"], i: int, device: str, prove, t_start: float,
          marks: Optional["PhaseMarks"]) -> float:
-    """Request i: prove it, record it, offer it to the sample. Returns its
-    end on the window's clock."""
+    """Request i: prove it, record it, offer it to the sample (a worker of
+    a cell on several cards, with no `keep`, only proves). Returns its end
+    on the window's clock."""
     import torch
 
     cell = run.cell
@@ -322,7 +330,7 @@ def _one(run: Run, keep: "Reservoir", i: int, device: str, prove, t_start: float
         marks.stop()
         rng.__exit__(None, None, None)
     t1 = time.perf_counter()
-    if proof is not None:
+    if proof is not None and keep is not None:
         steps = _steps(machine)
         run.requests.append(Request(entry.name, steps, t1 - t0, vm_s, t0 - t_start,
                                     t1 - t_start, marks is not None))
@@ -331,15 +339,18 @@ def _one(run: Run, keep: "Reservoir", i: int, device: str, prove, t_start: float
     return t1 - t_start
 
 
-def window(run: Run, device: str, seconds: float, prove=prove_request) -> None:
+def window(run: Run, device: str, seconds: float, prove=prove_request,
+           group: Optional[ranks.Group] = None) -> None:
     """The measured window: requests back to back until `seconds` have
     passed; the last request sent in time ends it. A traced run first
     proves the cell's `traced_requests` under the profiler (the traced window),
-    stops it, and then runs the window untraced."""
+    stops it, and then runs the window untraced. In a process group rank
+    0's clock ends the window for every rank, and rank 0 alone keeps the
+    sample."""
     import torch
 
     cuda = device.startswith("cuda")
-    keep = Reservoir(sample_size(run.cell), run.seed)
+    keep = Reservoir(sample_size(run.cell), run.seed) if group is None or group.rank == 0 else None
     i = 0
     marks = None
     if run.trace:
@@ -362,13 +373,17 @@ def window(run: Run, device: str, seconds: float, prove=prove_request) -> None:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     t_start = time.perf_counter()
-    while _one(run, keep, i, device, prove, t_start, None) < seconds:
+    while _go_on(group, _one(run, keep, i, device, prove, t_start, None) < seconds):
         i += 1
     run.window_s = time.perf_counter() - t_start
     if cuda:  # the marker resets the peak at each phase: its phases' peaks count too
         run.peak_bytes = max([int(torch.cuda.max_memory_allocated())]
                              + list(marks.peaks.values() if marks else []))
-    run.kept = keep.items
+    run.kept = keep.items if keep else []
+
+
+def _go_on(group: Optional[ranks.Group], more: bool) -> bool:
+    return more if group is None else group.go_on(more)
 
 
 def read_trace(prof, marks: PhaseMarks, window_s: float, n_requests: int) -> TraceData:
@@ -454,14 +469,21 @@ def breakdown(td: TraceData) -> dict:
 
 
 def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str,
-             started: float, root: Path = ROOT, prove=prove_request) -> dict:
+             started: float, root: Path = ROOT, prove=prove_request,
+             cores: Optional[List[int]] = None) -> dict:
     """One run of one cell: set-up, window, the metrics, the judgement.
-    Returns the result line's object (without `device`'s card fields)."""
+    Returns the result line's object (without `device`'s card fields). A
+    cell on several cards runs as rank 0 of its process group
+    (`_run_ranks`), with the port's prove; `cores` are the cores the
+    process may use, which the ranks share out."""
     cell = load_cell(name, root)
     run = Run(cell, seed, trace)
-    setup(cell, seed, device)
-    run.setup_s = time.perf_counter() - started
-    window(run, device, seconds, prove)
+    if cell.chips == 1:
+        setup(cell, seed, device)
+        run.setup_s = time.perf_counter() - started
+        window(run, device, seconds, prove)
+    else:
+        _run_ranks(run, seconds, device, started, root, cores)
     metrics = metrics_of(run, root)
     free_program_state(device)
     checks = judge(run, device)
@@ -469,6 +491,8 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str,
     out = {"correct": correct, "attempted": len(run.requests) + run.failed,
            "failed": run.failed, "metrics": metrics}
     dev = {"count": cell.chips, "memory_peak_bytes": run.peak_bytes}
+    if run.peak_by_card:
+        dev["memory_peak_bytes_by_card"] = run.peak_by_card
     if run.traced is not None:
         dev.update(busy_s=run.traced.busy_s, window_s=run.traced.window_s)
         out["breakdown"] = breakdown(run.traced)
@@ -477,7 +501,54 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str,
     return out
 
 
-def main(argv: List[str], started: float) -> int:
+def _run_ranks(run: Run, seconds: float, device: str, started: float, root: Path,
+               cores: Optional[List[int]]) -> None:
+    """Rank 0 of a cell on W > 1 cards: start the other ranks, and with
+    them the set-up and the window, each request proved by every rank on
+    the process group's mesh; then take every card's readings."""
+    cell = run.cell
+    argv = ["--workload", cell.name, "--seed", str(run.seed), "--seconds", repr(seconds),
+            "--trace", str(int(run.trace)), "--root", str(root)]
+    group = ranks.Group.start(argv, cell.chips, len(cell.traffic.entries), device, cores)
+    try:
+        prove = group.proving(prove_request)
+        setup(cell, run.seed, device, prove)
+        run.setup_s = time.perf_counter() - started
+        print(f"set-up {run.setup_s:.1f} s on {cell.chips} ranks; the window opens",
+              file=sys.stderr, flush=True)
+        window(run, device, seconds, prove, group)
+        group.finish(run)
+    except BaseException:
+        group.abort()
+        raise
+
+
+def worker(args) -> int:
+    """Rank `args.rank` of a cell on several cards: set-up and the window in
+    lockstep with rank 0, then its card's readings to rank 0. It prints
+    nothing on standard output."""
+    if args.cores:
+        os.sched_setaffinity(0, [int(c) for c in args.cores.split(",")])
+    try:
+        cell = load_cell(args.workload, Path(args.root))
+        group = ranks.Group.join(cell.chips, len(cell.traffic.entries), args.device)
+        run = Run(cell, args.seed, bool(args.trace))
+        prove = group.proving(prove_request)
+        setup(cell, args.seed, args.device, prove)
+        window(run, args.device, args.seconds, prove, group)
+        group.finish(run)
+    except Exception:
+        print(f"rank {args.rank}: {traceback.format_exc()}", file=sys.stderr, flush=True)
+        return 1
+    bad = forbidden_modules()
+    if bad:
+        print(f"rank {args.rank} holds {', '.join(bad)}: the port must not load JAX or the JAX "
+              "package", file=sys.stderr)
+        return 3
+    return 0
+
+
+def main(argv: List[str], started: float, cores: Optional[List[int]] = None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -485,7 +556,14 @@ def main(argv: List[str], started: float) -> int:
     ap.add_argument("--seed", type=int, required=True)
     ap.add_argument("--seconds", type=float, required=True)
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
+    # a worker of a cell on several cards, as rank 0 starts it (ranks.py)
+    ap.add_argument("--rank", type=int, default=0, help=argparse.SUPPRESS)
+    ap.add_argument("--device", default="cuda", help=argparse.SUPPRESS)
+    ap.add_argument("--root", default=str(ROOT), help=argparse.SUPPRESS)
+    ap.add_argument("--cores", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.rank:
+        return worker(args)
 
     import torch
 
@@ -499,7 +577,8 @@ def main(argv: List[str], started: float) -> int:
         return 2
     torch.cuda.init()
     kind = torch.cuda.get_device_name(0)
-    out = run_cell(args.workload, args.seed, args.seconds, bool(args.trace), "cuda", started)
+    out = run_cell(args.workload, args.seed, args.seconds, bool(args.trace), "cuda", started,
+                   cores=cores)
     bad = forbidden_modules()
     if bad:
         print(f"the process holds {', '.join(bad)}: the port must not load JAX or the JAX "

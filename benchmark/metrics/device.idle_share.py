@@ -1,5 +1,6 @@
 """The device's idle share of the traced window, in %: 1 - the union of
-kernel and copy intervals (arith.busy_union) over the window."""
+kernel and copy intervals (arith.busy_union) over the window; on several
+cards, the mean of the cards' idle shares (the harness sets busy_s so)."""
 
 
 def read(run):

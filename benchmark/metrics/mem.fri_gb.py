@@ -1,6 +1,6 @@
 """The largest allocated peak while the phases oods, quotients, fri run, over the traced
 requests (the phase marker reads and resets the allocator's peak at each
-mark), in 10^9 bytes."""
+mark), in 10^9 bytes; on several cards, the fullest card's in each phase."""
 
 PHASES = ("oods", "quotients", "fri",)
 

@@ -1,5 +1,5 @@
 """torch.cuda.max_memory_allocated() over the window (reset at its start),
-in 10^9 bytes."""
+in 10^9 bytes; on several cards, the fullest card's."""
 
 
 def read(run):

@@ -46,8 +46,10 @@ if __name__ == "__main__":
     os.environ.setdefault("USE_FLAX", "0")
     # the process on a fixed set of the host's cores, the last four it may use: the
     # scheduler then keeps the prover's threads there instead of moving them mid-window
-    os.sched_setaffinity(0, sorted(os.sched_getaffinity(0))[-4:])
+    # (the ranks of a cell on several cards share out the cores it may use)
+    cores = sorted(os.sched_getaffinity(0))
+    os.sched_setaffinity(0, cores[-4:])
     sys.path[:0] = [here, root]
     from harness import main
 
-    sys.exit(main(sys.argv[1:], started))
+    sys.exit(main(sys.argv[1:], started, cores))

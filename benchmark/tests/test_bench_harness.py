@@ -1,12 +1,15 @@
 """The harness on the CPU: it finds cells and metrics by name in files of
 their own, runs a tiny cell end to end (set-up, window, metrics, the
 judgement), and sees `correct` come out false when the timed path is
-broken underneath."""
+broken underneath. A tiny cell on two cards runs as two processes over
+gloo, proves what one card proves, and ends at once when a rank fails."""
 
 import copy
 import json
 import os
+import re
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -15,6 +18,7 @@ from pathlib import Path
 import pytest
 
 import harness
+import ranks
 from reference import tables, vm
 from reference.check import reference_claim
 from traffic import Traffic
@@ -45,18 +49,18 @@ def _claims(traffic: Traffic) -> dict:
 
 
 def _add_tiny_cell(root: Path, name="default.tiny", metric=None, traffic="tiny",
-                   entries=(TINY,)) -> None:
+                   entries=(TINY,), chips=1) -> None:
     """A cell, its traffic and (optionally) a metric, as new files and new
     entries only."""
     spec = {"why": "a tiny mix for the tests", "requests": list(entries)}
     (root / f"benchmark/traffic/{traffic}.json").write_text(json.dumps(spec))
     claims = _claims(Traffic.from_json(traffic, spec))
     (root / f"benchmark/workloads/{name}.json").write_text(json.dumps(
-        {"config": "default", "traffic": traffic, "chips": 1, "claims": claims, "warm_proves": 1,
-         "checked_requests": 3, "traced_requests": 2}))
+        {"config": "default", "traffic": traffic, "chips": chips, "claims": claims,
+         "warm_proves": 1, "checked_requests": 3, "traced_requests": 2}))
     bench = json.loads((root / "BENCHMARK.json").read_text())
-    bench["workloads"].append({"name": name, "config": "default", "traffic": traffic, "chips": 1,
-                               "why": "tests"})
+    bench["workloads"].append({"name": name, "config": "default", "traffic": traffic,
+                               "chips": chips, "why": "tests"})
     for m in bench["end_to_end"] + bench["per_layer"]:
         if "workloads" in m and "production.fib19_io" in m["workloads"]:
             m["workloads"].append(name)
@@ -155,6 +159,7 @@ def test_a_mix_sends_each_request_from_its_drawn_entry(tmp_path):
 def tiny_root(tmp_path_factory):
     root = _copy_root(tmp_path_factory.mktemp("tiny"))
     _add_tiny_cell(root)
+    _add_tiny_cell(root, name="default.tiny2", chips=2)
     return root
 
 
@@ -241,3 +246,138 @@ def test_the_control_is_not_correct(tiny_root):
                              control.prove_as(control.control_config(cell.config), cell.config))
     good = control.judge_seed(cell, 3, "cpu", harness.prove_request)
     assert bad["rejected"] == harness.sample_size(cell) and not any(good.values())
+
+
+# ---------------------------------------------------------------------------
+# A cell on several cards: one process a card (ranks.py), here gloo on the CPU
+# ---------------------------------------------------------------------------
+
+def test_a_one_card_cell_starts_no_process(tiny_root, monkeypatch):
+    from stwo_brainfuck_tpu_torch.parallel import multihost
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a one-card cell joined a process group or started a process")
+
+    monkeypatch.setattr(multihost, "initialize", refuse)
+    monkeypatch.setattr(subprocess, "Popen", refuse)
+    out = _run(tiny_root, seconds=1.0)
+    assert out["correct"] and out["device"] == {"count": 1, "memory_peak_bytes": 0}
+
+
+def test_a_cell_on_two_cards_proves_what_one_card_proves(tiny_root, monkeypatch):
+    kept = []
+    judge = harness.judge
+
+    def keeping(run, device):
+        kept.extend(run.kept)
+        return judge(run, device)
+
+    monkeypatch.setattr(harness, "judge", keeping)
+    seed = 2**31 + 13
+    out = harness.run_cell("default.tiny2", seed, 2.0, False, "cpu", time.perf_counter(),
+                           root=tiny_root)
+    assert out["correct"] and out["failed"] == 0, out["checks"]
+    assert out["device"]["count"] == 2 and len(out["device"]["memory_peak_bytes_by_card"]) == 2
+    assert kept and len(kept) == min(out["attempted"], 3)
+    one = harness.load_cell("default.tiny", tiny_root)
+    for k in kept:
+        assert (k.source, k.input) == one.traffic.request(seed, k.index)
+        _machine, proof, _ = harness.prove_request(one, k.source, k.input, "cpu")
+        assert json.dumps(k.proof, sort_keys=True) == json.dumps(proof, sort_keys=True)
+
+
+_RANK0 = """
+import json, sys, time
+from pathlib import Path
+sys.path[:0] = {path!r}
+import harness
+out = harness.run_cell("default.tiny2", 2**31 + 17, 60.0, False, "cpu", time.perf_counter(),
+                       root=Path({root!r}))
+print(json.dumps(out))
+"""
+
+
+def _gone(pid: int) -> bool:
+    """No process `pid`, or only its exit status left (state Z)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] == "Z"
+    except FileNotFoundError:
+        return True
+
+
+@pytest.mark.parametrize("ending", ["worker-killed", "rank-0-terminated"])
+def test_a_failing_rank_ends_the_run(tiny_root, ending):
+    """A worker killed in the window ends rank 0 within a minute, non-zero
+    and with no result line; rank 0 ended by SIGTERM takes its worker
+    with it. Standard error reaches its end only when every process that
+    holds it (rank 0 and its worker) has ended."""
+    code = _RANK0.format(path=[str(harness.BENCH_DIR), str(harness.ROOT)], root=str(tiny_root))
+    rank0 = subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True)
+    try:
+        worker, head = None, []
+        for line in rank0.stderr:
+            head.append(line)
+            m = re.match(r"rank 1: pid (\d+)", line)
+            worker = int(m.group(1)) if m else worker
+            if "the window opens" in line:
+                break
+        assert worker is not None, "".join(head)
+        time.sleep(0.5)
+        t0 = time.monotonic()
+        if ending == "worker-killed":
+            os.kill(worker, signal.SIGKILL)
+        else:
+            os.kill(rank0.pid, signal.SIGTERM)
+        out, err = rank0.communicate(timeout=ranks.STALL_S)
+        assert time.monotonic() - t0 < ranks.STALL_S
+    finally:
+        if rank0.poll() is None:
+            rank0.kill()
+            rank0.wait()
+    assert rank0.returncode != 0 and out.strip() == ""
+    assert _gone(worker)
+    if ending == "worker-killed":
+        assert "rank 1 exited with code -9" in err, err[-3000:]
+    else:
+        assert "rank 0 has ended" in err, err[-3000:]
+
+
+def test_the_cards_readings_combine_as_the_fullest_card_and_the_mean_idle_share():
+    cell = harness.load_cell("production.fib19_io")
+
+    def run_of(peak, phases, busy, window):
+        run = harness.Run(cell, 1, True)
+        run.peak_bytes = peak
+        run.traced = harness.TraceData(window_s=window, busy_s=busy, requests=1,
+                                       phase_peaks=phases)
+        return run
+
+    def reading(name, run):
+        return harness.metric_reader(name)(run)
+
+    cards = [run_of(5 * 10**9, {"tree1": 4 * 10**9, "fri": 1 * 10**9}, 2.0, 10.0),
+             run_of(7 * 10**9, {"tree1": 3 * 10**9, "fri": 6 * 10**9}, 6.0, 12.0),
+             run_of(6 * 10**9, {"tree1": 2 * 10**9}, 4.0, 8.0)]
+    readings = [ranks.card_readings(c) for c in cards]
+    alone = run_of(5 * 10**9, {"tree1": 4 * 10**9, "fri": 1 * 10**9}, 2.0, 10.0)
+    ranks.combine(alone, readings[:1])  # one card: every reading as it was
+    assert (reading("peak_mem_gb", alone), reading("mem.fri_gb", alone),
+            reading("device.idle_share", alone)) == (5.0, 1.0, 80.0)
+    assert alone.peak_by_card == [5 * 10**9]
+    rank0 = cards[0]
+    ranks.combine(rank0, readings)
+    assert rank0.peak_by_card == [5 * 10**9, 7 * 10**9, 6 * 10**9]
+    assert reading("peak_mem_gb", rank0) == 7.0
+    assert (reading("mem.commit_gb", rank0), reading("mem.fri_gb", rank0)) == (4.0, 6.0)
+    # idle shares 80 %, 50 % and 50 %, each of its card's own traced window
+    assert reading("device.idle_share", rank0) == pytest.approx(60.0)
+    assert rank0.traced.window_s == 10.0
+
+
+def test_the_ranks_share_out_the_cores():
+    assert ranks.core_sets(range(32), 4) == [list(range(28, 32)), list(range(24, 28)),
+                                             list(range(20, 24)), list(range(16, 20))]
+    assert ranks.core_sets(range(8), 1) == [[4, 5, 6, 7]]
+    assert ranks.core_sets(range(8), 4) == [[4, 5, 6, 7]] * 4
