@@ -4,7 +4,7 @@
 
 Phases (any failure raises and the script exits non-zero):
   1. device report: the card's name, power limit and clocks, CUDA version,
-     kernel build time (the eight kernel libraries are built with nvcc from
+     kernel build time (the kernel libraries are built with nvcc from
      stwo_brainfuck_tpu_torch/csrc/ into stwo_brainfuck_tpu_torch/build/,
      one nvcc per source, started together), and the SASS instruction
      counts of one M31 product, m31::mul, the FFT's m31::mul_doubled and
@@ -81,14 +81,19 @@ Phases (any failure raises and the script exits non-zero):
      the one card): the sharded evaluate, interpolate and extend (D 2, 4, 8;
      n 16, 20, 24; 1 and 8 columns) against the one-device kernel and the
      plain version, bit for bit, and one sharded evaluate (4, 2^24) at D = 4
-     timed beside the one-device kernel's; then, counts set to 0 first, the
-     small program through the CLI with --devices 8 (sha256, tamper) and
-     fib19_io at D = 2 and 4 (sha256, verify), each with its per-phase
-     split (the decommitment in one device->host pull), peak device
-     memory and FFT, Blake2s and quotient launches, no
-     plain FFT, Blake2s or quotient call on a CUDA tensor and no M31
-     kernel; the small program also
-     at --pow-bits 16 with --devices 8 (the grind kernel);
+     timed beside the one-device kernel's; the mesh-stage kernel
+     (csrc/mesh_stages.cu: every cross stage and the in-place sum) against
+     its plain version at the main path's 2^28-position chunk, bit for bit,
+     in place and into another buffer, and timed beside its byte bound and
+     the plain version (the `mesh_stages` line); then, counts set to 0
+     first, the small program through the CLI with --devices 8 (sha256,
+     tamper) and fib19_io at D = 2 and 4 (sha256, verify), each with its
+     per-phase split (the decommitment in one device->host pull), peak
+     device memory and FFT, Blake2s and quotient launches, the mesh-stage
+     kernel once a shard a cross-stage chunk (the recording's `fft.cross`
+     spans) and once a sum, no plain FFT, Blake2s, quotient or mesh-stage
+     call on a CUDA tensor and no M31 kernel; the small program also at
+     --pow-bits 16 with --devices 8 (the grind kernel);
   7. multi-process proving over torch.distributed
      (stwo_brainfuck_tpu_torch/parallel/multihost.py, one shard a process):
      the small program through `python -m stwo_brainfuck_tpu_torch.cli
@@ -98,7 +103,8 @@ Phases (any failure raises and the script exits non-zero):
      (sha256, verified on the card); fib19_io in two
      spawned processes sharing the card (gloo), cold then warm, each process
      reporting its phases (the decommitment in one pull and one
-     all_reduce), peak device memory, FFT launches and plain calls
+     all_reduce), peak device memory, FFT launches, mesh-stage launches
+     (one a cross-stage chunk and one a sum) and plain calls
      (counts at 0 before each prove); with two or more cards, fib19_io on
      two (and four) cards with NCCL. Every process must launch the FFT
      kernel and the Blake2s tree kernel (at most twice a commit: its shard's
@@ -128,9 +134,10 @@ Phases (any failure raises and the script exits non-zero):
      the sharded sizes; the table kernel once a prove, on every path, its
      counts pulled once), no plain FFT, Blake2s, quotient, constraint-path
      (the prefix sum included), OODS, fold or table call may have run on a
-     CUDA tensor, no host table pass (build_meta), and no M31 kernel or
-     plain M31 op; the profiled prove's tables phase makes one host sync
-     and one device-to-host copy;
+     CUDA tensor, no host table pass (build_meta), no M31 kernel or
+     plain M31 op, and no mesh-stage launch or plain mesh stage; the
+     profiled prove's tables phase makes one host sync and one
+     device-to-host copy;
   9. production parameters (PcsConfig(log_blowup=4, n_queries=30,
      pow_bits=16)): the memory reading (production_memory: one cold
      fib19_io prove at input 19 under the allocator's history, its peak,
@@ -157,6 +164,12 @@ that names the card. Needs no jax.
 runs phase 7 alone, after one one-device fib19_io prove (cold and warm) to
 hold it against: on a machine with several cards (one process a card,
 NCCL) it is the multi-card check.
+
+    python3 chip_smoke.py mesh
+
+runs phase 6's mesh-stage check alone, then fib19_io on four shards of the
+card (cold and warm) and in two processes sharing it (gloo), each prove's
+mesh-stage launches held against its cross-stage chunks and sums.
 
     python3 chip_smoke.py production_memory
 
@@ -200,10 +213,9 @@ from stwo_brainfuck_tpu_torch.core.channel import _plain_grind
 from stwo_brainfuck_tpu_torch.core.pcs import PcsConfig
 from stwo_brainfuck_tpu_torch.framework import component as framework
 from stwo_brainfuck_tpu_torch.ops import (blake2s_kernels, circle_fft, constraint_kernels,
-                                           fri_kernels, m31_kernels, nvcc, oods_kernels,
-                                           quotient_kernels, table_kernels)
+                                           fri_kernels, m31_kernels, mesh_kernels, nvcc,
+                                           oods_kernels, quotient_kernels, table_kernels)
 from stwo_brainfuck_tpu_torch.parallel import fft_sharded
-from stwo_brainfuck_tpu_torch.parallel import mesh as mesh_calls
 from stwo_brainfuck_tpu_torch.parallel.merkle_sharded import commit_sharded
 from stwo_brainfuck_tpu_torch.parallel.mesh import make_mesh
 from stwo_brainfuck_tpu_torch.vm.compiler import compile_program
@@ -301,6 +313,9 @@ CONSTRAINT_CHUNK_LOG = 22
 CONSTRAINT_SAMPLE_LOG = 20
 CONSTRAINT_CHUNKS = 4
 MESH_SHARDS = (2, 4)  # the one-process mesh's shard counts on fib19_io
+# The mesh-stage kernel's checked and timed shape: one column of a 2^30
+# transform's shard over four cards, the largest chunk the main path gives it
+MESH_STAGE_LOG = 28
 SCAN_REPLACES = ("stwo_brainfuck_tpu/framework/component.py:674 (_qm31_cumsum, the prefix "
                  "half of :372 _build_interaction_fn)")
 
@@ -597,6 +612,87 @@ def phase_sharded_fft() -> dict:
         "shards": SHARDED_MESHES, "sizes": SHARDED_SIZES, "cols": [1, 8], "extend_blowup": 1,
         "comparisons": checked, "tolerance": 0, "max_abs_err": max_err, "times": times})
     return {"max_abs_err": max_err, "times": times}
+
+
+def phase_mesh_stages() -> dict:
+    """The mesh-stage kernel (csrc/mesh_stages.cu) against its plain
+    version on the same CUDA tensors, bit for bit, at the main path's chunk
+    shape (2^MESH_STAGE_LOG positions, the first pairs every pairing of 0,
+    1, p - 2 and p - 1): each stage the sharded transforms and the
+    composition's sum make (the evaluate's lower and upper cross stage, the
+    interpolate's, unscaled and with the 2^-n of the last stage folded in,
+    add_into) in place on the shard's buffer, and the cross stages also into
+    another buffer; each stage timed in place beside its byte bound (12 B a
+    position: the shard's word read and written, the partner's read) and
+    the plain version, with the launches and plain calls counted."""
+    p = mesh_kernels.P
+    n = 1 << MESH_STAGE_LOG
+    gen = torch.Generator(device="cuda").manual_seed(MESH_STAGE_LOG)
+    x = torch.randint(0, p, (n,), dtype=torch.int32, device="cuda", generator=gen)
+    y = torch.randint(0, p, (n,), dtype=torch.int32, device="cuda", generator=gen)
+    edges = torch.tensor([0, 1, p - 2, p - 1], dtype=torch.int32, device="cuda")
+    x[:16], y[:16] = edges.repeat_interleave(4), edges.repeat(4)
+    t, s = 1234567891 % p, fft.inv_pow2(MESH_STAGE_LOG + 2)
+    K = mesh_kernels
+    stages = {  # name: (kernel call (own, partner, out), plain op, its constant)
+        "evaluate_lower": (lambda a, b, o: K.evaluate_cross(a, b, t, False, out=o),
+                           K.EVAL_LOWER, t),
+        "evaluate_upper": (lambda a, b, o: K.evaluate_cross(a, b, t, True, out=o),
+                           K.EVAL_UPPER, t),
+        "interpolate_lower": (lambda a, b, o: K.interpolate_cross(a, b, t, False, out=o),
+                              K.ADD, 1),
+        "interpolate_lower_scaled": (
+            lambda a, b, o: K.interpolate_cross(a, b, t, False, scale=s, out=o),
+            K.ADD_SCALED, s),
+        "interpolate_upper": (lambda a, b, o: K.interpolate_cross(a, b, t, True, out=o),
+                              K.SUB_MUL, t),
+        "interpolate_upper_scaled": (
+            lambda a, b, o: K.interpolate_cross(a, b, t, True, scale=s, out=o),
+            K.SUB_MUL, t * s % p),
+        "add_into": (lambda a, b, o: K.add_into(a, b), K.ADD, 1),
+    }
+    reps = 10
+    launches0, guard = K.KERNEL.launches, K.PLAIN_CUDA_CALLS
+    launched = plain_calls = checked = 0
+    bound_ms = 12 * n / HBM_BYTES_PER_S * 1e3
+    times = {}
+    for name, (call, op, c) in stages.items():
+        want = K.stage_plain(op, x, y, c, torch.empty_like(x))
+        plain_calls += 1
+        got = x.clone()
+        call(got, y, got)
+        launched += 1
+        outs = [got]
+        if name != "add_into":
+            into = torch.full_like(x, -1)
+            call(x, y, into)
+            launched += 1
+            outs.append(into)
+        for o in outs:
+            if not torch.equal(o, want):
+                raise AssertionError(f"mesh stage {name} at 2^{MESH_STAGE_LOG} != plain")
+            checked += 1
+        del want, got, outs
+        work = x.clone()
+        kernel_ms = _time_ms(lambda: call(work, y, work), reps=reps)
+        plain_ms = _time_ms(lambda: K.stage_plain(op, work, y, c, work), reps=reps)
+        launched += reps + 1
+        plain_calls += reps + 1
+        times[name] = {"kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                       "share_of_bound": bound_ms / kernel_ms}
+        del work
+    torch.cuda.synchronize()
+    if K.KERNEL.launches - launches0 != launched:
+        raise AssertionError(f"mesh stages: {K.KERNEL.launches - launches0} launches, not "
+                             f"{launched}")
+    if K.PLAIN_CUDA_CALLS - guard != plain_calls:
+        raise AssertionError("a plain mesh stage ran on a CUDA tensor outside the named calls")
+    del x, y
+    torch.cuda.empty_cache()
+    _line("mesh_stages", {"positions": n, "comparisons": checked, "tolerance": 0,
+                          "max_abs_err": 0, "launches": launched, "plain_calls": plain_calls,
+                          "times": times})
+    return {"max_abs_err": 0, "times": times}
 
 
 # what each Blake2s entry point replaces: the JAX package's Blake2s
@@ -971,16 +1067,19 @@ def _reset_counts() -> None:
     table_kernels.KERNEL.launches = 0
     table_kernels.PLAIN_CUDA_CALLS = 0
     device_build.META_CALLS = 0
+    mesh_kernels.KERNEL.launches = 0
+    mesh_kernels.PLAIN_CUDA_CALLS = 0
 
 
 def _counts() -> dict:
     """The prover's kernels' launch counts: the FFT, each Blake2s entry, the
     quotient kernel, the constraint kernels, the OODS kernel, the FRI
-    fold kernel and the table kernel."""
+    fold kernel, the table kernel and the mesh-stage kernel."""
     return {"fft": circle_fft.KERNEL.launches, **blake2s_kernels.KERNELS.launches,
             "quotients": quotient_kernels.KERNEL.launches,
             **constraint_kernels.KERNELS.launches, "oods": oods_kernels.KERNEL.launches,
-            "fri_fold": fri_kernels.KERNEL.launches, "tables": table_kernels.KERNEL.launches}
+            "fri_fold": fri_kernels.KERNEL.launches, "tables": table_kernels.KERNEL.launches,
+            "mesh_stages": mesh_kernels.KERNEL.launches}
 
 
 def _plain_tables() -> int:
@@ -1032,6 +1131,24 @@ def _constraints_per_prove(launched: dict, shards: int, what: str) -> None:
                              f"{n} components" + (f" on {shards} shards" if shards else ""))
 
 
+def _mesh_stages_per_prove(launched: int, rec, sums: int, shards: int, what: str) -> None:
+    """The mesh-stage kernel of one prove: none on one device (shards 0);
+    on a mesh one launch a local shard in each `fft.cross` span of the
+    prove's recording (a cross-stage chunk) and one a `mesh_kernels.add_into`
+    call (the composition's sum, a shard each)."""
+    want = sum(1 for sp in rec.spans if sp.name == "fft.cross") * shards + sums
+    if launched != want or (shards and not want):
+        raise AssertionError(f"{what}: {launched} mesh-stage launches, not {want}"
+                             + (f" on {shards} shards" if shards else ""))
+
+
+@contextlib.contextmanager
+def _counting_sums():
+    """Count the mesh's in-place sums (calls of mesh_kernels.add_into)."""
+    with mock.patch.object(mesh_kernels, "add_into", wraps=mesh_kernels.add_into) as add:
+        yield add
+
+
 def _add_counts(a: dict, b: dict) -> dict:
     return {k: a.get(k, 0) + b.get(k, 0) for k in {**a, **b}}
 
@@ -1071,8 +1188,8 @@ class _PhaseCalls(air.PhaseTimer):
     """air.PhaseTimer that also records, for each phase, the device->host
     pulls of the decommitment's reads, of the OODS samples and of the table
     build's counts (the `sync.*` counters of the prove's recording,
-    tracing.record, which must be active) and the torch.distributed calls
-    of the process mesh (parallel/mesh.CALLS) made in it."""
+    tracing.record, which must be active) and the mesh's collectives made
+    in it (the recording's `mesh.<op>` counters)."""
 
     def __init__(self, device):
         super().__init__(device)
@@ -1082,7 +1199,8 @@ class _PhaseCalls(air.PhaseTimer):
     @staticmethod
     def _now() -> dict:
         counters = tracing.active().counters
-        return {k: counters.get(c, 0) for k, c in _PULL_COUNTERS.items()} | mesh_calls.CALLS
+        mesh = {k: v for k, v in counters.items() if k.startswith("mesh.") and k != "mesh.bytes"}
+        return {k: counters.get(c, 0) for k, c in _PULL_COUNTERS.items()} | mesh
 
     def mark(self, name: str) -> None:
         super().mark(name)
@@ -1092,11 +1210,11 @@ class _PhaseCalls(air.PhaseTimer):
         self._seen = now
 
 
-def _decommit_phase(seconds: float, calls: dict, what: str, processes: bool = False) -> dict:
+def _decommit_phase(seconds: float, calls: dict, what: str, mesh: bool = False) -> dict:
     """A prove's decommit phase: every gather served in one device->host
-    pull and, on the process mesh (`processes`), in one all_reduce and no
-    other torch.distributed call."""
-    want = {"pulls": 1, **({"all_reduce": 1} if processes else {})}
+    pull and, on a mesh, in one `gather_many` (on the process mesh one
+    all_reduce) and no other collective."""
+    want = {"pulls": 1, **({"mesh.gather_many": 1} if mesh else {})}
     if calls != want:
         raise AssertionError(f"{what}: decommit made {calls}, not {want}")
     return {"s": seconds, **calls}
@@ -1151,6 +1269,9 @@ def _check_launches(before: dict, what: str, grind: bool = False) -> dict:
     launched = _require_here({k: now[k] - before[k] for k in now}, what, grind)
     if any(m31_kernels.KERNELS.launches.values()) or m31_kernels.PLAIN_CUDA_CALLS:
         raise AssertionError(f"{what}: an M31 kernel or plain M31 op ran on the prover path")
+    if mesh_kernels.PLAIN_CUDA_CALLS:
+        raise AssertionError(f"{what}: a plain mesh stage ran on a CUDA tensor "
+                             f"{mesh_kernels.PLAIN_CUDA_CALLS} times")
     return launched
 
 
@@ -1229,13 +1350,15 @@ def phase_program(name, path, inp, runs: int, expect_sha: str | None,
         steps = len(machine.trace())
         torch.cuda.reset_peak_memory_stats()
         before = _counts()
-        with tracing.record(run), _counting_commits() as counted:
+        with tracing.record(run) as rec, _counting_commits() as counted, _counting_sums() as sums:
             timer = _PhaseCalls("cuda")
             t1 = time.perf_counter()
             proof = air.prove_brainfuck(machine, config, device="cuda", timer=timer, mesh=mesh)
             torch.cuda.synchronize()
             prove_s = time.perf_counter() - t1
         launched = _check_launches(before, f"{name} prove", grind=grind)
+        _mesh_stages_per_prove(launched["mesh_stages"], rec, sums.call_count,
+                               len(mesh.local) if mesh else 0, f"{name} prove")
         _constraints_per_prove(launched, len(mesh.local) if mesh else 0, f"{name} prove")
         if launched["tables"] != 1 or timer.calls["tables"].get("table_pulls") != 1:
             raise AssertionError(f"{name} prove: {launched['tables']} table launches and "
@@ -1245,7 +1368,7 @@ def phase_program(name, path, inp, runs: int, expect_sha: str | None,
         trees = _trees_per_commit(launched, counted["commits"], len(mesh.local) if mesh else 0,
                                   f"{name} prove")
         decommit = _decommit_phase(timer.seconds["decommit"], timer.calls["decommit"],
-                                   f"{name} prove")
+                                   f"{name} prove", mesh=mesh is not None)
         _oods_fri_per_prove(launched, len(proof["fri"]["layer_roots"]),
                             len(mesh.local) if mesh else 0,
                             timer.calls["oods"].get("oods_pulls", 0), f"{name} prove")
@@ -1275,8 +1398,8 @@ def phase_program(name, path, inp, runs: int, expect_sha: str | None,
             "quotient_launches": launched["quotients"],
             "constraint_launches": _constraint_launches(launched),
             "oods_launches": launched["oods"], "fold_launches": launched["fri_fold"],
-            "table_launches": launched["tables"], **trees,
-            "sha256": sha, "matches_jax": None if expect_sha is None else True,
+            "table_launches": launched["tables"], "mesh_stage_launches": launched["mesh_stages"],
+            **trees, "sha256": sha, "matches_jax": None if expect_sha is None else True,
             **({"matches_recorded": True} if recorded else {}),
         })
         if fresh_verify and run == runs - 1:
@@ -2548,7 +2671,8 @@ def _prove_rank(rank: int, world: int, port: int, backend: str, device: str, run
                 machine.execute()
                 torch.cuda.reset_peak_memory_stats(mesh.home)
                 _reset_counts()
-                with tracing.record(run), _counting_commits() as counted:
+                with (tracing.record(run) as rec, _counting_commits() as counted,
+                      _counting_sums() as sums):
                     timer = _PhaseCalls(mesh.home)
                     t0 = time.perf_counter()
                     proof = air.prove_brainfuck(machine, timer=timer, mesh=mesh)
@@ -2568,7 +2692,10 @@ def _prove_rank(rank: int, world: int, port: int, backend: str, device: str, run
                        "oods_pulls": timer.calls["oods"].get("oods_pulls", 0),
                        "fri_layers": len(proof["fri"]["layer_roots"]),
                        "m31_launches": sum(m31_kernels.KERNELS.launches.values()),
-                       "plain_m31_cuda_calls": m31_kernels.PLAIN_CUDA_CALLS}
+                       "plain_m31_cuda_calls": m31_kernels.PLAIN_CUDA_CALLS,
+                       "cross_chunks": sum(1 for sp in rec.spans if sp.name == "fft.cross"),
+                       "sums": sums.call_count,
+                       "plain_mesh_cuda_calls": mesh_kernels.PLAIN_CUDA_CALLS}
                 if multihost.is_coordinator():
                     t1 = time.perf_counter()
                     air.verify_brainfuck(proof, device=mesh.home)
@@ -2632,9 +2759,16 @@ def _distributed_group(world: int, backend: str, device: str, runs: int) -> int:
                                 f"process {r['rank']}")
             r.update(_trees_per_commit(r["launches"], r["commits"], 1, f"process {r['rank']}"))
             r["decommit"] = _decommit_phase(r["phases_s"]["decommit"], r["decommit_calls"],
-                                            f"process {r['rank']}", processes=True)
+                                            f"process {r['rank']}", mesh=True)
             if r["m31_launches"] or r["plain_m31_cuda_calls"]:
                 raise AssertionError(f"process {r['rank']}: an M31 kernel or plain M31 op ran")
+            if r["plain_mesh_cuda_calls"]:
+                raise AssertionError(f"process {r['rank']}: a plain mesh stage ran on a CUDA "
+                                     f"tensor {r['plain_mesh_cuda_calls']} times")
+            want = r["cross_chunks"] + r["sums"]
+            if r["launches"]["mesh_stages"] != want or not want:
+                raise AssertionError(f"process {r['rank']}: {r['launches']['mesh_stages']} "
+                                     f"mesh-stage launches, not {want}")
             launched = _add_counts(launched, r["launches"])
         sha = ranks[0]["sha256"]
         if sha != REFERENCE_SHA256["fib19_io"]:
@@ -2650,6 +2784,7 @@ def _distributed_group(world: int, backend: str, device: str, runs: int) -> int:
                                          "blake2s_launches", "quotient_launches",
                                          "constraint_launches", "oods_launches",
                                          "fold_launches", "table_launches", "commits",
+                                         "cross_chunks", "sums",
                                          "tree_launches_per_commit", "plain_fft_cuda_calls",
                                          "plain_blake2s_cuda_calls", "plain_quotient_cuda_calls",
                                          "plain_constraint_cuda_calls")} for r in ranks]})
@@ -2896,8 +3031,8 @@ def phase_m31_path(m31: dict, per_mul: float, dispatch_per_s: float) -> dict:
 
 
 def main(argv) -> int:
-    if argv not in ([], ["distributed"], ["production_memory"]):
-        print(f"usage: {sys.argv[0]} [distributed | production_memory]", file=sys.stderr)
+    if argv not in ([], ["distributed"], ["production_memory"], ["mesh"]):
+        print(f"usage: {sys.argv[0]} [distributed | production_memory | mesh]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2907,7 +3042,7 @@ def main(argv) -> int:
     libs = (circle_fft.KERNEL.lib, m31_kernels.KERNELS.lib, blake2s_kernels.KERNELS.lib,
             quotient_kernels.KERNEL.lib, constraint_kernels.KERNELS.lib,
             constraint_kernels.KERNELS.scan_lib, oods_kernels.KERNEL.lib, fri_kernels.KERNEL.lib,
-            table_kernels.KERNEL.lib)
+            table_kernels.KERNEL.lib, mesh_kernels.KERNEL.lib)
     nvcc.build_all(libs)
     for lib in libs:
         if lib.build_log.strip():
@@ -2916,6 +3051,22 @@ def main(argv) -> int:
         # the production memory reading alone
         phase_production_memory(os.path.join(ROOT, "programs", "fib19_io.bf"))
         print(card)
+        return 0
+    if argv == ["mesh"]:
+        # the mesh-stage kernel alone, then the paths that launch it: a
+        # fib19_io prove on four shards of the card and in two processes
+        # sharing it, counts at 0 first
+        stages = phase_mesh_stages()
+        _reset_counts()
+        phase_program("fib19_io", os.path.join(ROOT, "programs", "fib19_io.bf"), FIB_INPUT,
+                      runs=2, expect_sha=REFERENCE_SHA256["fib19_io"], n_shards=4)
+        sharded = _require_here(_counts(), "the mesh prover")
+        _clear_prover_caches()
+        distributed = _distributed_group(2, "gloo", "cuda:0", runs=1)
+        print(card)
+        print(json.dumps({"mesh_stages": stages["times"],
+                          "launches": {"sharded_prover": sharded["mesh_stages"],
+                                       "distributed_prover": distributed["mesh_stages"]}}))
         return 0
     if argv == ["distributed"]:
         # phase 7 alone (on a machine with several cards, its NCCL groups
@@ -2967,6 +3118,7 @@ def main(argv) -> int:
     # the mesh prover: its transforms checked, then its path with the
     # counts at 0
     sharded_fft = phase_sharded_fft()
+    mesh_stages = phase_mesh_stages()
     _clear_prover_caches()
     _reset_counts()
     phase_small("sharded_small", ("--devices", "8"))
@@ -3130,6 +3282,28 @@ def main(argv) -> int:
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": None,
     })
+    # the mesh-stage kernel: the mesh's and the processes' paths only
+    t = mesh_stages["times"]["evaluate_upper"]
+    kernels.append({
+        "name": "mesh_cross", "route": "cuda",
+        "source": "stwo_brainfuck_tpu_torch/csrc/mesh_stages.cu",
+        "replaces": "stwo_brainfuck_tpu/parallel/fft_sharded.py (the cross stages' elementwise "
+                    "ops, fused by XLA) and the composition's sum of stwo_brainfuck_tpu/"
+                    "parallel/prove.py",
+        "shape": f"evaluate upper cross stage, 2^{MESH_STAGE_LOG} in place",
+        "launches": sharded["mesh_stages"], "launches_path": "sharded_prover",
+        "launches_by_path": {"prover": main_path["mesh_stages"],
+                             "sharded_prover": sharded["mesh_stages"],
+                             "distributed_prover": distributed["mesh_stages"],
+                             "production": production["launches"]["mesh_stages"],
+                             "bench": bench_path.get("mesh_stages", 0)},
+        "max_abs_err": mesh_stages["max_abs_err"], "ms": t["kernel_ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": "bytes",
+        "library_ms": None,
+    })
+    if main_path["mesh_stages"] or production["launches"]["mesh_stages"]:
+        raise AssertionError(f"the mesh-stage kernel ran on one device: main path {main_path}, "
+                             f"production {production['launches']}")
     if main_path["logup"] or main_path["scan"] or not (sharded["logup"] and sharded["scan"]
                                                        and distributed["logup"]
                                                        and distributed["scan"]):

@@ -408,7 +408,7 @@ def _prove_tables(mats: Dict[str, torch.Tensor], claim: Dict[str, int],
 
     log.info("FRI")
     s_max = max(fri_inputs)
-    fri_prover = fri.fri_commit(fri_inputs, channel, ops=ops)
+    fri_prover = fri.fri_commit(fri_inputs, channel, ops=ops)  # takes fri_inputs over
     del fri_inputs
     mark("fri")
 

@@ -221,7 +221,8 @@ class FriProver:
 
 
 def fri_commit(inputs: Dict[int, torch.Tensor], channel, ops=None) -> FriProver:
-    """inputs: circle-domain size log -> combined quotient (4, 2^log).
+    """inputs: circle-domain size log -> combined quotient (4, 2^log); the
+    call takes the dict over and removes its largest entry.
     Performs all folds, committing each intermediate line layer and mixing
     roots/last value into the channel. Radix-4: each committed layer folds
     twice (beta, then beta^2); a circle-folded input is injected (added)
@@ -230,7 +231,9 @@ def fri_commit(inputs: Dict[int, torch.Tensor], channel, ops=None) -> FriProver:
     card, int32 in and out), both folds and the injections between and
     after them included; so are the first circle fold and the last fold to
     LOG_LAST_LAYER. With `ops` (the mesh backend, parallel/prove.ShardedOps)
-    the steps and layer commits run sharded."""
+    the steps and layer commits run sharded. The largest input leaves the
+    dict once the first step has read it, so it is freed before the first
+    layer's tree is built (at production it sets the prove's peak)."""
     logs = sorted(inputs, reverse=True)
     if not logs:
         raise ValueError("no FRI inputs")
@@ -245,6 +248,7 @@ def fri_commit(inputs: Dict[int, torch.Tensor], channel, ops=None) -> FriProver:
     with tracing.span("fri.fold"):
         cur = step_fn(inputs[max_log], FoldStep(max_log, 1, True, beta0, beta0, beta0, max_log),
                       None, injected(max_log - 1))
+    del inputs[max_log]
     m = max_log - 1
     layers: List[merkle.MerkleTree] = []
     layer_evals: List[torch.Tensor] = []

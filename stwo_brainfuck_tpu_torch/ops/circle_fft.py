@@ -329,14 +329,16 @@ def shard_evaluate(x: torch.Tensor, n: int, n_shards: int, i: int) -> torch.Tens
                       twiddles=shard_twiddle_table(n, n_shards, i, False, str(x.device)))
 
 
-def shard_interpolate(x: torch.Tensor, n: int, n_shards: int, i: int) -> torch.Tensor:
-    """The local inverse stages of shard i of a 2^n interpolate, unscaled
-    (the 2^-n comes after the cross-shard stages)."""
+def shard_interpolate(x: torch.Tensor, n: int, n_shards: int, i: int,
+                      scale: int = 1) -> torch.Tensor:
+    """The local inverse stages of shard i of a 2^n interpolate, times
+    `scale`: 1 where cross-shard stages follow (the last of them applies
+    the 2^-n), the 2^-n where none does."""
     local = n - (n_shards.bit_length() - 1)
     if _device_of(x) == "cpu":
         return fft.interpolate_plain(x, local, fft.shard_stages(n, n_shards, i, True, "cpu"),
-                                     scale=1)
-    return KERNEL.run("interpolate", x, local, scale=1,
+                                     scale=scale)
+    return KERNEL.run("interpolate", x, local, scale=scale,
                       twiddles=shard_twiddle_table(n, n_shards, i, True, str(x.device)))
 
 

@@ -13,25 +13,34 @@ of 2^local positions, local = n - log2 D. Stage L has butterfly stride 2^L:
   shards this process owns;
 - cross stages (L >= local, the top log2 D stages): every position of a
   shard shares one block and one twiddle; partners are shards i and
-  i ^ dist, dist = 2^(L-local). One exchange per stage; the lower shard
-  computes u0 = a + t·b, the upper u1 = a - t·b (elementwise torch ops,
-  as the JAX package leaves them to XLA).
+  i ^ dist, dist = 2^(L-local). The lower shard computes u0 = a + t·b,
+  the upper u1 = a - t·b (``ops/mesh_kernels``: in place on the shard's
+  int32 buffer, the mesh-stage kernel on a CUDA shard, the plain version
+  on a CPU shard). A stage goes a chunk of whole columns at a time (at
+  most EXCHANGE_BYTES, at least one column): each chunk is one exchange
+  into a receive buffer that every chunk reuses, then one stage launch
+  over the chunk (a span ``fft.cross``), so a stage holds at most one
+  chunk of the partner and no widened temporary.
 
-The inverse runs the local stages unscaled, then the cross stages, then the
-global 2^-n. A transform takes an (N,) or a (C, N) array, sharded or not,
-and returns a Sharded array.
+The inverse runs the local stages unscaled, then the cross stages, the last
+of them with the global 2^-n folded in (without cross stages, the local
+stages scale). A transform takes an (N,) or a (C, N) array, sharded or not,
+and returns a Sharded array; the evaluate works in place on its input's
+shards where the caller gives them up (``consume``), else its first stage
+writes a new buffer.
 """
 
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
-from ..core import fft, m31
+from .. import tracing
+from ..core import fft
 from ..core.m31 import P_INT
-from ..ops import circle_fft
+from ..ops import circle_fft, mesh_kernels
 from .mesh import Mesh, Sharded
 
 
@@ -56,25 +65,63 @@ def _local_log(mesh: Mesh, log_size: int) -> int:
     return local
 
 
+# The most a cross stage receives from its partner at once: one column of
+# a (4, 2^30) transform over four shards. Smaller columns go together, so
+# a stage makes few exchanges and launches.
+EXCHANGE_BYTES = 1 << 30
+
+
+def cross_stage(mesh: Mesh, v: List[Optional[torch.Tensor]], dist: int,
+                apply: Callable[[int, torch.Tensor, torch.Tensor, torch.Tensor], None],
+                out: Optional[List[Optional[torch.Tensor]]] = None) -> None:
+    """One cross stage over contiguous (..., c) shards, a chunk of whole
+    columns at a time (EXCHANGE_BYTES at most, one column at least): every
+    shard receives its partner's (i ^ dist) chunk into one reused buffer,
+    then apply(i, own chunk, partner's chunk, output chunk), each a flat
+    view, writes the stage's values (into `out`'s shards where given, else
+    into v's)."""
+    out = v if out is None else out
+    rows = mesh.each(lambda i: v[i].reshape(-1, v[i].shape[-1]))
+    dst = mesh.each(lambda i: out[i].reshape(-1, out[i].shape[-1]))
+    n_rows, c = rows[mesh.local[0]].shape
+    per = max(1, min(n_rows, EXCHANGE_BYTES // (4 * c)))
+    recv = mesh.each(lambda i: torch.empty(per * c, dtype=torch.int32, device=mesh.device(i)))
+    for j in range(0, n_rows, per):
+        k = min(n_rows, j + per)
+        own = mesh.each(lambda i: rows[i][j:k].reshape(-1))
+        got = mesh.exchange(own, dist, out=mesh.each(lambda i: recv[i][:(k - j) * c]))
+        with tracing.span("fft.cross"):
+            for i in mesh.local:
+                apply(i, own[i], got[i], dst[i][j:k].reshape(-1))
+
+
+def _int32_shards(mesh: Mesh, x) -> List[Optional[torch.Tensor]]:
+    return mesh.each(lambda i: x[i].to(torch.int32).contiguous())
+
+
 @lru_cache(maxsize=64)
 def make_sharded_evaluate(mesh: Mesh, log_size: int):
-    """fn: coefficients (natural order) -> evaluation (bit-reversed
-    storage), both sharded over the mesh; int32."""
+    """fn(coeffs, consume=False): coefficients (natural order) ->
+    evaluation (bit-reversed storage), both sharded over the mesh; int32.
+    With `consume` the caller gives up a Sharded input: the cross stages
+    overwrite its shards."""
     n = log_size
     local = _local_log(mesh, n)
     cross = _cross_twiddles(n, mesh.size, False)
 
-    def fn(coeffs) -> Sharded:
-        v = mesh.as_sharded(coeffs).shards
+    def fn(coeffs, consume: bool = False) -> Sharded:
+        v = _int32_shards(mesh, mesh.as_sharded(coeffs).shards)
+        owned = consume
         for k, L in enumerate(range(n - 1, local - 1, -1)):
             dist = 1 << (L - local)
-            other = mesh.exchange(v, dist)
+            t = cross[k]
             # the lower shard holds a (gets a + t·b), the upper b (a - t·b)
-            v = mesh.each(lambda i: (
-                m31.add(v[i], m31.mul(other[i], cross[k][i])) if i & dist == 0
-                else m31.sub(other[i], m31.mul(v[i], cross[k][i]))).to(torch.int32))
+            out = v if owned else mesh.each(lambda i: torch.empty_like(v[i]))
+            cross_stage(mesh, v, dist, lambda i, a, b, o: mesh_kernels.evaluate_cross(
+                a, b, t[i], bool(i & dist), out=o), out)
+            v, owned = out, True
         return Sharded(mesh, mesh.each(
-            lambda i: circle_fft.shard_evaluate(v[i].contiguous(), n, mesh.size, i)))
+            lambda i: circle_fft.shard_evaluate(v[i], n, mesh.size, i)))
 
     return fn
 
@@ -90,16 +137,19 @@ def make_sharded_interpolate(mesh: Mesh, log_size: int):
 
     def fn(values) -> Sharded:
         x = mesh.as_sharded(values).shards
-        v = mesh.each(lambda i: circle_fft.shard_interpolate(x[i].contiguous(), n, mesh.size, i))
+        if local == n:  # one shard: no cross stage, the local stages scale
+            return Sharded(mesh, mesh.each(lambda i: circle_fft.shard_interpolate(
+                x[i].to(torch.int32).contiguous(), n, 1, i, scale=scale)))
+        v = mesh.each(lambda i: circle_fft.shard_interpolate(
+            x[i].to(torch.int32).contiguous(), n, mesh.size, i))
         for L in range(local, n):
             dist = 1 << (L - local)
-            other = mesh.exchange(v, dist)
             t = cross[n - 1 - L]
+            s = scale if L == n - 1 else 1
             # the lower shard holds a (gets a + b), the upper b ((a - b)/t)
-            v = mesh.each(lambda i: (
-                m31.add(v[i], other[i]) if i & dist == 0
-                else m31.mul(m31.sub(other[i], v[i]), t[i])).to(torch.int32))
-        return Sharded(mesh, mesh.each(lambda i: m31.mul(v[i], scale).to(torch.int32)))
+            cross_stage(mesh, v, dist, lambda i, a, b, o: mesh_kernels.interpolate_cross(
+                a, b, t[i], bool(i & dist), scale=s, out=o))
+        return Sharded(mesh, v)
 
     return fn
 
@@ -107,7 +157,8 @@ def make_sharded_interpolate(mesh: Mesh, log_size: int):
 def sharded_extend(mesh: Mesh, values, log_size: int, log_blowup: int):
     """(coefficients, evaluation on the 2^log_blowup times larger domain),
     both sharded: interpolate, zero-pad (each chunk of coefficients moves
-    to the shard that owns its positions), evaluate."""
+    to the shard that owns its positions), evaluate in place on the
+    padded copy."""
     coeffs = make_sharded_interpolate(mesh, log_size)(values)
     padded = mesh.pad(coeffs, log_size + log_blowup)
-    return coeffs, make_sharded_evaluate(mesh, log_size + log_blowup)(padded)
+    return coeffs, make_sharded_evaluate(mesh, log_size + log_blowup)(padded, consume=True)

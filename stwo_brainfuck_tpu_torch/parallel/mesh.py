@@ -31,7 +31,15 @@ The collectives:
 - ``gather_many``: the values at some positions of any number of arrays,
   on the host in every process, in one pass (the decommitment's reads,
   ``core/merkle.serve``): one device->host pull, and on the process mesh
-  one ``all_reduce``.
+  one ``all_reduce``;
+- ``pad``: a zero-padded copy, each chunk moved to the shard that owns its
+  positions.
+
+Inside a recording (``tracing.record``) each collective is a span
+``mesh.<op>``, counted in the counter of that name, and the process mesh
+adds the bytes of every payload it hands to ``torch.distributed`` to the
+counter ``mesh.bytes`` (a one-process mesh copies between its shards and
+counts none).
 
 Shards may share a device (D shards on one card, or on the CPU): then
 ``t.to(device)`` returns the same tensor, so every collective builds a
@@ -40,7 +48,7 @@ new list of shards and none updates a shard in place.
 
 from __future__ import annotations
 
-from collections import Counter
+import functools
 from dataclasses import dataclass
 from typing import Callable, List, Optional, Sequence, Tuple
 
@@ -51,9 +59,24 @@ import torch.distributed as tdist
 from .. import tracing
 from ..core import merkle
 
-# torch.distributed calls the process-group mesh has made in this process,
-# by name ("all_gather", "sendrecv", "all_to_all", "all_reduce").
-CALLS: Counter = Counter()
+
+def collective(op: str):
+    """A mesh method as the span `mesh.<op>`, counted once a call."""
+    name = "mesh." + op
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def traced(*args, **kwargs):
+            tracing.count(name)
+            with tracing.span(name):
+                return fn(*args, **kwargs)
+        return traced
+    return wrap
+
+
+def _sent(payload: torch.Tensor) -> None:
+    """The bytes this process hands to torch.distributed, in `mesh.bytes`."""
+    tracing.count("mesh.bytes", int(payload.nbytes))
 
 
 class Mesh:
@@ -103,6 +126,7 @@ class Mesh:
         items = [self.as_sharded(x) for x in items]
         return Sharded(self, self.each(lambda i: torch.stack([x.shards[i] for x in items])))
 
+    @collective("pad")
     def pad(self, x, log_size: int) -> "Sharded":
         """x (a tensor or a Sharded array, 2^k elements on its last axis)
         zero-padded to 2^log_size elements and sharded: each chunk moves
@@ -125,6 +149,7 @@ class Mesh:
         self._place(x, moves, out)
         return Sharded(self, out)
 
+    @collective("full")
     def full(self, x) -> torch.Tensor:
         """The whole array on this process's device."""
         return self._concat(x.shards) if isinstance(x, Sharded) else x.to(self.home)
@@ -179,19 +204,28 @@ class DeviceMesh(Mesh):
 
     # -- collectives over per-shard tensors --------------------------------
 
+    @collective("all_gather")
     def all_gather(self, shards: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         """Every shard's value stacked (D, ...) on every shard's device."""
         return [torch.stack([s.to(dev) for s in shards]) for dev in self.devices]
 
-    def exchange(self, shards: Sequence[torch.Tensor], dist: int) -> List[torch.Tensor]:
-        """Shard i receives shard i ^ dist."""
-        return [shards[i ^ dist].to(dev) for i, dev in enumerate(self.devices)]
+    @collective("exchange")
+    def exchange(self, shards: Sequence[torch.Tensor], dist: int,
+                 out: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """Shard i receives shard i ^ dist into out[i] (a buffer of that
+        shape on shard i's device). Every shard's value is read before any
+        is written."""
+        for i in range(self.size):
+            out[i].copy_(shards[i ^ dist])
+        return list(out)
 
+    @collective("shift")
     def shift(self, shards: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         """Shard i receives the last column of shard i - 1 (shard 0 that
         of shard D - 1)."""
         return [shards[i - 1][..., -1:].to(dev) for i, dev in enumerate(self.devices)]
 
+    @collective("permute")
     def permute(self, shards: Sequence[torch.Tensor], perm) -> List[torch.Tensor]:
         """The global gather out[j] = x[perm[j]] over the concatenated
         shards. `perm` is a global index tensor or its Permutation."""
@@ -206,10 +240,12 @@ class DeviceMesh(Mesh):
             out.append(o)
         return out
 
+    @collective("sum")
     def sum(self, shards: Sequence[torch.Tensor]) -> torch.Tensor:
         """The sum of every shard's value, on this process's device."""
         return sum(s.to(self.home) for s in shards)
 
+    @collective("gather_many")
     def gather_many(self, gathers: Sequence["merkle.Gather"]) -> List[np.ndarray]:
         """Every gather's values on the host (a sharded source's positions
         read on the shards that own them): one copy a device to `home`,
@@ -249,22 +285,24 @@ class ProcessGroupMesh(Mesh):
     def _gather_list(self, x: torch.Tensor) -> List[torch.Tensor]:
         x = self._stage(x)
         parts = [torch.empty_like(x) for _ in range(self.size)]
-        CALLS["all_gather"] += 1
+        _sent(x)
         tdist.all_gather(parts, x)
         return [p.to(self.home) for p in parts]
 
-    def _sendrecv(self, x: torch.Tensor, to: int, frm: int) -> torch.Tensor:
+    def _sendrecv(self, x: torch.Tensor, to: int, frm: int, out: torch.Tensor) -> torch.Tensor:
         """Send x to rank `to` while receiving a tensor of x's shape from
-        rank `frm`."""
+        rank `frm` into `out`, a contiguous buffer on this process's device
+        (under NCCL the receive lands there; under gloo it is staged through
+        host memory). Returns `out`."""
         if to == self.rank and frm == self.rank:
-            return x.clone()
+            return out.copy_(x)
         x = self._stage(x)
-        buf = torch.empty_like(x)
-        CALLS["sendrecv"] += 1
+        buf = out if out.device == x.device else torch.empty_like(x)
+        _sent(x)
         for req in tdist.batch_isend_irecv([tdist.P2POp(tdist.isend, x, to),
                                            tdist.P2POp(tdist.irecv, buf, frm)]):
             req.wait()
-        return buf.to(self.home)
+        return out if buf is out else out.copy_(buf)
 
     def _all_to_all(self, sends: List[torch.Tensor], recv_counts: List[int]) -> List[torch.Tensor]:
         """sends[d] (lead..., k_d) goes to rank d; returns what each rank
@@ -273,7 +311,7 @@ class ProcessGroupMesh(Mesh):
         inp = self._stage(torch.cat([s.movedim(-1, 0) for s in sends], dim=0))
         out = torch.empty((sum(recv_counts),) + tuple(inp.shape[1:]), dtype=inp.dtype,
                           device=inp.device)
-        CALLS["all_to_all"] += 1
+        _sent(inp)
         tdist.all_to_all_single(out, inp, output_split_sizes=recv_counts,
                                input_split_sizes=[int(s.shape[-1]) for s in sends])
         return [p.movedim(0, -1).to(self.home) for p in torch.split(out, recv_counts, dim=0)]
@@ -312,17 +350,25 @@ class ProcessGroupMesh(Mesh):
         out[self.rank] = value
         return out
 
+    @collective("all_gather")
     def all_gather(self, shards: Sequence[torch.Tensor]) -> List[Optional[torch.Tensor]]:
         return self._only(torch.stack(self._gather_list(shards[self.rank])))
 
-    def exchange(self, shards: Sequence[torch.Tensor], dist: int) -> List[Optional[torch.Tensor]]:
+    @collective("exchange")
+    def exchange(self, shards: Sequence[torch.Tensor], dist: int,
+                 out: Sequence[Optional[torch.Tensor]]) -> List[Optional[torch.Tensor]]:
         peer = self.rank ^ dist
-        return self._only(self._sendrecv(shards[self.rank], peer, peer))
+        return self._only(self._sendrecv(shards[self.rank], peer, peer, out[self.rank]))
 
+    @collective("shift")
     def shift(self, shards: Sequence[torch.Tensor]) -> List[Optional[torch.Tensor]]:
         r, d = self.rank, self.size
-        return self._only(self._sendrecv(shards[r][..., -1:], (r + 1) % d, (r - 1) % d))
+        last = shards[r][..., -1:]
+        return self._only(self._sendrecv(last, (r + 1) % d, (r - 1) % d,
+                                         torch.empty(last.shape, dtype=last.dtype,
+                                                     device=self.home)))
 
+    @collective("permute")
     def permute(self, shards: Sequence[torch.Tensor], perm) -> List[Optional[torch.Tensor]]:
         if not isinstance(perm, Permutation):
             perm = Permutation(self, perm)
@@ -341,14 +387,16 @@ class ProcessGroupMesh(Mesh):
         return self._only(o)
 
     def _all_reduce(self, x: torch.Tensor) -> None:
-        CALLS["all_reduce"] += 1
+        _sent(x)
         tdist.all_reduce(x)
 
+    @collective("sum")
     def sum(self, shards: Sequence[torch.Tensor]) -> torch.Tensor:
         x = self._stage(shards[self.rank]).clone()
         self._all_reduce(x)
         return x.to(self.home)
 
+    @collective("gather_many")
     def gather_many(self, gathers: Sequence["merkle.Gather"]) -> List[np.ndarray]:
         """Every gather's values on the host, the same in every process:
         each process writes the positions its shard owns (rank 0 also the

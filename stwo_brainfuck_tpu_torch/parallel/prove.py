@@ -28,7 +28,7 @@ process, on its own device, so every process computes the same values.
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Dict, List
+from typing import Dict
 
 import torch
 
@@ -36,6 +36,7 @@ from ..core import fft, fri, merkle, poly, quotients
 from ..core.m31 import P_INT
 from ..framework.component import (CompositionMember, CompositionSegment,
                                    build_interaction_trace_async, composition_evaluate)
+from ..ops import mesh_kernels
 from .fft_sharded import make_sharded_evaluate, make_sharded_interpolate, sharded_extend
 from .merkle_sharded import commit_sharded
 from .mesh import Mesh, Permutation, Sharded
@@ -55,10 +56,6 @@ def _permutation(mesh: Mesh, kind: str, log_size: int, log_blowup: int = 0) -> P
         if kind == "storage":
             perm = torch.argsort(perm)
     return Permutation(mesh, perm)
-
-
-def _int32(shards: List[torch.Tensor]) -> List[torch.Tensor]:
-    return [None if s is None else s.to(torch.int32) for s in shards]
 
 
 class ShardedOps:
@@ -82,10 +79,12 @@ class ShardedOps:
             return fft.interpolate(self.mesh.full(values), log_size)
         return make_sharded_interpolate(self.mesh, log_size)(values)
 
-    def evaluate(self, coeffs, log_size: int):
+    def evaluate(self, coeffs, log_size: int, consume: bool = False):
+        """The evaluation of `coeffs`; with `consume` a Sharded input is
+        given up to the transform, which overwrites its shards."""
         if not self._shardable(log_size):
             return fft.evaluate(self.mesh.full(coeffs), log_size)
-        return make_sharded_evaluate(self.mesh, log_size)(coeffs)
+        return make_sharded_evaluate(self.mesh, log_size)(coeffs, consume=consume)
 
     def extend_with_coeffs(self, values, log_size: int, blow: int):
         """(coefficients, blown-up evaluation) of a (C, N) array or a list
@@ -99,7 +98,8 @@ class ShardedOps:
     def combine_eval(self, acc: Dict[int, object], comp_log: int):
         """The composition evaluation: per size the accumulated
         contributions (composition), interpolated; zero-padded
-        to 2^comp_log and added; evaluated on the composition domain."""
+        to 2^comp_log and added (in place on the first padded array);
+        evaluated on the composition domain, in place on the sum."""
         total = None
         for lg, arr in sorted(acc.items()):
             coeffs = self.interpolate(self.mesh.as_sharded(arr) if self._shardable(lg) else arr,
@@ -111,13 +111,16 @@ class ShardedOps:
                                      device=self.mesh.home)
                 padded[:, :1 << lg] = coeffs
             total = padded if total is None else self._add(total, padded)
-        return self.evaluate(total, comp_log)
+        return self.evaluate(total, comp_log, consume=True)
 
     def _add(self, a, b):
+        """a + b mod p; a Sharded `a` (a padded array this object made) is
+        overwritten, shard by shard, with the mesh-stage kernel on a card."""
         if isinstance(a, torch.Tensor):
             return ((a.to(torch.int64) + b) % P_INT).to(torch.int32)
-        return Sharded(self.mesh, _int32(self.mesh.each(
-            lambda i: (a.shards[i].to(torch.int64) + b.shards[i]) % P_INT)))
+        for i in self.mesh.local:
+            mesh_kernels.add_into(a.shards[i], b.shards[i])
+        return a
 
     # -- Merkle ------------------------------------------------------------
 

@@ -1104,3 +1104,49 @@ def test_fib19_io_prove_makes_one_oods_launch_and_one_fold_launch_a_layer(cuda):
     assert fri_kernels.KERNEL.launches - folds == len(proof["fri"]["layer_roots"]) + 1
     assert (poly.PLAIN_CUDA_CALLS, fri.PLAIN_CUDA_CALLS) == plain
     assert chip_smoke.proof_sha256(proof) == chip_smoke.REFERENCE_SHA256["fib19_io"]
+
+
+@pytest.mark.parametrize("stage", ["evaluate_lower", "evaluate_upper", "interpolate_lower",
+                                   "interpolate_lower_scaled", "interpolate_upper", "add"])
+def test_mesh_stage_kernel_matches_the_plain_path_on_the_card(cuda, stage):
+    """The mesh-stage kernel on a (4, 2^22) shard, in place and into another
+    buffer, against the plain path (the same values on the CPU), with 0
+    and p - 1 among the inputs; a column view at an odd offset takes the
+    scalar loop."""
+    from stwo_brainfuck_tpu_torch.ops import mesh_kernels
+
+    rng = np.random.default_rng(len(stage))
+    x = rng.integers(0, P, (4, 1 << 22), dtype=np.int64)
+    y = rng.integers(0, P, (4, 1 << 22), dtype=np.int64)
+    x[0, :4], y[0, :4] = [0, P - 1, P - 1, 0], [P - 1, P - 1, 0, 0]
+    x, y = (torch.as_tensor(v.astype(np.int32)) for v in (x, y))
+    t = int(rng.integers(1, P))
+    kind, _, how = stage.partition("_")
+
+    def run(a, b, out=None):
+        if kind == "add":
+            return mesh_kernels.add_into(a, b)
+        upper = how == "upper"
+        if kind == "evaluate":
+            return mesh_kernels.evaluate_cross(a, b, t, upper, out=out)
+        return mesh_kernels.interpolate_cross(a, b, t, upper, out=out,
+                                              scale=fft.inv_pow2(30) if how != "lower" else 1)
+
+    want = run(x.clone(), y)
+    before = mesh_kernels.KERNEL.launches
+    got = x.to(cuda)
+    assert run(got, y.to(cuda)) is got
+    assert torch.equal(got.cpu(), want)
+    if kind != "add":
+        out = torch.empty_like(got)
+        run(x.to(cuda), y.to(cuda), out)
+        assert torch.equal(out.cpu(), want)
+    odd = x.to(cuda).reshape(-1)[1:1 + (1 << 20)].clone()[:-1]
+    odd_view = torch.cat([torch.zeros(1, dtype=torch.int32, device=cuda), odd])[1:]
+    assert odd_view.data_ptr() % 16 != 0
+    partner = y.reshape(-1)[:odd.numel()]
+    want_odd = run(odd.cpu().clone(), partner.clone())
+    run(odd_view, partner.to(cuda))
+    assert torch.equal(odd_view.cpu(), want_odd)
+    assert mesh_kernels.KERNEL.launches - before == (2 if kind == "add" else 3)
+    assert mesh_kernels.PLAIN_CUDA_CALLS == 0

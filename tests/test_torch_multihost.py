@@ -128,7 +128,8 @@ def _in_process(world: int) -> list:
            "shift": mesh.shift(sh.shards), "permute": mesh.permute(sh.shards, inp["perm"]),
            "pad": mesh.pad(sh, inp["pad_log"]).shards}
     for k in range(mesh.split_log):
-        per[f"exchange{1 << k}"] = mesh.exchange(sh.shards, 1 << k)
+        per[f"exchange{1 << k}"] = mesh.exchange(sh.shards, 1 << k,
+                                                 out=[torch.empty_like(s) for s in sh.shards])
     return [{**whole, **{k: v[r] for k, v in per.items()}} for r in range(world)]
 
 

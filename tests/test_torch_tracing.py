@@ -5,7 +5,9 @@ proof it gives unrecorded, byte for byte; its top-level spans are
 air.PHASES, back to back; every span lies inside its parent and carries
 the request id; the `sync.*` counters follow the prove's structure, and
 `quotients.powers` reads the claims' count; under
-torch.profiler every span is a `bf.` range. Outside a recording a span is
+torch.profiler every span is a `bf.` range. A 2-process gloo prove records
+its collectives (`mesh.<op>` spans and counters, `mesh.bytes` the payloads'
+sum) and its cross stages (`fft.cross`) inside the phases. Outside a recording a span is
 one shared no-op context and nothing is recorded, and a collection inside
 the tracer's own bookkeeping leaves the nesting whole. The readers
 (self_times, readings, phase_of, locate, idle_by_span, idle_by_phase) on
@@ -116,6 +118,62 @@ def test_under_the_profiler_every_span_is_a_bf_range():
     assert tuple(timer.seconds) == air.PHASES
     marks = [s for s in rec.spans if s.name == "timer.mark"]
     assert [rec.spans[s.parent].name for s in marks] == list(air.PHASES)
+
+
+MESH_OPS = ("all_gather", "exchange", "shift", "permute", "sum", "gather_many", "full", "pad")
+
+
+def test_a_two_process_prove_records_its_collectives_inside_the_phases(proves, tmp_path):
+    """A 2-process gloo prove of the small program inside a recording: the
+    one-device proof's bytes; a `mesh.<op>` span for each counted
+    collective and `fft.cross` spans, every one inside a prove phase; and
+    `mesh.bytes` the sum of the payloads the process handed to
+    torch.distributed."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs = []
+    try:
+        for rank in range(2):
+            env = {k: v for k, v in os.environ.items()
+                   if not k.startswith("STWO_BF_") and k not in (
+                       "WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+            env.update(STWO_BF_NUM_PROCESSES="2", STWO_BF_COORDINATOR=f"127.0.0.1:{port}",
+                       STWO_BF_PROCESS_ID=str(rank), PYTHONPATH=root, OMP_NUM_THREADS="1")
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.join(root, "tests", "torch_multihost_worker.py"),
+                 str(tmp_path), "traced_prove"], cwd=root, env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE))
+        outs = [p.communicate(timeout=240) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, (_, err)) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {rank}: {err.decode()[-3000:]}"
+    for rank in range(2):
+        got = torch.load(tmp_path / f"rank{rank}.pt")
+        assert got["traced_proof"] == json.dumps(proves["plain"]), rank
+        counters = got["traced_counters"]
+        spans = collections.Counter(name for name, _ in got["traced_spans"])
+        ops = {k[len("mesh."):]: v for k, v in counters.items()
+               if k.startswith("mesh.") and k != "mesh.bytes"}
+        assert set(ops) <= set(MESH_OPS)
+        assert {"exchange", "permute", "all_gather", "sum", "gather_many", "pad"} <= set(ops)
+        for op, n in ops.items():
+            assert spans["mesh." + op] == n, op
+        assert spans["fft.cross"] > 0
+        for name, phase in got["traced_spans"]:
+            if name.startswith("mesh.") or name == "fft.cross":
+                assert phase in air.PHASES, (name, phase)
+        assert counters["mesh.bytes"] == got["traced_payloads"] > 0
 
 
 def test_outside_a_recording_nothing_is_recorded():

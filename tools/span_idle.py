@@ -2,7 +2,7 @@
 cell's traced requests (card only).
 
     cd <checkout>; python3 <this checkout>/tools/span_idle.py --cell production.fib19_io \
-        [--seed N] [--sessions off,on,on,off] [--out DIR]
+        [--seed N] [--sessions off,on,on,off] [--devices D] [--out DIR]
 
 Set-up as the benchmark's (`benchmark/harness.setup` of the checkout the
 command starts from); then each session proves the cell's
@@ -20,10 +20,14 @@ decommit.plan, decommit.layout, decommit.build) and `quotients.host_ms`
 (quotients.claims, quotients.constants); the idle time put down to the
 innermost span open through it (`tracing.idle_by_span`, on the profiler's
 clock), and for each phase the share of its idle time that lands in a span
-inside it; the profiler's synchronizing runtime calls inside the requests
+inside it; the mesh's collectives and cross stages (`mesh`: each `mesh.<op>`
+and `fft.cross` span's count and self time a request, and `mesh.bytes`); the profiler's synchronizing runtime calls inside the requests
 beside the counters, those outside every `sync.*` span by the span they
 fall in. A checkout without `stwo_brainfuck_tpu_torch/tracing.py` runs its
-`off` sessions only. Prints the card and one JSON line a session; the
+`off` sessions only. With `--devices D` every prove runs on a one-process
+mesh of D shards over the visible cards (`parallel/mesh.make_mesh`), the
+sharded path a cell on D cards proves on, in one process (card 0's
+profile). Prints the card and one JSON line a session; the
 whole result goes to `<out>/span_idle.<cell>.<checkout name>.json` (by default the git-ignored
 `stwo_brainfuck_tpu_torch/build/`).
 """
@@ -73,17 +77,17 @@ class _Events:
         return self._events
 
 
-def _session(cell, seed: int, first: int, on: bool) -> dict:
+def _session(cell, seed: int, first: int, on: bool, mesh=None) -> dict:
     run = harness.Run(cell, seed, True)
     keep = harness.Reservoir(0, seed)
     recs = []
 
     def prove(cell, source, inp, device, timer):
         if not on:
-            return harness.prove_request(cell, source, inp, device, timer)
+            return harness.prove_request(cell, source, inp, device, timer, mesh=mesh)
         with tracing.record(first + len(recs)) as rec:
             recs.append(rec)
-            return harness.prove_request(cell, source, inp, device, timer)
+            return harness.prove_request(cell, source, inp, device, timer, mesh=mesh)
 
     n = int(cell.spec["traced_requests"])
     marks = harness.PhaseMarks(True)
@@ -121,6 +125,11 @@ def _session(cell, seed: int, first: int, on: bool) -> dict:
                      sorted(sum((collections.Counter(r.counters) for r in recs),
                                 collections.Counter()).items())},
         **tracing.readings(recs)})
+    mesh_spans = collections.Counter(s.name for r in recs for s in r.spans
+                                     if s.name.startswith("mesh.") or s.name == "fft.cross")
+    out["mesh"] = {k: {"per_request": n / per, "self_ms": own.get(k, 0) / 1e6 / per}
+                   for k, n in sorted(mesh_spans.items())}
+    out["mesh"]["mesh.bytes"] = sum(r.counters.get("mesh.bytes", 0) for r in recs) / per
 
     # the idle gaps on the profiler's clock, put down to the innermost bf. range
     ranges = [(ev.time_range.start, ev.time_range.end, ev.name[len(PREFIX):]) for ev in events
@@ -163,6 +172,8 @@ def main(argv) -> int:
     ap.add_argument("--cell", required=True)
     ap.add_argument("--seed", type=int, default=4100000001)
     ap.add_argument("--sessions", default="off,on,on,off")
+    ap.add_argument("--devices", type=int, default=0,
+                    help="prove on a one-process mesh of this many shards")
     ap.add_argument("--out", default=os.path.join(ROOT, "stwo_brainfuck_tpu_torch", "build"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -174,14 +185,23 @@ def main(argv) -> int:
                            "--format=csv,noheader"], capture_output=True, text=True).stdout
     print(card.strip(), flush=True)
     cell = harness.load_cell(args.cell)
+    mesh = None
+    if args.devices:
+        from stwo_brainfuck_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(args.devices, "cuda")
+
+    def prove(cell, source, inp, device, timer=None):
+        return harness.prove_request(cell, source, inp, device, timer, mesh=mesh)
+
     t0 = time.perf_counter()
-    harness.setup(cell, args.seed, "cuda")
+    harness.setup(cell, args.seed, "cuda", prove)
     result = {"cell": args.cell, "seed": args.seed, "checkout": ROOT, "card": card.strip(),
-              "setup_s": time.perf_counter() - t0, "sessions": []}
+              "devices": args.devices, "setup_s": time.perf_counter() - t0, "sessions": []}
     first = 0
     for s in sessions:
         gc.collect()  # the last session's profile is cyclic garbage: not in this one's requests
-        res = _session(cell, args.seed, first, s == "on")
+        res = _session(cell, args.seed, first, s == "on", mesh)
         first += int(cell.spec["traced_requests"])
         result["sessions"].append(res)
         print(json.dumps({"cell": args.cell, "checkout": os.path.basename(ROOT), **res}),
